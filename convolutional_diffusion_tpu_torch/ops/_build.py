@@ -1,0 +1,107 @@
+"""Build and bind the port's CUDA kernels.
+
+Each `csrc/*.cu` source compiles with `nvcc` into a shared library with a
+plain C interface, loaded with `ctypes`. The build happens at first use, in
+`build/torch_kernels/` at the root of the checkout (git-ignored), under a
+name that carries a hash of the source and flags, so an edited source is
+rebuilt and an unchanged one is reused. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import NamedTuple
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+
+# No --use_fast_math: the flash-score dot and exp2f must stay full fp32.
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_P = ctypes.c_void_p
+
+# name -> (source, C symbol, argtypes)
+KERNELS = {
+    "flash_score": (
+        "flash_score.cu",
+        "flash_score_f32",
+        [_P, _P, _P, _P, ctypes.c_float, _P, _P, _P, _P, _P, _P,
+         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, _P],
+    ),
+}
+
+
+class Built(NamedTuple):
+    path: Path
+    log: str  # nvcc output (ptxas registers / shared memory / spills)
+    seconds: float  # 0.0 when an existing build was reused
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    cand = os.path.join(home, "bin", "nvcc") if home else None
+    if cand and os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc") or (
+        "/usr/local/cuda/bin/nvcc"
+        if os.path.exists("/usr/local/cuda/bin/nvcc") else None
+    )
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME): the CUDA kernels build from "
+            "source at first use"
+        )
+    return found
+
+
+def build(name: str) -> Built:
+    """Compile kernel `name` unless an identical build exists."""
+    src = CSRC / KERNELS[name][0]
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    out = BUILD_DIR / f"lib{name}_{digest}.so"
+    log_path = out.with_suffix(".log")
+    if out.exists():
+        log = log_path.read_text() if log_path.exists() else ""
+        return Built(out, log, 0.0)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        capture_output=True, text=True,
+    )
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src.name}:\n{log}")
+    log_path.write_text(log)
+    os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    return Built(out, log, seconds)
+
+
+_LOADED: dict = {}
+
+
+def load(name: str):
+    """The ctypes function of kernel `name`, building it at first use."""
+    fn = _LOADED.get(name)
+    if fn is None:
+        _, symbol, argtypes = KERNELS[name]
+        lib = ctypes.CDLL(str(build(name).path))
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _LOADED[name] = fn
+    return fn

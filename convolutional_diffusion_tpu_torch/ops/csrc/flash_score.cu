@@ -1,0 +1,293 @@
+// Fused flash-score sweep, fp32 ('highest' tier, per-channel value sums),
+// hand-written for Hopper (sm_90a).
+//
+// Replaces the TPU kernel convolutional_diffusion_tpu/ops/flash_score.py
+// `_kernel` / `_kernel_body` (the one `pl.pallas_call` of that package) in
+// its precision='highest', v_strategy='vpu', 1-D-weights, no-prune variant.
+//
+// What it computes, for queries q [M, d] against one bank chunk K [P, d] with
+// per-patch bias [P] and values V [P, C], carrying an online-softmax state
+// (m [M], s1 [M], s2 [M, C]) in base-2 log space:
+//   logit[r, p] = dot(q[r], K[p]) * dotscale + bias[p]
+//   m_new  = max(m, max_p logit)
+//   s1     = s1 * 2^(m - m_new) + sum_p 2^(logit - m_new)
+//   s2[c]  = s2[c] * 2^(m - m_new) + sum_p 2^(logit - m_new) * V[p, c]
+// The wrapper (ops/flash_score.py) folds -a^2 |p|^2 / (2 beta^2) * log2(e)
+// and log2(w) into `bias` (-1e30 where w = 0) and moves the per-query
+// -|q|^2 / (2 beta^2) offset into m, exactly as the TPU wrapper does. Rows
+// whose max is still the -1e30 sentinel keep exp offsets from 0, so a tile of
+// excluded patches leaves the state exactly unchanged.
+//
+// What bounds it on an H100: the QK^T dot, 2*M*P*d operations, in true fp32.
+// The 1/(2 beta^2) logit scale turns a TF32 or bf16 rounding (2^-10 .. 2^-9)
+// into ~19% posterior error, so the dot cannot use the tensor cores as they
+// are; it runs as fp32 FFMA, 67 TFLOP/s published. The bank chunk is read
+// once per query block (M/64 times) but stays far below the 3.35 TB/s memory
+// rate (e.g. k=17: 227 MB chunk x 128 query blocks per ~10^12 operations).
+//
+// Design: one thread block owns BQ = 64 query rows and loops over the whole
+// chunk inside the block (the TPU grid's sequential bank axis becomes that
+// loop; blocks run independently, so no cross-block reduction). Per BP = 128
+// bank rows it computes a 64 x 128 dot tile as a register-blocked SGEMM:
+// d is tiled through shared memory BK = 16 features at a time (d reaches 867
+// on the CIFAR path and 2187 at 64x64, so a query row cannot stay resident),
+// each of the 256 threads keeps a 4 x 8 fp32 accumulator tile, and the next
+// stage's global loads are issued into registers before the current stage's
+// FFMAs so their latency hides behind them. The softmax epilogue runs in
+// registers: row max over the 16 threads of a row by warp shuffles, exp2f,
+// rescale, and per-thread partial s1/s2 that share the row's m and are summed
+// across the 16 threads once, at exit. The carried state is read at entry
+// and written once at exit. Offsets formed from row indices are 64-bit.
+// Built without fast-math: exp2f and the dot stay full fp32.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int BQ = 64;      // query rows per block
+constexpr int BP = 128;     // bank rows per tile
+constexpr int BK = 16;      // features per shared-memory stage
+constexpr int NT = 256;     // threads: 16 row groups x 16 column groups
+constexpr int TM = 4;       // rows per thread
+constexpr int TN = 8;       // columns per thread: tx*4 + j and 64 + tx*4 + j
+constexpr int AS = BQ + 4;  // padded strides: float4-aligned reads, at most
+constexpr int BS = BP + 4;  // 2-way bank conflicts on the transposing store
+constexpr int QL = BQ * BK / NT;  // query elements each thread stages
+constexpr int KL = BP * BK / NT;  // bank elements each thread stages
+constexpr float NEG_INF = -1e30f;
+
+template <int C>
+__global__ void __launch_bounds__(NT) flash_score_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ bias,
+    const float* __restrict__ bank, const float* __restrict__ values,
+    float dotscale, const float* __restrict__ m_in,
+    const float* __restrict__ s1_in, const float* __restrict__ s2_in,
+    float* __restrict__ m_out, float* __restrict__ s1_out,
+    float* __restrict__ s2_out, int64_t M, int64_t P, int d) {
+  constexpr int VL = (BP * C + NT - 1) / NT;  // value elements each thread stages
+
+  __shared__ __align__(16) float As[BK][AS];
+  __shared__ __align__(16) float Bs[BK][BS];
+  __shared__ float bias_s[BP];
+  __shared__ float v_s[C][BP];
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const int64_t row0 = (int64_t)blockIdx.x * BQ;
+
+  // Carried state. m is the same in all 16 threads of a row; s1/s2 are
+  // per-thread partial sums under that m (thread tx == 0 starts from the
+  // carried values), summed across the row's threads at exit.
+  float m[TM], s1[TM], s2[TM][C];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int64_t r = row0 + ty * TM + i;
+    const bool live = r < M;
+    m[i] = live ? m_in[r] : NEG_INF;
+    s1[i] = (live && tx == 0) ? s1_in[r] : 0.f;
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      s2[i][c] = (live && tx == 0) ? s2_in[r * C + c] : 0.f;
+  }
+
+  const int nk = (d + BK - 1) / BK;
+  const int64_t n_it = ((P + BP - 1) / BP) * nk;
+
+  float rq[QL], rk[KL], rb = NEG_INF, rv[VL];
+
+  // global -> registers for stage (pt, kt); zero / sentinel past the edges
+  auto load = [&](int64_t pt, int kt) {
+    const int k0 = kt * BK;
+#pragma unroll
+    for (int j = 0; j < QL; ++j) {
+      const int e = tid + j * NT;
+      const int64_t r = row0 + (e / BK);
+      const int kk = k0 + (e % BK);
+      rq[j] = (r < M && kk < d) ? q[r * d + kk] : 0.f;
+    }
+    const int64_t p0 = pt * BP;
+#pragma unroll
+    for (int j = 0; j < KL; ++j) {
+      const int e = tid + j * NT;
+      const int64_t p = p0 + (e / BK);
+      const int kk = k0 + (e % BK);
+      rk[j] = (p < P && kk < d) ? bank[p * d + kk] : 0.f;
+    }
+    if (kt == 0) {
+      rb = (tid < BP && p0 + tid < P) ? bias[p0 + tid] : NEG_INF;
+#pragma unroll
+      for (int j = 0; j < VL; ++j) {
+        const int e = tid + j * NT;
+        rv[j] = (e < BP * C && p0 + e / C < P) ? values[p0 * C + e] : 0.f;
+      }
+    }
+  };
+  // registers -> shared memory, transposed so the FFMA loop reads float4s
+  auto store = [&](int kt) {
+#pragma unroll
+    for (int j = 0; j < QL; ++j) {
+      const int e = tid + j * NT;
+      As[e % BK][e / BK] = rq[j];
+    }
+#pragma unroll
+    for (int j = 0; j < KL; ++j) {
+      const int e = tid + j * NT;
+      Bs[e % BK][e / BK] = rk[j];
+    }
+    if (kt == 0) {
+      if (tid < BP) bias_s[tid] = rb;
+#pragma unroll
+      for (int j = 0; j < VL; ++j) {
+        const int e = tid + j * NT;
+        if (e < BP * C) v_s[e % C][e / C] = rv[j];
+      }
+    }
+  };
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+  if (n_it > 0) {
+    load(0, 0);
+    store(0);
+  }
+  __syncthreads();
+
+  int kt = 0;
+  int64_t pt = 0;
+  for (int64_t it = 0; it < n_it; ++it) {
+    const bool has_next = it + 1 < n_it;
+    const int kt_next = (kt + 1 == nk) ? 0 : kt + 1;
+    const int64_t pt_next = (kt + 1 == nk) ? pt + 1 : pt;
+    if (has_next) load(pt_next, kt_next);
+
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      const float4 a = *reinterpret_cast<const float4*>(&As[kk][ty * TM]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[kk][64 + tx * 4]);
+      const float av[TM] = {a.x, a.y, a.z, a.w};
+      const float bv[TN] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+
+    if (kt == nk - 1) {  // dot tile complete: online-softmax epilogue
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        float lg[TN];
+        float mx = NEG_INF;
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          const int col = (j < 4) ? tx * 4 + j : 64 + tx * 4 + (j - 4);
+          lg[j] = fmaf(acc[i][j], dotscale, bias_s[col]);
+          mx = fmaxf(mx, lg[j]);
+          acc[i][j] = 0.f;
+        }
+#pragma unroll
+        for (int o = 8; o > 0; o >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        const float m_new = fmaxf(m[i], mx);
+        const float m_safe = (m_new <= NEG_INF * 0.5f) ? 0.f : m_new;
+        const float scale =
+            (m[i] <= NEG_INF * 0.5f) ? 0.f : exp2f(m[i] - m_safe);
+        float t1 = 0.f, t2[C];
+#pragma unroll
+        for (int c = 0; c < C; ++c) t2[c] = 0.f;
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          const int col = (j < 4) ? tx * 4 + j : 64 + tx * 4 + (j - 4);
+          const float e = exp2f(lg[j] - m_safe);
+          t1 += e;
+#pragma unroll
+          for (int c = 0; c < C; ++c) t2[c] = fmaf(e, v_s[c][col], t2[c]);
+        }
+        s1[i] = s1[i] * scale + t1;
+#pragma unroll
+        for (int c = 0; c < C; ++c) s2[i][c] = s2[i][c] * scale + t2[c];
+        m[i] = m_new;
+      }
+    }
+
+    __syncthreads();  // every thread is done reading this stage
+    if (has_next) store(kt_next);
+    __syncthreads();
+    kt = kt_next;
+    pt = pt_next;
+  }
+
+  // sum the per-thread partials of each row (all under the same m)
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1) {
+      s1[i] += __shfl_xor_sync(0xffffffffu, s1[i], o);
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        s2[i][c] += __shfl_xor_sync(0xffffffffu, s2[i][c], o);
+    }
+    const int64_t r = row0 + ty * TM + i;
+    if (tx == 0 && r < M) {
+      m_out[r] = m[i];
+      s1_out[r] = s1[i];
+#pragma unroll
+      for (int c = 0; c < C; ++c) s2_out[r * C + c] = s2[i][c];
+    }
+  }
+}
+
+template <int C>
+void launch(const void* q, const void* bias, const void* bank,
+            const void* values, float dotscale, const void* m_in,
+            const void* s1_in, const void* s2_in, void* m_out, void* s1_out,
+            void* s2_out, int64_t M, int64_t P, int d, cudaStream_t stream) {
+  const dim3 grid((unsigned)((M + BQ - 1) / BQ));
+  flash_score_f32_kernel<C><<<grid, NT, 0, stream>>>(
+      (const float*)q, (const float*)bias, (const float*)bank,
+      (const float*)values, dotscale, (const float*)m_in,
+      (const float*)s1_in, (const float*)s2_in, (float*)m_out,
+      (float*)s1_out, (float*)s2_out, M, P, d);
+}
+
+}  // namespace
+
+// Plain C entry point (bound with ctypes). Launches on `stream` and does not
+// synchronise; returns cudaGetLastError() after the launch (0 = launched).
+extern "C" int flash_score_f32(const void* q, const void* bias,
+                               const void* bank, const void* values,
+                               float dotscale, const void* m_in,
+                               const void* s1_in, const void* s2_in,
+                               void* m_out, void* s1_out, void* s2_out,
+                               long long M, long long P, int d, int c,
+                               int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (M <= 0) return (int)cudaSuccess;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (c) {
+#define CDT_CASE(CC)                                                        \
+  case CC:                                                                  \
+    launch<CC>(q, bias, bank, values, dotscale, m_in, s1_in, s2_in, m_out, \
+               s1_out, s2_out, M, P, d, s);                                 \
+    break;
+    CDT_CASE(1)
+    CDT_CASE(2)
+    CDT_CASE(3)
+    CDT_CASE(4)
+    CDT_CASE(5)
+    CDT_CASE(6)
+    CDT_CASE(7)
+    CDT_CASE(8)
+#undef CDT_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,219 @@
+"""Fused flash-score sweep — the ELS inner loop.
+
+Counterpart of `convolutional_diffusion_tpu/ops/flash_score.py`. For a block
+of queries Q (x's k x k windows) against a bank chunk K of training patches
+with values V (patch centers) and per-patch weights w, it advances the
+running online-softmax statistics
+
+    logit(q, p) = -(||q||^2 - 2 a_t <q, p> + a_t^2 ||p||^2) / (2 beta_t)
+    m  = max_p logit,   s1 = sum_p w_p e^{logit - m},
+    s2 = sum_p w_p e^{logit - m} V_p
+
+without materialising the [M, P] logits in device memory.
+
+`flash_score_update` keeps the JAX wrapper's signature and conventions: the
+finite -1e30 sentinel for empty rows (`state_to_kernel` /
+`state_from_kernel`, the counterparts of `state_to_pallas` /
+`state_from_pallas`), the per-patch bias row that folds
+-a_t^2 ||p||^2 / (2 beta^2) and log2 w together in base-2 log space, and the
+shift of m by the per-query ||q||^2 / (2 beta^2) on entry and exit. The
+tensor's device picks the sweep: on CUDA the hand-written kernel
+(`csrc/flash_score.cu`), on the CPU `sweep_plain`, the same function in plain
+PyTorch. Nothing falls back from one to the other.
+
+Ported: the fp32 'highest' tier with per-channel value sums and 1-D weights
+(kernel variant K1). Not yet: 'high' (K2), 'default' (K3), the 'inbank' and
+'mxu' value strategies (K4), per-seed weights (K5), prune masks (K6).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from . import _build
+
+NEG_INF = float(-1e30)  # finite -inf stand-in: keeps exp2()/rescale exact at fp32
+LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
+MAX_CHANNELS = 8  # value channels the kernel accumulates per row
+PLAIN_BLOCK = 8192  # bank rows per step of the plain version
+
+State = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def _check_precision(precision: str) -> None:
+    if precision == "highest":
+        return
+    if precision == "high":
+        raise NotImplementedError(
+            "precision='high' (bf16x3 split QK dot) is flash-score variant K2, "
+            "not ported yet; use precision='highest'"
+        )
+    if precision == "default":
+        raise NotImplementedError(
+            "precision='default' (bf16 exp2, fused e @ [V|1]) is flash-score "
+            "variant K3, not ported yet; use precision='highest'"
+        )
+    raise ValueError(
+        f"precision must be 'highest', 'high' or 'default', got {precision!r}"
+    )
+
+
+def _scalar(x) -> torch.Tensor:
+    """A float32 0-d CPU tensor (schedule scalars stay on the host)."""
+    return torch.as_tensor(x, dtype=torch.float32).reshape(()).cpu()
+
+
+def sweep_plain(q, bias, bank, values, dotscale: float, m, s1, s2) -> State:
+    """Plain PyTorch version of the kernel: the same base-2 online softmax
+    over the same bias row, PLAIN_BLOCK bank rows at a time, on any device.
+    The dots are true fp32: TF32 is switched off for the call
+    (torch.backends.cuda.matmul.allow_tf32 = False) and restored after."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        zero = torch.zeros((), dtype=torch.float32, device=q.device)
+        for p0 in range(0, bank.shape[0], PLAIN_BLOCK):
+            p1 = p0 + PLAIN_BLOCK
+            logits = (q @ bank[p0:p1].T) * dotscale + bias[p0:p1]
+            m_new = torch.maximum(m, logits.amax(dim=1))
+            m_safe = torch.where(m_new <= NEG_INF * 0.5, zero, m_new)
+            e = torch.exp2(logits - m_safe[:, None])
+            scale = torch.where(m <= NEG_INF * 0.5, zero, torch.exp2(m - m_safe))
+            s1 = s1 * scale + e.sum(dim=1)
+            s2 = s2 * scale[:, None] + e @ values[p0:p1]
+            m = m_new
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    return m, s1, s2
+
+
+def sweep_kernel(q, bias, bank, values, dotscale: float, m, s1, s2) -> State:
+    """Launch the CUDA kernel on the current stream; returns new tensors."""
+    M, d = q.shape
+    P, c = values.shape
+    if not 1 <= c <= MAX_CHANNELS:
+        raise NotImplementedError(
+            f"the fp32 kernel accumulates 1..{MAX_CHANNELS} value channels, "
+            f"got {c} (the matrix value path is flash-score variant K4)"
+        )
+    tensors = (q, bias, bank, values, m, s1, s2)
+    for t in tensors:
+        if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(
+                "flash-score kernel takes contiguous float32 CUDA tensors"
+            )
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("flash-score kernel inputs lie on different devices")
+    m_out = torch.empty_like(m)
+    s1_out = torch.empty_like(s1)
+    s2_out = torch.empty_like(s2)
+    if M == 0:
+        return m_out, s1_out, s2_out
+    fn = _build.load("flash_score")
+    dev = q.device
+    err = fn(
+        q.data_ptr(), bias.data_ptr(), bank.data_ptr(), values.data_ptr(),
+        float(dotscale), m.data_ptr(), s1.data_ptr(), s2.data_ptr(),
+        m_out.data_ptr(), s1_out.data_ptr(), s2_out.data_ptr(),
+        M, P, d, c, dev.index if dev.index is not None else torch.cuda.current_device(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flash-score kernel launch failed: CUDA error {err}")
+    flash_score_update.launches += 1
+    return m_out, s1_out, s2_out
+
+
+def _update(sweep, q, qn, bank, pn, values, w, at, bt, state, precision) -> State:
+    _check_precision(precision)
+    m0, s10, s20 = state
+    M, d = q.shape
+    P = bank.shape[0]
+    if w.ndim != 1:
+        raise NotImplementedError(
+            "per-seed weights [S, P] (rows_per_seed) are flash-score variant "
+            "K5, not ported yet; group seeds by label"
+        )
+    c = values.shape[1] if values.ndim == 2 else -1
+    shapes = {
+        "qn": (qn.shape, (M,)), "bank": (bank.shape, (P, d)),
+        "pn": (pn.shape, (P,)), "values": (values.shape, (P, c)),
+        "w": (w.shape, (P,)), "m": (m0.shape, (M,)), "s1": (s10.shape, (M,)),
+        "s2": (s20.shape, (M, c)),
+    }
+    for name, (got, want) in shapes.items():
+        if tuple(got) != want:
+            raise ValueError(f"{name} has shape {tuple(got)}, expected {want}")
+    dev = q.device
+    at = _scalar(at)
+    bt = _scalar(bt)
+    inv2bt2 = 1.0 / (2.0 * bt * bt)
+    # per-patch bias in base-2 log space: -a^2 ||p||^2 / (2 beta^2) * log2(e)
+    # + log2 w, with NEG_INF for excluded (w = 0) entries
+    logw = torch.where(
+        w > 0.0, torch.log2(torch.clamp(w, min=1e-38)),
+        torch.full_like(w, NEG_INF),
+    )
+    coef = -(at * at) * inv2bt2 * LOG2E
+    bias = torch.clamp(coef.to(dev) * pn + logw, min=NEG_INF)
+    # the per-query -||q||^2 / (2 beta^2) offset stays outside the sweep: m
+    # moves into the sweep's qn-less base-2 convention and back out
+    qn_s = qn * inv2bt2.to(dev)
+    m_k = torch.where(m0 <= NEG_INF * 0.5, m0, (m0 + qn_s) * LOG2E)
+    dotscale = float(2.0 * at * inv2bt2 * LOG2E)
+    m, s1, s2 = sweep(q, bias, bank, values, dotscale, m_k, s10, s20)
+    m = torch.where(m <= NEG_INF * 0.5, m, m * LN2 - qn_s)
+    return m, s1, s2
+
+
+def flash_score_update(
+    q: torch.Tensor,  # [M, d]
+    qn: torch.Tensor,  # [M]
+    bank: torch.Tensor,  # [P, d]
+    pn: torch.Tensor,  # [P]
+    values: torch.Tensor,  # [P, c]
+    w: torch.Tensor,  # [P]
+    at,  # scalar sqrt(1 - beta)
+    bt,  # scalar sqrt(beta)
+    state: State,  # m [M], s1 [M], s2 [M, c], NEG_INF sentinel convention
+    *,
+    precision: str = "highest",
+) -> State:
+    """One fused bank sweep; returns the updated (m, s1, s2) with the finite
+    NEG_INF sentinel convention. CUDA tensors run the hand-written kernel
+    (each launch adds one to `flash_score_update.launches`); CPU tensors run
+    `sweep_plain`; any other device raises."""
+    if q.is_cuda:
+        sweep = sweep_kernel
+    elif q.device.type == "cpu":
+        sweep = sweep_plain
+    else:
+        raise ValueError(f"no flash-score sweep for device {q.device}")
+    return _update(sweep, q, qn, bank, pn, values, w, at, bt, state, precision)
+
+
+flash_score_update.launches = 0
+
+
+def flash_score_update_plain(q, qn, bank, pn, values, w, at, bt, state, *,
+                             precision: str = "highest") -> State:
+    """`flash_score_update` through the plain version on any device (the
+    yardstick the kernel is held against on the card)."""
+    return _update(sweep_plain, q, qn, bank, pn, values, w, at, bt, state,
+                   precision)
+
+
+def state_to_kernel(m, s1, s2) -> State:
+    """SoftmaxState convention (-inf empties) -> finite sentinel."""
+    return (torch.where(torch.isneginf(m), torch.full_like(m, NEG_INF), m), s1, s2)
+
+
+def state_from_kernel(m, s1, s2) -> State:
+    """Finite-sentinel state -> -inf convention."""
+    return (
+        torch.where(m <= NEG_INF * 0.5, torch.full_like(m, float("-inf")), m),
+        s1, s2,
+    )

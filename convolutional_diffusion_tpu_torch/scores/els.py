@@ -1,0 +1,183 @@
+"""LocalEquivScoreModule (ELS): locality + translation equivariance.
+
+Counterpart of `convolutional_diffusion_tpu/scores/els.py`. Every valid
+k x k patch of every training image forms one bank; each pixel of x attends
+over the bank with Gaussian weights on the distance between its circularly
+padded k x k query window and the bank patch, and the posterior mean of the
+bank patches' CENTER pixels gives the score. As flash attention:
+
+  Q = circular windows of x            [b*h*w, d],  d = k*k*c
+  K = all valid patches of the images  [P, d]
+  V = patch center pixels              [P, c]
+  logit = -(||q||^2 - 2 a_t qk + a_t^2 ||k||^2) / (2 beta_t)
+
+swept chunk by chunk through `ops.flash_score.flash_score_update` (on CUDA
+the hand-written kernel), never materialising [b, P, h, w].
+
+Reference parity: per-batch means over n_kept * (h-k+1)^2 entries and the
+UNFILTERED max_samples cutoff come from `image_weights`.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..ops.flash_score import (
+    NEG_INF,
+    flash_score_update,
+    state_from_kernel,
+    state_to_kernel,
+)
+from ..ops.patches import extract_patches, pad_image
+from .bank import BankCacheMixin, bank_geometry, chunk_patches
+from .base import ScoreModuleBase
+from .common import CutoffRule, Weighting, image_weights
+
+# Cached-bank budget for an 80 GB H100. The machine visits the largest k
+# first and the ledger is first come, first served: at 50k CIFAR10 images
+# this caches k=17 (44.8 GB) and k=3 (5.6 GB) and streams the k's between,
+# leaving ~29 GB for the image set, per-chunk transients and the queries.
+DEFAULT_BANK_BUDGET = 48 << 30
+
+
+def _empty_state(M: int, c: int, device):
+    return (
+        torch.full((M,), NEG_INF, dtype=torch.float32, device=device),
+        torch.zeros((M,), dtype=torch.float32, device=device),
+        torch.zeros((M, c), dtype=torch.float32, device=device),
+    )
+
+
+@torch.no_grad()
+def els_sweep(
+    images,  # [n, h, w, c]
+    w_img,  # [n] per-image weights
+    xq_flat,  # [M, d] query windows
+    qn_flat,  # [M]
+    at,
+    bt,
+    *,
+    k: int,
+    cs: int,  # images per chunk (bank_geometry(...).cs)
+    precision: str = "highest",
+    state0=None,  # (m [M], s1 [M], s2 [M, c]) -inf convention; None = empty
+):
+    """Stream the images through the online softmax, extracting each chunk's
+    patches on the fly; returns (m, s1, s2) with the -inf empty convention.
+    Chaining: a sweep over images[:j] whose state feeds `state0` of a sweep
+    over images[j:] (j a multiple of cs) equals one sweep over all of them."""
+    n, h, w, c = images.shape
+    per_img = (h - k + 1) * (w - k + 1)
+    state = (
+        _empty_state(xq_flat.shape[0], c, xq_flat.device) if state0 is None
+        else state_to_kernel(*state0)
+    )
+    for i0 in range(0, n, cs):
+        p, ctr, pn = chunk_patches(images[i0 : i0 + cs], k)
+        w_p = w_img[i0 : i0 + cs].repeat_interleave(per_img)
+        state = flash_score_update(
+            xq_flat, qn_flat, p, pn, ctr, w_p, at, bt, state,
+            precision=precision,
+        )
+    return state_from_kernel(*state)
+
+
+@torch.no_grad()
+def banked_sweep(
+    q_flat,  # [M, d] query windows
+    qn_flat,  # [M]
+    bank,  # scores.bank.Bank: bank [nblk, B, d], centers [nblk, B, c], pn [nblk, B]
+    w_b,  # [nblk, B] per-patch weights
+    at,
+    bt,
+    *,
+    precision: str = "highest",
+    state0=None,  # (m, s1, s2) -inf convention; None = empty
+):
+    """Sweep prebuilt bank chunks through the online softmax; returns
+    (m, s1, s2) with the -inf empty convention (chainable via `state0`)."""
+    c = bank.centers.shape[-1]
+    state = (
+        _empty_state(q_flat.shape[0], c, q_flat.device) if state0 is None
+        else state_to_kernel(*state0)
+    )
+    for i in range(bank.bank.shape[0]):
+        state = flash_score_update(
+            q_flat, qn_flat, bank.bank[i], bank.pn[i], bank.centers[i], w_b[i],
+            at, bt, state, precision=precision,
+        )
+    return state_from_kernel(*state)
+
+
+class LocalEquivScoreModule(BankCacheMixin, ScoreModuleBase):
+    """ELS score module. Banks are cached per k on the module's device while
+    the ledger budget lasts (bank mode); a k whose bank does not fit streams
+    its patches chunk by chunk (streaming mode). Both give the same result.
+
+    label may be a [b] vector (one label per seed): seeds are grouped by
+    label and each group is one call with a scalar label."""
+
+    supports_vector_label = True
+
+    def __init__(
+        self,
+        dataset,
+        *,
+        batch_size: int = 64,
+        target_block: int = 65536,
+        bank_budget_bytes: int = DEFAULT_BANK_BUDGET,
+        bank_ledger=None,
+        **kw,
+    ):
+        super().__init__(dataset, batch_size=batch_size, **kw)
+        self._init_bank_cache(
+            target_block=target_block, bank_budget_bytes=bank_budget_bytes,
+            bank_ledger=bank_ledger,
+        )
+
+    def __call__(self, t, x, label=None, k=None, order=None):
+        if label is None or np.ndim(label) == 0:
+            return super().__call__(t, x, label=label, k=k, order=order)
+        # one order for every group, so a shuffled module treats all seeds
+        # alike, as one batched sweep would
+        order = self._stream_order(order)
+        x = torch.as_tensor(x, dtype=torch.float32).to(self.device)
+        labs = np.asarray(label)
+        out = torch.empty_like(x)
+        for lab in np.unique(labs):
+            sel = torch.as_tensor(np.nonzero(labs == lab)[0], device=self.device)
+            out[sel] = super().__call__(t, x[sel], label=int(lab), k=k, order=order)
+        return out
+
+    @torch.no_grad()
+    def _score(self, k, x, label, at, bt, order):
+        n, h, w, c = self.images.shape
+        b = x.shape[0]
+        g = bank_geometry(n, h, w, c, k, self.target_block)
+        w_img = image_weights(
+            self.labels, label,
+            batch_size=self.batch_size, max_samples=self.max_samples,
+            cutoff=CutoffRule.UNFILTERED, weighting=Weighting.MEAN,
+            per_image_bank=g.per_img, order=order,
+        )
+        xq = extract_patches(pad_image(x, k // 2, "circular"), k)
+        xq = xq.reshape(b * h * w, g.d)
+        qn = (xq * xq).sum(dim=-1)
+        bank = self._bank(k)
+        if bank is None:
+            _, s1, s2 = els_sweep(
+                self.images, w_img, xq, qn, at, bt,
+                k=k, cs=g.cs, precision=self.precision,
+            )
+        else:
+            # chunk-padding images get zero weight
+            w_b = F.pad(w_img, (0, g.nblk * g.cs - n))
+            w_b = w_b.repeat_interleave(g.per_img).reshape(g.nblk, g.block)
+            _, s1, s2 = banked_sweep(
+                xq, qn, bank, w_b, at, bt, precision=self.precision
+            )
+        mean_center = (s2 / s1[:, None]).reshape(b, h * w, c)
+        score = -(x.reshape(b, h * w, c) - at * mean_center) / (bt**2)
+        return score.reshape(x.shape)

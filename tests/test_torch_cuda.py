@@ -1,0 +1,97 @@
+"""The hand-written flash-score kernel against its plain PyTorch version, on
+the card. Marked `cuda`; skips (from inside each test) where no CUDA device
+is present. On the card: `python -m pytest tests/test_torch_cuda.py -m cuda`.
+
+Tolerance: the repo's parity rule on the offset-invariant quantities,
+max|a-b| / max(|a|,|b|,1) <= 1e-3 for the log total weight m + log s1 and
+for the posterior mean s2/s1 (two fp32 summation orders of the same dots)."""
+
+import pytest
+import torch
+
+import convolutional_diffusion_tpu_torch.ops.flash_score as tfs
+
+
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _case(M, d, P, c, seed, dev, zero_frac=0.2):
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(M, d, generator=g)
+    bank = torch.randn(P, d, generator=g)
+    values = torch.randn(P, c, generator=g)
+    w = torch.rand(P, generator=g)
+    w[w < zero_frac] = 0.0
+    t = [q, (q * q).sum(1), bank, (bank * bank).sum(1), values, w]
+    return [x.to(dev) for x in t]
+
+
+def _empty(M, c, dev):
+    return (torch.full((M,), tfs.NEG_INF, device=dev), torch.zeros(M, device=dev),
+            torch.zeros(M, c, device=dev))
+
+
+def _rel(a, b):
+    a, b = a.double(), b.double()
+    ok = torch.isfinite(b)
+    assert torch.equal(ok, torch.isfinite(a))
+    scale = max(a[ok].abs().max().item(), b[ok].abs().max().item(), 1.0)
+    return (a[ok] - b[ok]).abs().max().item() / scale
+
+
+def _assert_close(got, want):
+    lse = [s[0] + torch.log(s[1]) for s in (got, want)]
+    mean = [s[2] / s[1][:, None] for s in (got, want)]
+    assert _rel(*lse) <= 1e-3
+    assert _rel(*mean) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,d,P,c", [
+    (8, 12, 24, 1), (300, 27, 700, 3), (1025, 75, 513, 3), (64, 867, 600, 3),
+    (128, 2187, 300, 3), (96, 128, 2048, 8),
+])
+def test_kernel_matches_plain(M, d, P, c):
+    dev = _need_cuda()
+    q, qn, bank, pn, values, w = _case(M, d, P, c, seed=M + d, dev=dev)
+    args = (q, qn, bank, pn, values, w, 0.8, 0.6, _empty(M, c, dev))
+    before = tfs.flash_score_update.launches
+    got = tfs.flash_score_update(*args)
+    torch.cuda.synchronize()
+    assert tfs.flash_score_update.launches == before + 1
+    _assert_close(got, tfs.flash_score_update_plain(*args))
+
+
+@pytest.mark.cuda
+def test_kernel_chaining_and_excluded_chunk():
+    dev = _need_cuda()
+    M, d, P, c = 256, 147, 1000, 3
+    q, qn, bank, pn, values, w = _case(M, d, P, c, seed=1, dev=dev)
+    whole = tfs.flash_score_update(q, qn, bank, pn, values, w, 0.7, 0.7, _empty(M, c, dev))
+    half = tfs.flash_score_update(q, qn, bank[:400], pn[:400], values[:400], w[:400],
+                                  0.7, 0.7, _empty(M, c, dev))
+    chained = tfs.flash_score_update(q, qn, bank[400:], pn[400:], values[400:], w[400:],
+                                     0.7, 0.7, half)
+    _assert_close(chained, whole)
+    same = tfs.flash_score_update(q, qn, bank, pn, values, torch.zeros_like(w),
+                                  0.7, 0.7, whole)
+    # s1/s2 exactly (scale 2^0 = 1, nothing added); m up to the wrapper's
+    # float32 shift into and out of the kernel's qn-less base-2 convention
+    assert torch.equal(same[1], whole[1]) and torch.equal(same[2], whole[2])
+    torch.testing.assert_close(same[0], whole[0], rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+def test_kernel_rejects_what_it_does_not_take():
+    dev = _need_cuda()
+    q, qn, bank, pn, values, w = _case(16, 12, 32, 3, seed=2, dev=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfs.flash_score_update(q.t().contiguous().t(), qn, bank, pn, values, w,
+                               0.8, 0.6, _empty(16, 3, dev))
+    with pytest.raises(NotImplementedError, match="K4"):
+        big = torch.zeros(32, 9, device=dev)
+        tfs.flash_score_update(q, qn, bank, pn, big, w, 0.8, 0.6,
+                               (*_empty(16, 3, dev)[:2], torch.zeros(16, 9, device=dev)))

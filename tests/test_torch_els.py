@@ -1,0 +1,204 @@
+"""Port vs JAX and vs the torch-reference goldens: the ELS score module, in
+bank mode and in streaming mode (bank_budget_bytes=0), on the CPU.
+
+Tolerances: goldens are held at the JAX tests' own atol 2e-4 relative to
+scale; the port vs the JAX module at 2e-4 relative to scale (both are fp32;
+the port sums in base 2 with folded biases, the JAX CPU path in base e)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import convolutional_diffusion_tpu.scores as jscores
+import convolutional_diffusion_tpu_torch.scores.els as tels
+from convolutional_diffusion_tpu.schedules import cosine_noise_schedule as jcos
+from convolutional_diffusion_tpu_torch.scores import LocalEquivScoreModule
+from convolutional_diffusion_tpu_torch.scores.bank import bank_geometry, build_bank
+from convolutional_diffusion_tpu_torch.scores.common import (
+    CutoffRule, Weighting, image_weights,
+)
+
+MODES = {"bank": {}, "stream": {"bank_budget_bytes": 0}}
+
+
+def _nhwc(a):
+    return np.transpose(a, (0, 2, 3, 1))
+
+
+@pytest.fixture(scope="module")
+def z():
+    return np.load("tests/goldens/scores.npz")
+
+
+@pytest.fixture(scope="module")
+def zc():
+    return np.load("tests/goldens/cutoffs.npz")
+
+
+def _data(z):
+    return _nhwc(z["imgs"]), z["labs"].astype(np.int32), _nhwc(z["x"]), float(z["t"][0])
+
+
+def _check(ours, expect, atol=2e-4):
+    scale = max(np.nanmax(np.abs(expect)), 1.0)
+    np.testing.assert_allclose(ours.numpy(), expect, atol=atol * scale)
+
+
+def _port(imgs, labs, mode, **kw):
+    return LocalEquivScoreModule((imgs, labs), device="cpu", **MODES[mode], **kw)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("key,kw,call", [
+    ("els/k3b5", dict(kernel_size=3, batch_size=5), {}),
+    ("els/k3b12", dict(kernel_size=3, batch_size=12), {}),
+    ("els/k5b5", dict(kernel_size=5, batch_size=5), {}),
+    ("els/k5b12", dict(kernel_size=3, batch_size=12), dict(k=5)),
+    ("els/k3label2", dict(kernel_size=3, batch_size=5), dict(label=2)),
+], ids=lambda v: v if isinstance(v, str) else None)
+def test_scores_goldens(z, mode, key, kw, call):
+    imgs, labs, x, t = _data(z)
+    mod = _port(imgs, labs, mode, **kw)
+    _check(mod(t, x, **call), _nhwc(z[f"{key}/out"]))
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_batched_x_golden(z, mode):
+    imgs, labs, _, t = _data(z)
+    mod = _port(imgs, labs, mode, kernel_size=3, batch_size=5)
+    _check(mod(t, _nhwc(z["x2"])), _nhwc(z["els/k3b5x2/out"]))
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("k", [13, 19])
+def test_large_k_goldens(z, mode, k):
+    imgs, labs = _nhwc(z["bigk/imgs24"]), z["bigk/labs24"].astype(np.int32)
+    x = _nhwc(z["bigk/x24"])[:1]
+    mod = _port(imgs, labs, mode, kernel_size=k, batch_size=5)
+    _check(mod(float(z["t"][0]), x), _nhwc(z[f"bigk/els_k{k}/out"]))
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("max_samples,label,tag", [
+    (8, None, "max8"), (10, None, "max10"), (11, None, "max11"), (6, 1, "label1max6"),
+])
+def test_cutoff_goldens(zc, mode, max_samples, label, tag):
+    imgs, labs, x, t = _data(zc)
+    mod = _port(imgs, labs, mode, kernel_size=3, batch_size=5, max_samples=max_samples)
+    _check(mod(t, x, label=label), _nhwc(zc[f"els/{tag}/out"]))
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_shuffled_stream_golden(zc, mode):
+    imgs, labs, x, t = _data(zc)
+    mod = _port(imgs, labs, mode, kernel_size=3, batch_size=5, max_samples=8)
+    _check(mod(t, x, order=zc["els/max8shuf/perm"]), _nhwc(zc["els/max8shuf/out"]))
+
+
+def _x(b, seed=5):
+    return np.random.RandomState(seed).normal(size=(b, 8, 8, 1)).astype(np.float32)
+
+
+JAX_CASES = {
+    "plain": (dict(), dict()),
+    "label": (dict(), dict(label=2)),
+    "max_samples": (dict(max_samples=9), dict()),
+    "order": (dict(max_samples=10), dict(order=np.random.RandomState(3).permutation(16))),
+    "vector_label": (dict(max_samples=15), dict(label=np.array([0, 2, 1, 0], np.int32))),
+    "k5": (dict(), dict(k=5)),
+}
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("case", JAX_CASES)
+def test_matches_jax_module(tiny_dataset, mode, case):
+    imgs, labs = tiny_dataset
+    ctor, call = JAX_CASES[case]
+    x = _x(4)
+    kw = dict(kernel_size=3, batch_size=5, **ctor)
+    jmod = jscores.LocalEquivScoreModule(
+        (imgs, labs), schedule=jcos, **kw,
+        **({"bank_budget_bytes": 0} if mode == "stream" else {}),
+    )
+    for t in (0.05, 0.5, 0.95):
+        want = np.asarray(jmod(t, jnp.asarray(x), **call))
+        ours = _port(imgs, labs, mode, **kw)(t, x, **call)
+        _check(ours, want)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_vector_label_equals_scalar_calls(tiny_dataset, mode):
+    imgs, labs = tiny_dataset
+    mod = _port(imgs, labs, mode, kernel_size=3, batch_size=5, max_samples=10)
+    x = _x(4)
+    vec = np.array([3, 1, 1, 0], np.int32)
+    got = mod(0.3, x, label=vec)
+    rows = torch.cat([mod(0.3, x[i : i + 1], label=int(vec[i])) for i in range(4)])
+    torch.testing.assert_close(got, rows, rtol=0, atol=0)
+
+
+def test_shuffle_generator_deterministic_and_fresh(tiny_dataset):
+    imgs, labs = tiny_dataset
+    kw = dict(kernel_size=3, batch_size=5, max_samples=8, shuffle=True)
+    a = _port(imgs, labs, "bank", generator=torch.Generator().manual_seed(4), **kw)
+    b = _port(imgs, labs, "bank", generator=torch.Generator().manual_seed(4), **kw)
+    x = _x(1)
+    o1, o2, r1 = a(0.4, x), a(0.4, x), b(0.4, x)
+    torch.testing.assert_close(o1, r1, rtol=0, atol=0)
+    assert not torch.allclose(o1, o2)
+
+
+def _sweep_inputs(tiny_dataset, k=3):
+    imgs, labs = tiny_dataset
+    images = torch.from_numpy(imgs)
+    g = bank_geometry(16, 8, 8, 1, k, 100)  # 2 images per chunk, 8 chunks
+    w = image_weights(torch.from_numpy(labs.astype(np.int64)), None, batch_size=5,
+                      max_samples=None, cutoff=CutoffRule.UNFILTERED,
+                      weighting=Weighting.MEAN, per_image_bank=g.per_img)
+    from convolutional_diffusion_tpu_torch.ops.patches import extract_patches, pad_image
+
+    xq = extract_patches(pad_image(torch.from_numpy(_x(2)), 1, "circular"), k)
+    xq = xq.reshape(-1, g.d)
+    return images, w, xq, (xq * xq).sum(-1), g
+
+
+def test_els_sweep_state0_chaining(tiny_dataset):
+    images, w, xq, qn, g = _sweep_inputs(tiny_dataset)
+    at, bt = torch.tensor(0.8), torch.tensor(0.6)
+    whole = tels.els_sweep(images, w, xq, qn, at, bt, k=3, cs=g.cs)
+    j = 3 * g.cs
+    head = tels.els_sweep(images[:j], w[:j], xq, qn, at, bt, k=3, cs=g.cs)
+    chained = tels.els_sweep(images[j:], w[j:], xq, qn, at, bt, k=3, cs=g.cs, state0=head)
+    for a, b in zip(whole, chained):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_banked_sweep_equals_streaming_and_chains(tiny_dataset):
+    images, w, xq, qn, g = _sweep_inputs(tiny_dataset)
+    at, bt = torch.tensor(0.7), torch.tensor(0.5)
+    bank = build_bank(images, 3, 100)
+    w_b = w.repeat_interleave(g.per_img).reshape(g.nblk, g.block)
+    banked = tels.banked_sweep(xq, qn, bank, w_b, at, bt)
+    streamed = tels.els_sweep(images, w, xq, qn, at, bt, k=3, cs=g.cs)
+    for a, b in zip(banked, streamed):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+    head = tels.banked_sweep(xq, qn, bank._replace(**{f: getattr(bank, f)[:5] for f in bank._fields}),
+                             w_b[:5], at, bt)
+    tail = tels.banked_sweep(xq, qn, bank._replace(**{f: getattr(bank, f)[5:] for f in bank._fields}),
+                             w_b[5:], at, bt, state0=head)
+    for a, b in zip(banked, tail):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_argument_errors(tiny_dataset):
+    imgs, labs = tiny_dataset
+    mod = _port(imgs, labs, "bank")
+    with pytest.raises(ValueError, match="odd"):
+        mod(0.5, _x(1), k=4)
+    with pytest.raises(ValueError, match="precision"):
+        _port(imgs, labs, "bank", precision="bf16")
+    with pytest.raises(NotImplementedError, match="K2"):
+        _port(imgs, labs, "bank", precision="high")(0.5, _x(1))
+    assert jax.default_backend() == "cpu"  # the JAX reference stays on the CPU

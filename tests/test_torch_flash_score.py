@@ -1,0 +1,186 @@
+"""Port vs JAX: the flash-score sweep. The port's CPU path (the kernel's plain
+PyTorch version behind the same wrapper) against the JAX Pallas kernel in
+interpret mode and against the JAX `update_state` reference.
+
+The kernels fold log w into their running max, so only the offset-invariant
+quantities are compared: the log total weight m + log s1 (rtol 1e-5,
+atol 1e-4) and the posterior mean s2/s1 (rtol 1e-4, atol 1e-5), as the JAX
+package's own kernel tests do."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import convolutional_diffusion_tpu.ops.flash_score as jfs
+import convolutional_diffusion_tpu.scores.common as jc
+import convolutional_diffusion_tpu_torch.ops.flash_score as tfs
+
+
+def _inputs(M, d, P, c, seed, w_lo=0.5):
+    rs = np.random.RandomState(seed)
+    q = rs.normal(size=(M, d)).astype(np.float32)
+    bank = rs.normal(size=(P, d)).astype(np.float32)
+    values = rs.normal(size=(P, c)).astype(np.float32)
+    w = rs.uniform(w_lo, 1.5, size=(P,)).astype(np.float32)
+    return dict(q=q, qn=(q**2).sum(1), bank=bank, pn=(bank**2).sum(1),
+                values=values, w=w)
+
+
+def _empty(M, c):
+    return (np.full((M,), -1e30, np.float32), np.zeros((M,), np.float32),
+            np.zeros((M, c), np.float32))
+
+
+def _port(a, at, bt, state):
+    t = {k: torch.from_numpy(v) for k, v in a.items()}
+    out = tfs.flash_score_update(
+        t["q"], t["qn"], t["bank"], t["pn"], t["values"], t["w"], at, bt,
+        tuple(torch.from_numpy(s) for s in state),
+    )
+    return tuple(o.numpy() for o in out)
+
+
+def _jax(a, at, bt, state, **kw):
+    out = jfs.flash_score_update(
+        *(jnp.asarray(a[k]) for k in ("q", "qn", "bank", "pn", "values", "w")),
+        jnp.float32(at), jnp.float32(bt), tuple(jnp.asarray(s) for s in state),
+        interpret=True, **kw,
+    )
+    return tuple(np.asarray(o) for o in out)
+
+
+def _invariants(m, s1, s2):
+    m = np.where(m <= -5e29, -np.inf, m)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return m + np.log(s1), s2 / s1[:, None]
+
+
+def _assert_same(ours, want):
+    lse_o, mean_o = _invariants(*ours)
+    lse_w, mean_w = _invariants(*want)
+    np.testing.assert_allclose(lse_o, lse_w, rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(mean_o, mean_w, rtol=1e-4, atol=1e-5)
+
+
+SHAPES = [
+    (64, 27, 200, 3),    # k=3 c=3: unaligned everything
+    (100, 75, 513, 1),   # k=5 c=3 grayscale-ish odd sizes
+    (256, 128, 512, 3),  # fully aligned
+]
+
+
+@pytest.mark.parametrize("shapes", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_matches_jax_kernel_interpret(shapes):
+    M, d, P, c = shapes
+    a = _inputs(M, d, P, c, seed=0)
+    ours = _port(a, 0.8, 0.6, _empty(M, c))
+    want = _jax(a, 0.8, 0.6, _empty(M, c), block_q=64, block_p=128)
+    _assert_same(ours, want)
+
+
+@pytest.mark.parametrize("shapes", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_matches_jax_update_state(shapes):
+    M, d, P, c = shapes
+    a = _inputs(M, d, P, c, seed=1)
+    at, bt = jnp.float32(0.8), jnp.float32(0.6)
+    ours = tfs.state_from_kernel(*(torch.from_numpy(o) for o in _port(a, at, bt, _empty(M, c))))
+    q, bank = jnp.asarray(a["q"]), jnp.asarray(a["bank"])
+    logits = -(jnp.asarray(a["qn"])[:, None] - 2 * at * (q @ bank.T)
+               + at**2 * jnp.asarray(a["pn"])[None, :]) / (2 * bt**2)
+    ref = jc.update_state(jc.init_state((M,), c), logits,
+                          jnp.asarray(a["w"])[None, :], jnp.asarray(a["values"]))
+    o = [x.numpy() for x in ours]
+    np.testing.assert_allclose(o[0] + np.log(o[1]), np.asarray(ref.m + jnp.log(ref.s1)),
+                               rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(o[2] / o[1][:, None], np.asarray(ref.s2 / ref.s1[:, None]),
+                               rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("split", [1, 128, 255])
+def test_chaining_matches_single_sweep(split):
+    """Two chained calls over bank parts == one call over the whole bank
+    (the streaming-merge contract the chunk loop relies on)."""
+    M, d, P, c = 32, 27, 256, 3
+    a = _inputs(M, d, P, c, seed=2)
+    full = _port(a, 0.7, 0.71, _empty(M, c))
+    head = {k: (v[:split] if v.shape[0] == P else v) for k, v in a.items()}
+    tail = {k: (v[split:] if v.shape[0] == P else v) for k, v in a.items()}
+    chained = _port(tail, 0.7, 0.71, _port(head, 0.7, 0.71, _empty(M, c)))
+    for x, y in zip(full, chained):
+        np.testing.assert_allclose(x, y, rtol=1e-4, atol=1e-5)
+    # and the JAX kernel fed the port's intermediate state agrees
+    _assert_same(chained, _jax(tail, 0.7, 0.71, _port(head, 0.7, 0.71, _empty(M, c)),
+                               block_q=32, block_p=64))
+
+
+def test_zero_weight_entries_ignored():
+    M, d, P, c = 16, 12, 64, 2
+    a = _inputs(M, d, P, c, seed=3)
+    a["w"][32:] = 0.0
+    head = {k: (v[:32] if v.shape[0] == P else v) for k, v in a.items()}
+    for x, y in zip(_port(a, 0.9, 0.44, _empty(M, c)), _port(head, 0.9, 0.44, _empty(M, c))):
+        np.testing.assert_allclose(x, y, rtol=1e-4, atol=1e-6)
+
+
+def test_all_excluded_chunk_leaves_state_exactly_unchanged():
+    M, d, P, c = 24, 27, 100, 3
+    a = _inputs(M, d, P, c, seed=4)
+    state = _port(a, 0.8, 0.6, _empty(M, c))
+    # rows 0..3 keep the empty sentinel
+    state = tuple(s.copy() for s in state)
+    state[0][:4], state[1][:4], state[2][:4] = -1e30, 0.0, 0.0
+    excluded = dict(_inputs(M, d, P, c, seed=5), q=a["q"], qn=a["qn"])
+    excluded["w"][:] = 0.0
+    after = _port(excluded, 0.8, 0.6, state)
+    # s1/s2 exactly (scale 2^0 = 1, nothing added); m up to the wrapper's
+    # float32 shift into and out of the sweep's qn-less base-2 convention
+    np.testing.assert_array_equal(state[1][4:], after[1][4:])
+    np.testing.assert_array_equal(state[2][4:], after[2][4:])
+    np.testing.assert_allclose(state[0][4:], after[0][4:], rtol=1e-6)
+    assert (after[0][:4] <= -5e29).all() and (after[1][:4] == 0).all()
+
+
+def test_sentinel_rows_in_input_state_match_jax():
+    """A carried state holding empty (sentinel) rows next to live rows."""
+    M, d, P, c = 40, 75, 300, 3
+    a = _inputs(M, d, P, c, seed=6, w_lo=0.0)
+    a["w"][a["w"] < 0.3] = 0.0
+    first = {k: (v[:150] if v.shape[0] == P else v) for k, v in a.items()}
+    second = {k: (v[150:] if v.shape[0] == P else v) for k, v in a.items()}
+    state = tuple(s.copy() for s in _port(first, 0.8, 0.6, _empty(M, c)))
+    state[0][::3], state[1][::3], state[2][::3] = -1e30, 0.0, 0.0
+    _assert_same(_port(second, 0.8, 0.6, state),
+                 _jax(second, 0.8, 0.6, state, block_q=64, block_p=128))
+
+
+def test_state_conversions_roundtrip():
+    m = torch.tensor([float("-inf"), 1.5, -2.0])
+    s = (torch.ones(3), torch.zeros(3, 2))
+    k = tfs.state_to_kernel(m, *s)
+    assert k[0][0] == torch.tensor(tfs.NEG_INF)
+    back = tfs.state_from_kernel(*k)
+    assert torch.isneginf(back[0][0]) and torch.equal(back[0][1:], m[1:])
+
+
+@pytest.mark.parametrize("precision,variant", [("high", "K2"), ("default", "K3")])
+def test_unported_tiers_raise(precision, variant):
+    a = _inputs(8, 12, 16, 3, seed=7)
+    t = {k: torch.from_numpy(v) for k, v in a.items()}
+    st = tuple(torch.from_numpy(s) for s in _empty(8, 3))
+    args = (t["q"], t["qn"], t["bank"], t["pn"], t["values"], t["w"], 0.8, 0.6, st)
+    with pytest.raises(NotImplementedError, match=variant):
+        tfs.flash_score_update(*args, precision=precision)
+    with pytest.raises(NotImplementedError, match=variant):
+        tfs.flash_score_update_plain(*args, precision=precision)
+    with pytest.raises(NotImplementedError, match="K5"):
+        tfs.flash_score_update(*args[:5], t["w"][None].repeat(2, 1), 0.8, 0.6, st)
+    with pytest.raises(ValueError, match="shape"):
+        tfs.flash_score_update(t["q"], t["qn"], t["bank"][:5], *args[3:])
+
+
+def test_cpu_path_does_not_count_launches():
+    before = tfs.flash_score_update.launches
+    a = _inputs(8, 12, 16, 3, seed=8)
+    _port(a, 0.8, 0.6, _empty(8, 3))
+    assert tfs.flash_score_update.launches == before

@@ -1,0 +1,73 @@
+"""The port stands alone: importing every module of
+`convolutional_diffusion_tpu_torch` loads neither `jax` nor the JAX package,
+and entry points run on `cuda` unless told otherwise — without a card they
+raise instead of running on the CPU."""
+
+import json
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from convolutional_diffusion_tpu_torch import convert
+from convolutional_diffusion_tpu_torch.scores import LocalEquivScoreModule
+from convolutional_diffusion_tpu_torch.scores.bank import bank_geometry
+from convolutional_diffusion_tpu_torch.scores.base import resolve_device
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+import convolutional_diffusion_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for n in names:
+    importlib.import_module(n)
+def hit(mod, root):
+    return mod == root or mod.startswith(root + ".")
+print(json.dumps({
+    "imported": names,
+    "forbidden": sorted(m for m in sys.modules
+                        if hit(m, "jax") or hit(m, "jaxlib")
+                        or hit(m, "convolutional_diffusion_tpu")),
+}))
+"""
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE], capture_output=True, text=True,
+        check=True, timeout=120,
+    )
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "convolutional_diffusion_tpu_torch.scores.els" in res["imported"]
+    assert "convolutional_diffusion_tpu_torch.ops.flash_score" in res["imported"]
+    assert res["forbidden"] == []
+
+
+def _no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_default_device_without_cuda_raises(monkeypatch, tiny_dataset):
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LocalEquivScoreModule(tiny_dataset)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    g = bank_geometry(1, 4, 4, 1, 3, 64)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.bank_from_jax_numpy(np.zeros((1, g.block * g.d)), np.zeros((1, g.block)),
+                                    np.zeros((1, g.block)), g)
+
+
+def test_default_device_is_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device() == torch.device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_explicit_cpu_runs_on_cpu(tiny_dataset):
+    mod = LocalEquivScoreModule(tiny_dataset, device="cpu")
+    assert mod.images.device.type == "cpu"
+    out = mod(0.5, np.zeros((1, 8, 8, 1), np.float32))
+    assert out.device.type == "cpu" and torch.isfinite(out).all()

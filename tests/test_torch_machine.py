@@ -1,0 +1,110 @@
+"""Port vs JAX and vs the torch-reference goldens: the scheduled ELS machine
+end to end on the CPU, plus its DDIM step and the synthetic dataset.
+
+Tolerances: goldens as the JAX tests hold them (machine/els and gray/machine
+at atol 5e-4, bigk/machine at 1e-3, relative to scale); a whole trajectory
+against the JAX machine at the repo's parity rule, max|a-b| / max(|a|,|b|,1)
+<= 1e-3, at every step; the DDIM step at float32 rounding (rtol 1e-6)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import convolutional_diffusion_tpu.data as jdata
+import convolutional_diffusion_tpu.sampling as jsampling
+import convolutional_diffusion_tpu.scores as jscores
+import convolutional_diffusion_tpu_torch.data as tdata
+import convolutional_diffusion_tpu_torch.sampling as tsampling
+from convolutional_diffusion_tpu_torch.scores import (
+    LocalEquivScoreModule,
+    ScheduledScoreMachine,
+)
+
+
+def _nhwc(a):
+    return np.transpose(a, (0, 2, 3, 1))
+
+
+@pytest.fixture(scope="module")
+def z():
+    return np.load("tests/goldens/scores.npz")
+
+
+def _check(ours, expect, atol):
+    scale = max(np.abs(expect).max(), 1.0)
+    np.testing.assert_allclose(ours.numpy(), expect, atol=atol * scale)
+
+
+@pytest.mark.parametrize("budget", [48 << 30, 0], ids=["bank", "stream"])
+@pytest.mark.parametrize("prefix,imgs,c,imsize,bs,atol", [
+    ("machine/els", "imgs", 3, 8, 6, 5e-4),
+    ("gray/machine", "gray/imgs16", 1, 16, 4, 5e-4),
+    ("bigk/machine", "bigk/imgs24", 3, 24, 5, 1e-3),
+], ids=["els8", "gray16", "bigk24"])
+def test_machine_goldens(z, budget, prefix, imgs, c, imsize, bs, atol):
+    labs_key = imgs.replace("imgs", "labs")
+    x_key = imgs.replace("imgs", "x")
+    scales_key = "machine/scales" if prefix == "machine/els" else f"{prefix.split('/')[0]}/machine/scales"
+    mod = LocalEquivScoreModule(
+        (_nhwc(z[imgs]), z[labs_key].astype(np.int32)), kernel_size=3,
+        batch_size=bs, device="cpu", bank_budget_bytes=budget,
+    )
+    machine = ScheduledScoreMachine(
+        mod, in_channels=c, imsize=imsize,
+        scales=[int(s) for s in z[scales_key]],
+    )
+    _check(machine(_nhwc(z[x_key])[:1]), _nhwc(z[f"{prefix}/out"]), atol)
+
+
+def test_trajectory_matches_jax_machine():
+    ds = tdata.synthetic_dataset(num_samples=32, image_size=16, seed=3)
+    scales = [3, 3, 5, 5, 7]
+    x0 = np.random.RandomState(11).normal(size=(2, 16, 16, 3)).astype(np.float32)
+    jmod = jscores.LocalEquivScoreModule((ds.images, ds.labels), batch_size=8)
+    jx, jtraj = jscores.ScheduledScoreMachine(jmod, imsize=16, scales=scales)(
+        jnp.asarray(x0), collect_trajectory=True)
+    tmod = LocalEquivScoreModule((ds.images, ds.labels), batch_size=8, device="cpu")
+    tx, ttraj = ScheduledScoreMachine(tmod, imsize=16, scales=scales)(
+        x0, collect_trajectory=True)
+    assert len(ttraj) == len(jtraj) == 4
+    for a, b in zip(ttraj, jtraj):
+        a, b = a.numpy(), np.asarray(b)
+        dev = np.abs(a - b).max() / max(np.abs(a).max(), np.abs(b).max(), 1.0)
+        assert dev <= 1e-3, dev
+    assert np.isfinite(tx.numpy()).all()
+
+
+def test_ddim_step_matches_jax():
+    rs = np.random.RandomState(0)
+    x = rs.normal(size=(3, 4, 4, 2)).astype(np.float32)
+    eps = rs.normal(size=x.shape).astype(np.float32)
+    bt = np.float32([0.5, 0.2, 0.9])
+    bp = np.float32([0.4, 0.0, 0.85])
+    ours = tsampling.ddim_step(torch.from_numpy(x), torch.from_numpy(eps),
+                               torch.from_numpy(bt), torch.from_numpy(bp))
+    want = jsampling.ddim_step(jnp.asarray(x), jnp.asarray(eps), jnp.asarray(bt),
+                               jnp.asarray(bp))
+    np.testing.assert_allclose(ours.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
+
+
+def test_sample_uses_generator():
+    ds = tdata.synthetic_dataset(num_samples=8, image_size=8, seed=1)
+    mod = LocalEquivScoreModule((ds.images, ds.labels), batch_size=4, device="cpu")
+    machine = ScheduledScoreMachine(mod, imsize=8, scales=[3, 3, 3])
+    a = machine.sample(generator=torch.Generator().manual_seed(2), batch_size=2)
+    b = machine.sample(generator=torch.Generator().manual_seed(2), batch_size=2)
+    assert a.shape == (2, 8, 8, 3) and torch.equal(a, b)
+    with pytest.raises(ValueError, match="Generator"):
+        machine.sample()
+
+
+@pytest.mark.parametrize("kw", [
+    dict(num_samples=5, image_size=8, num_channels=3, seed=0),
+    dict(num_samples=4, image_size=12, num_channels=1, num_classes=3, seed=7),
+])
+def test_synthetic_dataset_bit_identical(kw):
+    ours, want = tdata.synthetic_dataset(**kw), jdata.synthetic_dataset(**kw)
+    np.testing.assert_array_equal(ours.images, want.images)
+    np.testing.assert_array_equal(ours.labels, want.labels)
+    assert ours.num_samples == kw["num_samples"]
