@@ -1,7 +1,8 @@
 """Build and bind the port's CUDA kernels.
 
 Each `csrc/*.cu` source compiles with `nvcc` into a shared library with a
-plain C interface, loaded with `ctypes`. The build happens at first use, in
+plain C interface, loaded with `ctypes`. `build_all` compiles several
+sources at once, one `nvcc` process each. The build happens at first use, in
 `build/torch_kernels/` at the root of the checkout (git-ignored), under a
 name that carries a hash of the source and flags, so an edited source is
 rebuilt and an unchanged one is reused. Nothing here runs at import time.
@@ -21,22 +22,27 @@ from typing import NamedTuple
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
-# No --use_fast_math: the flash-score dot and exp2f must stay full fp32.
+# No --use_fast_math: the flash-score dots' fp32 sums and exp2f must stay
+# full fp32.
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
+# (q, bias, bank, values, dotscale, m_in, s1_in, s2_in, m_out, s1_out,
+#  s2_out, M, P, d, c, device, stream): the flash-score kernels' C interface
+_FLASH_ARGS = [
+    _P, _P, _P, _P, ctypes.c_float, _P, _P, _P, _P, _P, _P,
+    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, _P,
+]
 
 # name -> (source, C symbol, argtypes)
 KERNELS = {
-    "flash_score": (
-        "flash_score.cu",
-        "flash_score_f32",
-        [_P, _P, _P, _P, ctypes.c_float, _P, _P, _P, _P, _P, _P,
-         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, _P],
+    "flash_score": ("flash_score.cu", "flash_score_f32", _FLASH_ARGS),
+    "flash_score_bf16x3": (
+        "flash_score_bf16x3.cu", "flash_score_bf16x3", _FLASH_ARGS,
     ),
 }
 
@@ -64,31 +70,54 @@ def _nvcc() -> str:
     return found
 
 
-def build(name: str) -> Built:
-    """Compile kernel `name` unless an identical build exists."""
+def _target(name: str):
+    """(source, library path) of kernel `name`; the path carries a hash of
+    the source and the flags."""
     src = CSRC / KERNELS[name][0]
     digest = hashlib.sha256(
         src.read_bytes() + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{name}_{digest}.so"
-    log_path = out.with_suffix(".log")
-    if out.exists():
-        log = log_path.read_text() if log_path.exists() else ""
-        return Built(out, log, 0.0)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-        capture_output=True, text=True,
-    )
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {src.name}:\n{log}")
-    log_path.write_text(log)
-    os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
-    return Built(out, log, seconds)
+    return src, BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def build_all(names=None) -> dict:
+    """Compile kernels `names` (default: all) unless identical builds exist:
+    one nvcc process per source, all started together. Returns name ->
+    Built; raises if any build fails."""
+    names = list(KERNELS) if names is None else list(names)
+    done, running = {}, {}
+    for name in names:
+        src, out = _target(name)
+        log_path = out.with_suffix(".log")
+        if out.exists():
+            log = log_path.read_text() if log_path.exists() else ""
+            done[name] = Built(out, log, 0.0)
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        running[name] = (src, out, tmp, proc, time.perf_counter())
+    failed = []
+    for name, (src, out, tmp, proc, t0) in running.items():
+        log, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {src.name}:\n{log}")
+            continue
+        out.with_suffix(".log").write_text(log)
+        os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+        done[name] = Built(out, log, seconds)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return done
+
+
+def build(name: str) -> Built:
+    """Compile kernel `name` unless an identical build exists."""
+    return build_all([name])[name]
 
 
 _LOADED: dict = {}

@@ -17,13 +17,15 @@ finite -1e30 sentinel for empty rows (`state_to_kernel` /
 `state_from_pallas`), the per-patch bias row that folds
 -a_t^2 ||p||^2 / (2 beta^2) and log2 w together in base-2 log space, and the
 shift of m by the per-query ||q||^2 / (2 beta^2) on entry and exit. The
-tensor's device picks the sweep: on CUDA the hand-written kernel
-(`csrc/flash_score.cu`), on the CPU `sweep_plain`, the same function in plain
-PyTorch. Nothing falls back from one to the other.
+tensor's device picks the sweep: on CUDA a hand-written kernel, on the CPU
+`sweep_plain`, the same function in plain PyTorch. The precision picks the
+kernel: 'highest' runs the fp32 kernel (`csrc/flash_score.cu`, variant K1),
+'high' the bf16x3 tensor-core kernel (`csrc/flash_score_bf16x3.cu`, variant
+K2). Nothing falls back from one device, or one tier, to another.
 
-Ported: the fp32 'highest' tier with per-channel value sums and 1-D weights
-(kernel variant K1). Not yet: 'high' (K2), 'default' (K3), the 'inbank' and
-'mxu' value strategies (K4), per-seed weights (K5), prune masks (K6).
+Ported: the 'highest' (K1) and 'high' (K2) tiers with per-channel value sums
+and 1-D weights. Not yet: 'default' (K3), the 'inbank' and 'mxu' value
+strategies (K4), per-seed weights (K5), prune masks (K6).
 """
 
 from __future__ import annotations
@@ -39,22 +41,19 @@ LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 MAX_CHANNELS = 8  # value channels the kernel accumulates per row
 PLAIN_BLOCK = 8192  # bank rows per step of the plain version
+# precision tier -> the kernel that runs it on the card (ops._build.KERNELS)
+KERNEL_OF = {"highest": "flash_score", "high": "flash_score_bf16x3"}
 
 State = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def _check_precision(precision: str) -> None:
-    if precision == "highest":
+    if precision in KERNEL_OF:
         return
-    if precision == "high":
-        raise NotImplementedError(
-            "precision='high' (bf16x3 split QK dot) is flash-score variant K2, "
-            "not ported yet; use precision='highest'"
-        )
     if precision == "default":
         raise NotImplementedError(
             "precision='default' (bf16 exp2, fused e @ [V|1]) is flash-score "
-            "variant K3, not ported yet; use precision='highest'"
+            "variant K3, not ported yet; use precision='highest' or 'high'"
         )
     raise ValueError(
         f"precision must be 'highest', 'high' or 'default', got {precision!r}"
@@ -66,18 +65,69 @@ def _scalar(x) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32).reshape(()).cpu()
 
 
-def sweep_plain(q, bias, bank, values, dotscale: float, m, s1, s2) -> State:
-    """Plain PyTorch version of the kernel: the same base-2 online softmax
+MMA_K = 16  # features per tensor-core product step of the bf16x3 kernel
+
+
+def _split_bf16(x: torch.Tensor):
+    """x = hi + lo + O(2^-16 |x|): both parts bf16 values (round to nearest
+    even, as the TPU kernel's casts), returned in float32."""
+    hi = x.to(torch.bfloat16)
+    lo = (x - hi.float()).to(torch.bfloat16)
+    return hi.float(), lo.float()
+
+
+def _toward_zero(x64: torch.Tensor) -> torch.Tensor:
+    """float64 -> float32 rounded toward zero."""
+    r = x64.float()
+    return torch.where(r.double().abs() > x64.abs(),
+                       torch.nextafter(r, torch.zeros_like(r)), r)
+
+
+def _split_dot(qh64, ql64, kh, kl) -> torch.Tensor:
+    """The bf16x3 split dot qh.kh + qh.kl + ql.kh as the kernel computes it,
+    in float64: qh.kh as the sum of its MMA_K-feature slices, each the exact
+    slice sum rounded toward zero to float32 (what a tensor-core product
+    step returns from a zero accumulator, as measured on an H100), plus the
+    cross terms; rounded once to float32. Products of bf16 values and their
+    slice sums are exact in float64."""
+    kh64 = kh.double()
+    dots = qh64 @ kl.double().T + ql64 @ kh64.T
+    for f0 in range(0, kh.shape[1], MMA_K):
+        dots += _toward_zero(qh64[:, f0 : f0 + MMA_K] @ kh64[:, f0 : f0 + MMA_K].T)
+    return dots.float()
+
+
+def sweep_plain(q, bias, bank, values, dotscale: float, m, s1, s2,
+                precision: str = "highest") -> State:
+    """Plain PyTorch version of the kernels: the same base-2 online softmax
     over the same bias row, PLAIN_BLOCK bank rows at a time, on any device.
-    The dots are true fp32: TF32 is switched off for the call
-    (torch.backends.cuda.matmul.allow_tf32 = False) and restored after."""
+
+    'highest' takes true fp32 dots, with TF32 switched off for the call
+    (torch.backends.cuda.matmul.allow_tf32 = False, restored after).
+
+    'high' takes the TPU kernel's bf16x3 split, qh.kh + qh.kl + ql.kh, and
+    repeats the kernel's arithmetic: the split dot summed as `_split_dot`
+    sums it, and the logit dot * dotscale + bias rounded once, as the
+    kernel's fused multiply-add. The logit scale 1/(2 beta^2) makes the
+    posterior sensitive to the dot's last bits: two fp32 summation orders
+    of the same split differ by up to ~0.5% on the posterior mean at the
+    sharpest softmax (k = 17, t = 0.05), so the kernel sums the split
+    exactly up to a residual far below an ulp, and so does this version."""
+    high = precision == "high"
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         zero = torch.zeros((), dtype=torch.float32, device=q.device)
+        if high:
+            qh, ql = _split_bf16(q)
+            qh64, ql64 = qh.double(), ql.double()
         for p0 in range(0, bank.shape[0], PLAIN_BLOCK):
             p1 = p0 + PLAIN_BLOCK
-            logits = (q @ bank[p0:p1].T) * dotscale + bias[p0:p1]
+            if high:
+                dots = _split_dot(qh64, ql64, *_split_bf16(bank[p0:p1]))
+                logits = (dots.double() * dotscale + bias[p0:p1].double()).float()
+            else:
+                logits = (q @ bank[p0:p1].T) * dotscale + bias[p0:p1]
             m_new = torch.maximum(m, logits.amax(dim=1))
             m_safe = torch.where(m_new <= NEG_INF * 0.5, zero, m_new)
             e = torch.exp2(logits - m_safe[:, None])
@@ -90,13 +140,17 @@ def sweep_plain(q, bias, bank, values, dotscale: float, m, s1, s2) -> State:
     return m, s1, s2
 
 
-def sweep_kernel(q, bias, bank, values, dotscale: float, m, s1, s2) -> State:
-    """Launch the CUDA kernel on the current stream; returns new tensors."""
+def sweep_kernel(q, bias, bank, values, dotscale: float, m, s1, s2,
+                 precision: str = "highest") -> State:
+    """Launch the tier's CUDA kernel on the current stream; returns new
+    tensors. Each launch adds one to that kernel's count in
+    `flash_score_update.launches`."""
+    name = KERNEL_OF[precision]
     M, d = q.shape
     P, c = values.shape
     if not 1 <= c <= MAX_CHANNELS:
         raise NotImplementedError(
-            f"the fp32 kernel accumulates 1..{MAX_CHANNELS} value channels, "
+            f"the kernels accumulate 1..{MAX_CHANNELS} value channels, "
             f"got {c} (the matrix value path is flash-score variant K4)"
         )
     tensors = (q, bias, bank, values, m, s1, s2)
@@ -112,7 +166,7 @@ def sweep_kernel(q, bias, bank, values, dotscale: float, m, s1, s2) -> State:
     s2_out = torch.empty_like(s2)
     if M == 0:
         return m_out, s1_out, s2_out
-    fn = _build.load("flash_score")
+    fn = _build.load(name)
     dev = q.device
     err = fn(
         q.data_ptr(), bias.data_ptr(), bank.data_ptr(), values.data_ptr(),
@@ -122,8 +176,8 @@ def sweep_kernel(q, bias, bank, values, dotscale: float, m, s1, s2) -> State:
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"flash-score kernel launch failed: CUDA error {err}")
-    flash_score_update.launches += 1
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    flash_score_update.launches[name] += 1
     return m_out, s1_out, s2_out
 
 
@@ -164,7 +218,8 @@ def _update(sweep, q, qn, bank, pn, values, w, at, bt, state, precision) -> Stat
     qn_s = qn * inv2bt2.to(dev)
     m_k = torch.where(m0 <= NEG_INF * 0.5, m0, (m0 + qn_s) * LOG2E)
     dotscale = float(2.0 * at * inv2bt2 * LOG2E)
-    m, s1, s2 = sweep(q, bias, bank, values, dotscale, m_k, s10, s20)
+    m, s1, s2 = sweep(q, bias, bank, values, dotscale, m_k, s10, s20,
+                      precision=precision)
     m = torch.where(m <= NEG_INF * 0.5, m, m * LN2 - qn_s)
     return m, s1, s2
 
@@ -183,9 +238,10 @@ def flash_score_update(
     precision: str = "highest",
 ) -> State:
     """One fused bank sweep; returns the updated (m, s1, s2) with the finite
-    NEG_INF sentinel convention. CUDA tensors run the hand-written kernel
-    (each launch adds one to `flash_score_update.launches`); CPU tensors run
-    `sweep_plain`; any other device raises."""
+    NEG_INF sentinel convention. CUDA tensors run the tier's hand-written
+    kernel, K1 at 'highest' and K2 at 'high' (each launch adds one to
+    `flash_score_update.launches[name]`, name from KERNEL_OF); CPU tensors
+    run `sweep_plain`; any other device raises."""
     if q.is_cuda:
         sweep = sweep_kernel
     elif q.device.type == "cpu":
@@ -195,7 +251,7 @@ def flash_score_update(
     return _update(sweep, q, qn, bank, pn, values, w, at, bt, state, precision)
 
 
-flash_score_update.launches = 0
+flash_score_update.launches = {name: 0 for name in KERNEL_OF.values()}
 
 
 def flash_score_update_plain(q, qn, bank, pn, values, w, at, bt, state, *,

@@ -1,13 +1,18 @@
 """Analytic score machines — the paper's closed-form denoisers.
 
-Ported so far: the ELS module and the scheduled machine that drives it."""
+Ported so far: the ELS and bbELS modules, the LS module (bbELS's fallback
+for k >= image size) and the scheduled machine that drives them."""
 
+from .bbels import LocalEquivBordersScoreModule
 from .common import SoftmaxState, init_state, merge_states, update_state
 from .els import LocalEquivScoreModule
+from .local import LocalScoreModule
 from .machine import ScheduledScoreMachine
 
 __all__ = [
+    "LocalEquivBordersScoreModule",
     "LocalEquivScoreModule",
+    "LocalScoreModule",
     "ScheduledScoreMachine",
     "SoftmaxState",
     "init_state",

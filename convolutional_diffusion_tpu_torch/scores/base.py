@@ -24,6 +24,21 @@ from ..schedules import cosine_noise_schedule
 PRECISIONS = ("highest", "high", "default")
 
 
+def fp32_einsum(spec: str, *operands: torch.Tensor) -> torch.Tensor:
+    """`torch.einsum` in true fp32: TF32 is switched off for the call
+    (torch.backends.cuda.matmul.allow_tf32 = False) and restored after. The
+    region dot products and value sums that the score modules compute
+    outside the flash-score kernels go through here at every precision tier,
+    as the JAX package's do on the CPU: a TF32 rounding of a score logit is
+    amplified by the 1/(2 beta^2) scale to a large posterior error."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return torch.einsum(spec, *operands)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: `cuda` unless the caller asks for
     another. Without a CUDA device that is an error, never a quiet CPU run."""
@@ -58,15 +73,22 @@ class ScoreModuleBase:
         batch_size: int = 64,
         schedule: Callable = cosine_noise_schedule,
         max_samples: Optional[int] = None,
+        chunk_size: Optional[int] = None,
         precision: str = "highest",
         shuffle: bool = False,
         generator: Optional[torch.Generator] = None,
         device=None,
         **_unused,
     ):
-        """precision: 'highest' (true fp32 dots — the parity configuration
-        and the only tier ported so far); 'high' and 'default' are accepted
-        here and raise NotImplementedError when a sweep runs.
+        """precision: 'highest' (true fp32 dots: the parity configuration,
+        kernel K1 on the card) or 'high' (the flash-score sweeps' QK dots as
+        a bf16x3 split, ~2^-16 relative dot error, with fp32 elementwise:
+        kernel K2 on the card; dots outside the sweeps stay fp32). 'default'
+        is accepted here and raises NotImplementedError when a sweep runs.
+
+        chunk_size: images per compute chunk where a module streams the raw
+        images (default batch_size); the reference's semantics stay keyed
+        to batch_size, whatever the chunk.
 
         shuffle: stream the dataset in a fresh random order on every call
         (the reference DataLoader's shuffle=True), drawn with `generator`
@@ -79,15 +101,19 @@ class ScoreModuleBase:
             )
         self.device = resolve_device(device)
         images, labels = dataset
-        images = torch.as_tensor(np.asarray(images, dtype=np.float32))
+        # tensors (e.g. another module's) are kept as they are where they
+        # already lie on the device: no second copy of the dataset
+        if not isinstance(images, torch.Tensor):
+            images = torch.as_tensor(np.asarray(images, dtype=np.float32))
+        if not isinstance(labels, torch.Tensor):
+            labels = torch.as_tensor(np.asarray(labels, dtype=np.int64))
         if images.ndim != 4:
             raise ValueError("dataset images must be [N, h, w, c] (NHWC)")
-        self.images = images.to(self.device)
-        self.labels = torch.as_tensor(
-            np.asarray(labels, dtype=np.int64)
-        ).to(self.device)
+        self.images = images.to(self.device, torch.float32)
+        self.labels = labels.to(self.device, torch.int64)
         self.kernel_size = kernel_size
         self.batch_size = batch_size
+        self.chunk_size = chunk_size or batch_size
         self.schedule = schedule
         self.max_samples = max_samples
         self.precision = precision

@@ -18,6 +18,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .base import fp32_einsum
+
 NEG_INF = float("-inf")
 
 
@@ -77,7 +79,7 @@ def update_state(
         shared = values.ndim - 2  # leading S dims shared with values
         letters = "".join(chr(ord("A") + i) for i in range(shared))
         spec = f"{letters}...p,{letters}pv->{letters}...v"
-        s2 = state.s2 * scale[..., None] + torch.einsum(spec, e, values)
+        s2 = state.s2 * scale[..., None] + fp32_einsum(spec, e, values)
     return SoftmaxState(m=m_new, s1=s1, s2=s2)
 
 

@@ -12,7 +12,8 @@ bank patches' CENTER pixels gives the score. As flash attention:
   logit = -(||q||^2 - 2 a_t qk + a_t^2 ||k||^2) / (2 beta_t)
 
 swept chunk by chunk through `ops.flash_score.flash_score_update` (on CUDA
-the hand-written kernel), never materialising [b, P, h, w].
+the hand-written kernel of the module's precision tier: K1 at 'highest',
+K2 at 'high'), never materialising [b, P, h, w].
 
 Reference parity: per-batch means over n_kept * (h-k+1)^2 entries and the
 UNFILTERED max_samples cutoff come from `image_weights`.
@@ -111,6 +112,29 @@ def banked_sweep(
     return state_from_kernel(*state)
 
 
+@torch.no_grad()
+def patch_sweep(module, k: int, q_flat, qn_flat, w_img, at, bt):
+    """Sweep the queries over every valid k x k patch of `module`'s images
+    (per-image weights `w_img`): through the module's cached bank where the
+    ledger holds it, else streamed chunk by chunk. Either way one sweep per
+    bank chunk, with the module's precision. Returns (m, s1, s2), -inf
+    convention. The ELS module and the bbELS center region share it."""
+    n, h, w, c = module.images.shape
+    g = bank_geometry(n, h, w, c, k, module.target_block)
+    bank = module._bank(k)
+    if bank is None:
+        return els_sweep(
+            module.images, w_img, q_flat, qn_flat, at, bt,
+            k=k, cs=g.cs, precision=module.precision,
+        )
+    # chunk-padding images get zero weight
+    w_b = F.pad(w_img, (0, g.nblk * g.cs - n))
+    w_b = w_b.repeat_interleave(g.per_img).reshape(g.nblk, g.block)
+    return banked_sweep(
+        q_flat, qn_flat, bank, w_b, at, bt, precision=module.precision
+    )
+
+
 class LocalEquivScoreModule(BankCacheMixin, ScoreModuleBase):
     """ELS score module. Banks are cached per k on the module's device while
     the ledger budget lasts (bank mode); a k whose bank does not fit streams
@@ -165,19 +189,7 @@ class LocalEquivScoreModule(BankCacheMixin, ScoreModuleBase):
         xq = extract_patches(pad_image(x, k // 2, "circular"), k)
         xq = xq.reshape(b * h * w, g.d)
         qn = (xq * xq).sum(dim=-1)
-        bank = self._bank(k)
-        if bank is None:
-            _, s1, s2 = els_sweep(
-                self.images, w_img, xq, qn, at, bt,
-                k=k, cs=g.cs, precision=self.precision,
-            )
-        else:
-            # chunk-padding images get zero weight
-            w_b = F.pad(w_img, (0, g.nblk * g.cs - n))
-            w_b = w_b.repeat_interleave(g.per_img).reshape(g.nblk, g.block)
-            _, s1, s2 = banked_sweep(
-                xq, qn, bank, w_b, at, bt, precision=self.precision
-            )
+        _, s1, s2 = patch_sweep(self, k, xq, qn, w_img, at, bt)
         mean_center = (s2 / s1[:, None]).reshape(b, h * w, c)
         score = -(x.reshape(b, h * w, c) - at * mean_center) / (bt**2)
         return score.reshape(x.shape)

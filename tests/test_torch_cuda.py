@@ -1,10 +1,12 @@
-"""The hand-written flash-score kernel against its plain PyTorch version, on
-the card. Marked `cuda`; skips (from inside each test) where no CUDA device
-is present. On the card: `python -m pytest tests/test_torch_cuda.py -m cuda`.
+"""The hand-written flash-score kernels, K1 ('highest') and K2 ('high'),
+against their plain PyTorch version, on the card. Marked `cuda`; skips (from
+inside each test) where no CUDA device is present. On the card:
+`python -m pytest tests/test_torch_cuda.py -m cuda`.
 
 Tolerance: the repo's parity rule on the offset-invariant quantities,
 max|a-b| / max(|a|,|b|,1) <= 1e-3 for the log total weight m + log s1 and
-for the posterior mean s2/s1 (two fp32 summation orders of the same dots)."""
+for the posterior mean s2/s1 (two fp32 summation orders of the same dots;
+at 'high' of the same bf16 parts)."""
 
 import pytest
 import torch
@@ -49,35 +51,57 @@ def _assert_close(got, want):
     assert _rel(*mean) <= 1e-3
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("M,d,P,c", [
+SHAPES = [
     (8, 12, 24, 1), (300, 27, 700, 3), (1025, 75, 513, 3), (64, 867, 600, 3),
     (128, 2187, 300, 3), (96, 128, 2048, 8),
-])
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,d,P,c", SHAPES)
 def test_kernel_matches_plain(M, d, P, c):
     dev = _need_cuda()
     q, qn, bank, pn, values, w = _case(M, d, P, c, seed=M + d, dev=dev)
     args = (q, qn, bank, pn, values, w, 0.8, 0.6, _empty(M, c, dev))
-    before = tfs.flash_score_update.launches
+    before = dict(tfs.flash_score_update.launches)
     got = tfs.flash_score_update(*args)
     torch.cuda.synchronize()
-    assert tfs.flash_score_update.launches == before + 1
+    assert tfs.flash_score_update.launches == {
+        **before, "flash_score": before["flash_score"] + 1}
     _assert_close(got, tfs.flash_score_update_plain(*args))
 
 
 @pytest.mark.cuda
-def test_kernel_chaining_and_excluded_chunk():
+@pytest.mark.parametrize("M,d,P,c", SHAPES)
+def test_bf16x3_kernel_matches_plain(M, d, P, c):
+    """'high' launches K2, and only K2, and matches the plain split."""
+    dev = _need_cuda()
+    q, qn, bank, pn, values, w = _case(M, d, P, c, seed=M + d + 1, dev=dev)
+    args = (q, qn, bank, pn, values, w, 0.8, 0.6, _empty(M, c, dev))
+    before = dict(tfs.flash_score_update.launches)
+    got = tfs.flash_score_update(*args, precision="high")
+    torch.cuda.synchronize()
+    assert tfs.flash_score_update.launches == {
+        **before, "flash_score_bf16x3": before["flash_score_bf16x3"] + 1}
+    _assert_close(got, tfs.flash_score_update_plain(*args, precision="high"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "high"])
+def test_kernel_chaining_and_excluded_chunk(precision):
     dev = _need_cuda()
     M, d, P, c = 256, 147, 1000, 3
     q, qn, bank, pn, values, w = _case(M, d, P, c, seed=1, dev=dev)
-    whole = tfs.flash_score_update(q, qn, bank, pn, values, w, 0.7, 0.7, _empty(M, c, dev))
+    kw = dict(precision=precision)
+    whole = tfs.flash_score_update(q, qn, bank, pn, values, w, 0.7, 0.7,
+                                   _empty(M, c, dev), **kw)
     half = tfs.flash_score_update(q, qn, bank[:400], pn[:400], values[:400], w[:400],
-                                  0.7, 0.7, _empty(M, c, dev))
+                                  0.7, 0.7, _empty(M, c, dev), **kw)
     chained = tfs.flash_score_update(q, qn, bank[400:], pn[400:], values[400:], w[400:],
-                                     0.7, 0.7, half)
+                                     0.7, 0.7, half, **kw)
     _assert_close(chained, whole)
     same = tfs.flash_score_update(q, qn, bank, pn, values, torch.zeros_like(w),
-                                  0.7, 0.7, whole)
+                                  0.7, 0.7, whole, **kw)
     # s1/s2 exactly (scale 2^0 = 1, nothing added); m up to the wrapper's
     # float32 shift into and out of the kernel's qn-less base-2 convention
     assert torch.equal(same[1], whole[1]) and torch.equal(same[2], whole[2])

@@ -150,6 +150,26 @@ def test_shuffle_generator_deterministic_and_fresh(tiny_dataset):
     assert not torch.allclose(o1, o2)
 
 
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("case", ["plain", "label", "k5"])
+def test_high_matches_jax_module_interpret(tiny_dataset, monkeypatch, mode, case):
+    """'high': the port's plain bf16x3 sweep against the JAX module driving
+    its Pallas kernel in interpret mode (use_pallas=True; without it the
+    JAX module on the CPU takes its fp32 jnp path)."""
+    monkeypatch.setenv("CDT_FLASH_INTERPRET", "1")
+    imgs, labs = tiny_dataset
+    ctor, call = JAX_CASES[case]
+    x = _x(2)
+    kw = dict(kernel_size=3, batch_size=5, precision="high", **ctor)
+    jmod = jscores.LocalEquivScoreModule(
+        (imgs, labs), schedule=jcos, use_pallas=True, **kw,
+        **({"bank_budget_bytes": 0} if mode == "stream" else {}),
+    )
+    ours = _port(imgs, labs, mode, **kw)
+    for t in (0.05, 0.5):
+        _check(ours(t, x, **call), np.asarray(jmod(t, jnp.asarray(x), **call)))
+
+
 def _sweep_inputs(tiny_dataset, k=3):
     imgs, labs = tiny_dataset
     images = torch.from_numpy(imgs)
@@ -199,6 +219,6 @@ def test_argument_errors(tiny_dataset):
         mod(0.5, _x(1), k=4)
     with pytest.raises(ValueError, match="precision"):
         _port(imgs, labs, "bank", precision="bf16")
-    with pytest.raises(NotImplementedError, match="K2"):
-        _port(imgs, labs, "bank", precision="high")(0.5, _x(1))
+    with pytest.raises(NotImplementedError, match="K3"):
+        _port(imgs, labs, "bank", precision="default")(0.5, _x(1))
     assert jax.default_backend() == "cpu"  # the JAX reference stays on the CPU

@@ -1,6 +1,7 @@
-"""Port vs JAX: the flash-score sweep. The port's CPU path (the kernel's plain
+"""Port vs JAX: the flash-score sweep. The port's CPU path (the kernels' plain
 PyTorch version behind the same wrapper) against the JAX Pallas kernel in
-interpret mode and against the JAX `update_state` reference.
+interpret mode, at 'highest' (K1) and at 'high' (K2, the bf16x3 split dot),
+and against the JAX `update_state` reference.
 
 The kernels fold log w into their running max, so only the offset-invariant
 quantities are compared: the log total weight m + log s1 (rtol 1e-5,
@@ -32,11 +33,11 @@ def _empty(M, c):
             np.zeros((M, c), np.float32))
 
 
-def _port(a, at, bt, state):
+def _port(a, at, bt, state, precision="highest"):
     t = {k: torch.from_numpy(v) for k, v in a.items()}
     out = tfs.flash_score_update(
         t["q"], t["qn"], t["bank"], t["pn"], t["values"], t["w"], at, bt,
-        tuple(torch.from_numpy(s) for s in state),
+        tuple(torch.from_numpy(s) for s in state), precision=precision,
     )
     return tuple(o.numpy() for o in out)
 
@@ -165,22 +166,100 @@ def test_state_conversions_roundtrip():
 
 @pytest.mark.parametrize("precision,variant", [("high", "K2"), ("default", "K3")])
 def test_unported_tiers_raise(precision, variant):
+    """'default' (K3) is not ported and raises, naming its variant; 'high'
+    (K2) is ported and runs. At the ported tiers per-seed weights (K5) and
+    a shape mismatch raise."""
     a = _inputs(8, 12, 16, 3, seed=7)
     t = {k: torch.from_numpy(v) for k, v in a.items()}
     st = tuple(torch.from_numpy(s) for s in _empty(8, 3))
     args = (t["q"], t["qn"], t["bank"], t["pn"], t["values"], t["w"], 0.8, 0.6, st)
-    with pytest.raises(NotImplementedError, match=variant):
-        tfs.flash_score_update(*args, precision=precision)
-    with pytest.raises(NotImplementedError, match=variant):
-        tfs.flash_score_update_plain(*args, precision=precision)
+    if variant == "K2":
+        for fn in (tfs.flash_score_update, tfs.flash_score_update_plain):
+            m, s1, s2 = fn(*args, precision=precision)
+            assert torch.isfinite(m).all() and (s1 > 0).all()
+            assert torch.isfinite(s2).all()
+    else:
+        with pytest.raises(NotImplementedError, match=variant):
+            tfs.flash_score_update(*args, precision=precision)
+        with pytest.raises(NotImplementedError, match=variant):
+            tfs.flash_score_update_plain(*args, precision=precision)
+    precision = "high" if variant == "K2" else "highest"
     with pytest.raises(NotImplementedError, match="K5"):
-        tfs.flash_score_update(*args[:5], t["w"][None].repeat(2, 1), 0.8, 0.6, st)
+        tfs.flash_score_update(*args[:5], t["w"][None].repeat(2, 1), 0.8, 0.6, st,
+                               precision=precision)
     with pytest.raises(ValueError, match="shape"):
-        tfs.flash_score_update(t["q"], t["qn"], t["bank"][:5], *args[3:])
+        tfs.flash_score_update(t["q"], t["qn"], t["bank"][:5], *args[3:],
+                               precision=precision)
+
+
+@pytest.mark.parametrize("shapes", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_high_matches_jax_kernel_interpret(shapes):
+    """'high': the plain bf16x3 split against the JAX kernel's own split."""
+    M, d, P, c = shapes
+    a = _inputs(M, d, P, c, seed=10)
+    ours = _port(a, 0.8, 0.6, _empty(M, c), precision="high")
+    want = _jax(a, 0.8, 0.6, _empty(M, c), block_q=64, block_p=128,
+                precision="high")
+    _assert_same(ours, want)
+
+
+@pytest.mark.parametrize("split", [128, 255])
+def test_high_chaining_and_sentinel_rows_match_jax(split):
+    """'high', chained over two bank parts with sentinel and zero-weight
+    rows in the carried state, against the JAX kernel fed the same state."""
+    M, d, P, c = 40, 75, 300, 3
+    a = _inputs(M, d, P, c, seed=11, w_lo=0.0)
+    a["w"][a["w"] < 0.3] = 0.0
+    head = {k: (v[:split] if v.shape[0] == P else v) for k, v in a.items()}
+    tail = {k: (v[split:] if v.shape[0] == P else v) for k, v in a.items()}
+    state = tuple(s.copy() for s in _port(head, 0.8, 0.6, _empty(M, c), "high"))
+    state[0][::3], state[1][::3], state[2][::3] = -1e30, 0.0, 0.0
+    _assert_same(_port(tail, 0.8, 0.6, state, "high"),
+                 _jax(tail, 0.8, 0.6, state, block_q=64, block_p=128,
+                      precision="high"))
+    full = _port(a, 0.8, 0.6, _empty(M, c), "high")
+    chained = _port(tail, 0.8, 0.6, _port(head, 0.8, 0.6, _empty(M, c), "high"), "high")
+    _assert_same(chained, full)
+
+
+def test_high_splits_the_dot():
+    """'high' is not bit-equal to 'highest' (the split is really done), and
+    agrees with it to the tier's ~2^-16 relative dot error; with inputs that
+    are bf16 values already (lo parts zero) the two tiers agree to fp32
+    rounding."""
+    M, d, P, c = 64, 243, 512, 3
+    a = _inputs(M, d, P, c, seed=12)
+    hi = _port(a, 0.9, 0.5, _empty(M, c), "high")
+    ref = _port(a, 0.9, 0.5, _empty(M, c), "highest")
+    assert not all(np.array_equal(x, y) for x, y in zip(hi, ref))
+    lse_h, mean_h = _invariants(*hi)
+    lse_r, mean_r = _invariants(*ref)
+    np.testing.assert_allclose(lse_h, lse_r, rtol=1e-3)
+    np.testing.assert_allclose(mean_h, mean_r, atol=1e-2)
+    b16 = {k: torch.from_numpy(v).to(torch.bfloat16).float().numpy() for k, v in a.items()}
+    b16["qn"], b16["pn"] = (b16["q"] ** 2).sum(1), (b16["bank"] ** 2).sum(1)
+    _assert_same(_port(b16, 0.9, 0.5, _empty(M, c), "high"),
+                 _port(b16, 0.9, 0.5, _empty(M, c), "highest"))
+
+
+def test_high_all_excluded_chunk_leaves_state_unchanged():
+    M, d, P, c = 24, 27, 100, 3
+    a = _inputs(M, d, P, c, seed=13)
+    state = tuple(s.copy() for s in _port(a, 0.8, 0.6, _empty(M, c), "high"))
+    state[0][:4], state[1][:4], state[2][:4] = -1e30, 0.0, 0.0
+    excluded = dict(_inputs(M, d, P, c, seed=14), q=a["q"], qn=a["qn"])
+    excluded["w"][:] = 0.0
+    after = _port(excluded, 0.8, 0.6, state, "high")
+    np.testing.assert_array_equal(state[1], after[1])
+    np.testing.assert_array_equal(state[2], after[2])
+    np.testing.assert_allclose(state[0][4:], after[0][4:], rtol=1e-6)
+    assert (after[0][:4] <= -5e29).all()
 
 
 def test_cpu_path_does_not_count_launches():
-    before = tfs.flash_score_update.launches
+    before = dict(tfs.flash_score_update.launches)
+    assert set(before) == {"flash_score", "flash_score_bf16x3"}
     a = _inputs(8, 12, 16, 3, seed=8)
     _port(a, 0.8, 0.6, _empty(8, 3))
+    _port(a, 0.8, 0.6, _empty(8, 3), "high")
     assert tfs.flash_score_update.launches == before

@@ -12,7 +12,11 @@ import pytest
 import torch
 
 from convolutional_diffusion_tpu_torch import convert
-from convolutional_diffusion_tpu_torch.scores import LocalEquivScoreModule
+from convolutional_diffusion_tpu_torch.scores import (
+    LocalEquivBordersScoreModule,
+    LocalEquivScoreModule,
+    LocalScoreModule,
+)
 from convolutional_diffusion_tpu_torch.scores.bank import bank_geometry
 from convolutional_diffusion_tpu_torch.scores.base import resolve_device
 
@@ -39,7 +43,8 @@ def test_port_imports_no_jax_and_no_jax_package():
         check=True, timeout=120,
     )
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "convolutional_diffusion_tpu_torch.scores.els" in res["imported"]
+    for mod in ("scores.els", "scores.bbels", "scores.local"):
+        assert f"convolutional_diffusion_tpu_torch.{mod}" in res["imported"]
     assert "convolutional_diffusion_tpu_torch.ops.flash_score" in res["imported"]
     assert res["forbidden"] == []
 
@@ -50,8 +55,9 @@ def _no_cuda(monkeypatch):
 
 def test_default_device_without_cuda_raises(monkeypatch, tiny_dataset):
     _no_cuda(monkeypatch)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        LocalEquivScoreModule(tiny_dataset)
+    for cls in (LocalEquivScoreModule, LocalEquivBordersScoreModule, LocalScoreModule):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cls(tiny_dataset)
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device()
     g = bank_geometry(1, 4, 4, 1, 3, 64)

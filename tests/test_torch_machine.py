@@ -1,10 +1,12 @@
-"""Port vs JAX and vs the torch-reference goldens: the scheduled ELS machine
-end to end on the CPU, plus its DDIM step and the synthetic dataset.
+"""Port vs JAX and vs the torch-reference goldens: the scheduled ELS and
+bbELS machines end to end on the CPU, plus the DDIM step and the synthetic
+dataset.
 
-Tolerances: goldens as the JAX tests hold them (machine/els and gray/machine
-at atol 5e-4, bigk/machine at 1e-3, relative to scale); a whole trajectory
-against the JAX machine at the repo's parity rule, max|a-b| / max(|a|,|b|,1)
-<= 1e-3, at every step; the DDIM step at float32 rounding (rtol 1e-6)."""
+Tolerances: goldens as the JAX tests hold them (machine/els, machine/bbels
+and gray/machine at atol 5e-4, bigk/machine at 1e-3, relative to scale); a
+whole trajectory against the JAX machine at the repo's parity rule,
+max|a-b| / max(|a|,|b|,1) <= 1e-3, at every step; the DDIM step at float32
+rounding (rtol 1e-6)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +19,7 @@ import convolutional_diffusion_tpu.scores as jscores
 import convolutional_diffusion_tpu_torch.data as tdata
 import convolutional_diffusion_tpu_torch.sampling as tsampling
 from convolutional_diffusion_tpu_torch.scores import (
+    LocalEquivBordersScoreModule,
     LocalEquivScoreModule,
     ScheduledScoreMachine,
 )
@@ -57,6 +60,15 @@ def test_machine_goldens(z, budget, prefix, imgs, c, imsize, bs, atol):
     _check(machine(_nhwc(z[x_key])[:1]), _nhwc(z[f"{prefix}/out"]), atol)
 
 
+def _assert_same_trajectory(ttraj, jtraj, steps):
+    assert len(ttraj) == len(jtraj) == steps
+    for a, b in zip(ttraj, jtraj):
+        a, b = a.numpy(), np.asarray(b)
+        dev = np.abs(a - b).max() / max(np.abs(a).max(), np.abs(b).max(), 1.0)
+        assert dev <= 1e-3, dev
+    assert np.isfinite(a).all()
+
+
 def test_trajectory_matches_jax_machine():
     ds = tdata.synthetic_dataset(num_samples=32, image_size=16, seed=3)
     scales = [3, 3, 5, 5, 7]
@@ -67,12 +79,40 @@ def test_trajectory_matches_jax_machine():
     tmod = LocalEquivScoreModule((ds.images, ds.labels), batch_size=8, device="cpu")
     tx, ttraj = ScheduledScoreMachine(tmod, imsize=16, scales=scales)(
         x0, collect_trajectory=True)
-    assert len(ttraj) == len(jtraj) == 4
-    for a, b in zip(ttraj, jtraj):
-        a, b = a.numpy(), np.asarray(b)
-        dev = np.abs(a - b).max() / max(np.abs(a).max(), np.abs(b).max(), 1.0)
-        assert dev <= 1e-3, dev
-    assert np.isfinite(tx.numpy()).all()
+    _assert_same_trajectory(ttraj, jtraj, 4)
+
+
+@pytest.mark.parametrize("budget", [48 << 30, 0], ids=["bank", "stream"])
+def test_bbels_machine_golden(z, budget):
+    mod = LocalEquivBordersScoreModule(
+        (_nhwc(z["imgs"]), z["labs"].astype(np.int32)), kernel_size=3,
+        batch_size=6, device="cpu", bank_budget_bytes=budget,
+    )
+    machine = ScheduledScoreMachine(
+        mod, in_channels=3, imsize=8, scales=[int(s) for s in z["machine/scales"]])
+    _check(machine(_nhwc(z["x"])), _nhwc(z["machine/bbels/out"]), 5e-4)
+
+
+@pytest.mark.parametrize("budget", [48 << 30, 0], ids=["bank", "stream"])
+def test_bbels_high_trajectory_matches_jax_machine(monkeypatch, budget):
+    """bbELS at 'high': the JAX machine drives its Pallas kernel in
+    interpret mode. The scales reach k = 9 >= the 8-pixel image, so the LS
+    fallback runs too; N is a multiple of the batch size, so its shuffled
+    order (torch's and jax.random's differ) cannot change the weights."""
+    monkeypatch.setenv("CDT_FLASH_INTERPRET", "1")
+    ds = tdata.synthetic_dataset(num_samples=16, image_size=8, seed=4)
+    scales = [3, 3, 5, 9, 7]
+    x0 = np.random.RandomState(12).normal(size=(2, 8, 8, 3)).astype(np.float32)
+    kw = dict(batch_size=8, precision="high", bank_budget_bytes=budget)
+    jmod = jscores.LocalEquivBordersScoreModule(
+        (ds.images, ds.labels), use_pallas=True, **kw)
+    _, jtraj = jscores.ScheduledScoreMachine(jmod, imsize=8, scales=scales)(
+        jnp.asarray(x0), collect_trajectory=True)
+    tmod = LocalEquivBordersScoreModule((ds.images, ds.labels), device="cpu", **kw)
+    _, ttraj = ScheduledScoreMachine(tmod, imsize=8, scales=scales)(
+        x0, collect_trajectory=True)
+    _assert_same_trajectory(ttraj, jtraj, 4)
+    assert tmod._local_fallback_cache is not None
 
 
 def test_ddim_step_matches_jax():
