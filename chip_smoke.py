@@ -14,7 +14,9 @@ Phases, each printing its own lines; any failure exits non-zero:
               the main path's shapes: M = 8192 query rows (8 seeds x 32x32),
               one full CIFAR10 bank chunk, c = 3: K1 ('highest', fp32) and
               K2 ('high', bf16x3 on the tensor cores) at k in {3, 9, 17},
-              t in {0.05, 0.5, 0.95}; plus a two-call chain against one call
+              t in {0.05, 0.5, 0.95}, K2 also at the bbELS center's shape
+              (its valid windows, M = 8 (33 - k)^2, 7200 at k = 3: a
+              partial last block); plus a two-call chain against one call
               and a carried state holding sentinel rows. Every chunk has
               zero-weight rows. Compared on m + log s1 and s2/s1 at
               max|a-b| / max(|a|,|b|,1) <= 1e-3. For every k of the
@@ -76,15 +78,19 @@ TOL = 1e-3
 PEAK_FP32 = 67e12  # H100 SXM, fp32 outside the tensor cores (published)
 PEAK_BF16 = 989e12  # H100 SXM, dense bf16 on the tensor cores (published)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 (published)
-SRC = "convolutional_diffusion_tpu_torch/ops/csrc/"
-REPLACES = "convolutional_diffusion_tpu/ops/flash_score.py:"
-# kernel (ops._build name) -> (precision tier, JSON name, source, TPU kernel)
-KERNELS = {
-    "flash_score": ("highest", "flash_score_f32", SRC + "flash_score.cu",
-                    REPLACES + "113"),
-    "flash_score_bf16x3": ("high", "flash_score_bf16x3",
-                           SRC + "flash_score_bf16x3.cu", REPLACES + "174"),
+# the flash-score kernels (ops._build names), each with its precision tier
+TIER_OF = {name: prec for prec, name in fs.KERNEL_OF.items()}
+# kernel -> the TPU kernel variant it ports
+REPLACES = {
+    "flash_score": "convolutional_diffusion_tpu/ops/flash_score.py:113",
+    "flash_score_bf16x3": "convolutional_diffusion_tpu/ops/flash_score.py:174",
 }
+
+
+def source(name: str) -> str:
+    """Kernel `name`'s CUDA source, as a path in the repo."""
+    src = _build.CSRC / _build.KERNELS[name][0]
+    return str(src.relative_to(_build.CSRC.parents[2]))
 
 
 def fail(msg: str):
@@ -162,22 +168,23 @@ def phase_device():
 
 
 def phase_build():
-    for name, built in _build.build_all(list(KERNELS)).items():
+    for name, built in _build.build_all(list(TIER_OF)).items():
         for line in built.log.splitlines():
             if any(t in line for t in ("registers", "spill", "smem", "Compiling entry")):
                 print(f"[build] {name}: {line.strip()}", flush=True)
         how = f"built in {built.seconds:.1f} s" if built.seconds else "reused an identical build"
-        print(f"[build] {KERNELS[name][2]}: {how}", flush=True)
+        print(f"[build] {source(name)}: {how}", flush=True)
         _build.load(name)
 
 
 def phase_kernel(images_dev, n_bank, gen):
     """Each kernel against its plain version at the main path's shapes for k
-    in CHECKED_K; each kernel's, its plain version's and its bound's time for
-    every k of the schedule; K2's time at the bbELS center's query count.
+    in CHECKED_K (K2 also at the bbELS center's shape: the valid windows,
+    M = 8 (33 - k)^2); each kernel's, its plain version's and its bound's
+    time for every k of the schedule; K2's time at the bbELS center's shape.
     Returns per kernel the JSON numbers (of the largest k) and the per-launch
     times by k."""
-    recs = {name: {"max_abs_err": 0.0, "ms_by_k": {}} for name in KERNELS}
+    recs = {name: {"max_abs_err": 0.0, "ms_by_k": {}} for name in TIER_OF}
     ms_center = {}
     for k in sorted(set(CIFAR10_SCALES)):
         checked = k in CHECKED_K
@@ -196,8 +203,12 @@ def phase_kernel(images_dev, n_bank, gen):
             xq = extract_patches(pad_image(x, k // 2, "circular"), k).reshape(M, g.d)
             qn = (xq * xq).sum(-1)
             args = (xq, qn, p, pn, ctr, w, at, bt)
+            # the bbELS center's queries: the valid windows, no padding
+            xc = extract_patches(x, k).reshape(-1, g.d).contiguous()
+            mc = xc.shape[0]
+            cargs = (xc, (xc * xc).sum(-1), *args[2:])
             outs = {}
-            for name, (prec, *_) in KERNELS.items():
+            for name, prec in TIER_OF.items():
                 rec = recs[name]
                 kw = dict(precision=prec)
                 if checked:
@@ -206,6 +217,10 @@ def phase_kernel(images_dev, n_bank, gen):
                     torch.cuda.synchronize()
                     outs[name] = got
                     cases = {"one call": (got, want)}
+                    if prec == "high":
+                        cases[f"bbELS center M={mc}"] = (
+                            fs.flash_score_update(*cargs, empty_state(mc, c), **kw),
+                            fs.flash_score_update_plain(*cargs, empty_state(mc, c), **kw))
                     if t == 0.5:
                         h = P // 2 + 37  # not a tile multiple
                         half = fs.flash_score_update(
@@ -245,8 +260,6 @@ def phase_kernel(images_dev, n_bank, gen):
                         torch.backends.cuda.matmul.allow_tf32 = prev
                     line += f", fp32 matmul Q.K^T alone (partial yardstick) {mm_ms:.3f} ms"
                 else:
-                    mc = SEEDS * (32 - k + 1) ** 2  # bbELS center queries
-                    cargs = (xq[:mc].contiguous(), qn[:mc].contiguous(), *args[2:])
                     ms_center[k] = cuda_ms(
                         lambda: fs.flash_score_update(*cargs, empty_state(mc, c), **kw), 5)
                     line += f"; at the bbELS center's M={mc}: {ms_center[k]:.3f} ms"
@@ -365,10 +378,10 @@ def main(argv=None) -> int:
     phase_devices(args.seed)
     print(f"[time] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": [{
-        "name": json_name,
+        "name": _build.KERNELS[name][1],  # the kernel's C symbol
         "route": "cuda",
-        "source": source,
-        "replaces": replaces,
+        "source": source(name),
+        "replaces": REPLACES[name],
         "launches": launches[name],
         "max_abs_err": recs[name]["max_abs_err"],
         "ms": recs[name]["ms"],
@@ -376,7 +389,7 @@ def main(argv=None) -> int:
         "bound_ms": recs[name]["bound_ms"],
         "bound_by": recs[name]["bound_by"],
         "library_ms": None,  # no single PyTorch call computes this function
-    } for name, (_, json_name, source, replaces) in KERNELS.items()]}), flush=True)
+    } for name in TIER_OF]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
         flush=True)

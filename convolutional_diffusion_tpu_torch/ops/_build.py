@@ -44,6 +44,8 @@ KERNELS = {
     "flash_score_bf16x3": (
         "flash_score_bf16x3.cu", "flash_score_bf16x3", _FLASH_ARGS,
     ),
+    # (A, B, C, D, n): the tensor-core rounding probe of `ops.k2_numerics`
+    "mma_probe": ("mma_probe.cu", "mma_probe", [_P, _P, _P, _P, ctypes.c_int]),
 }
 
 
@@ -80,11 +82,10 @@ def _target(name: str):
     return src, BUILD_DIR / f"lib{name}_{digest}.so"
 
 
-def build_all(names=None) -> dict:
-    """Compile kernels `names` (default: all) unless identical builds exist:
-    one nvcc process per source, all started together. Returns name ->
-    Built; raises if any build fails."""
-    names = list(KERNELS) if names is None else list(names)
+def build_all(names) -> dict:
+    """Compile kernels `names` unless identical builds exist: one nvcc
+    process per source, all started together. Returns name -> Built;
+    raises if any build fails."""
     done, running = {}, {}
     for name in names:
         src, out = _target(name)

@@ -1,99 +1,41 @@
-#!/usr/bin/env python3
-"""Numerics of the port's 'high' tier on an NVIDIA GPU: what the tensor core
+"""Numerics of the 'high' tier on an NVIDIA GPU: what the tensor core
 returns, and how far each flash-score implementation is from float64.
 
-    python3 tools/torch_k2_numerics.py
+    python3 -m convolutional_diffusion_tpu_torch.ops.k2_numerics
 
 1. mma rounding — one warp-level mma.sync m16n8k16 (bf16 in, fp32
-   accumulate) on random bf16 operands: among the results whose exact sum is
-   not a float32, the share equal to the exact sum rounded to nearest (RN)
-   and rounded toward zero (RZ), with a zero and with a large accumulator.
+   accumulate; `csrc/mma_probe.cu`) on random bf16 operands: among the
+   results whose exact sum is not a float32, the share equal to the exact
+   sum rounded to nearest (RN) and rounded toward zero (RZ), with a zero and
+   with a large accumulator. This is why the plain 'high' version rounds
+   each slice sum toward zero (`flash_score._split_dot`).
 2. float64 reference — K1, K2 and their plain versions at the main path's
    widths (8 seeds x 32x32x3, c = 3, 4096 bank rows of one CIFAR10 chunk)
    against the same sweep in float64, over the exact bf16x3 split ("split")
    and over the fp32 inputs ("full"): max relative error of the log total
    weight m + log s1 and of the posterior mean s2/s1.
 
-Needs a CUDA device and nvcc; builds its probe into build/torch_kernels/.
+Needs a CUDA device and nvcc; builds its kernels into build/torch_kernels/.
 """
 
 from __future__ import annotations
 
-import ctypes
-import os
 import subprocess
 import sys
-from pathlib import Path
 
 import numpy as np
 import torch
 
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
-
-from convolutional_diffusion_tpu_torch.data import synthetic_dataset  # noqa: E402
-from convolutional_diffusion_tpu_torch.ops import _build  # noqa: E402
-from convolutional_diffusion_tpu_torch.ops import flash_score as fs  # noqa: E402
-from convolutional_diffusion_tpu_torch.ops.patches import (  # noqa: E402
-    extract_patches,
-    pad_image,
-)
-from convolutional_diffusion_tpu_torch.schedules import cosine_noise_schedule  # noqa: E402
-from convolutional_diffusion_tpu_torch.scores.bank import chunk_patches  # noqa: E402
-
-PROBE = r"""
-#include <cuda_runtime.h>
-#include <stdint.h>
-// D = A.B + C for n independent m16n8k16 tiles; A [n][16][8 words],
-// B [n][8 cols][8 words] (bf16 pairs along k), C, D [n][16][8] fp32
-__global__ void k(const uint32_t* A, const uint32_t* B, const float* C, float* D, int n) {
-  const int lane = threadIdx.x, g = lane >> 2, t = lane & 3;
-  for (int it = 0; it < n; ++it) {
-    const uint32_t* a = A + it * 128;
-    const uint32_t* b = B + it * 64;
-    const float* c = C + it * 128;
-    float* d = D + it * 128;
-    float c0 = c[g * 8 + 2 * t], c1 = c[g * 8 + 2 * t + 1];
-    float c2 = c[(g + 8) * 8 + 2 * t], c3 = c[(g + 8) * 8 + 2 * t + 1];
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c0), "+f"(c1), "+f"(c2), "+f"(c3)
-        : "r"(a[g * 8 + t]), "r"(a[(g + 8) * 8 + t]), "r"(a[g * 8 + t + 4]),
-          "r"(a[(g + 8) * 8 + t + 4]), "r"(b[g * 8 + t]), "r"(b[g * 8 + t + 4]));
-    d[g * 8 + 2 * t] = c0; d[g * 8 + 2 * t + 1] = c1;
-    d[(g + 8) * 8 + 2 * t] = c2; d[(g + 8) * 8 + 2 * t + 1] = c3;
-  }
-}
-extern "C" int probe(const void* A, const void* B, const void* C, void* D, int n) {
-  k<<<1, 32>>>((const uint32_t*)A, (const uint32_t*)B, (const float*)C, (float*)D, n);
-  cudaDeviceSynchronize();
-  return (int)cudaGetLastError();
-}
-"""
+from ..data import synthetic_dataset
+from ..schedules import cosine_noise_schedule
+from ..scores.bank import chunk_patches
+from . import _build
+from . import flash_score as fs
+from .patches import extract_patches, pad_image
 
 
-def build_probe():
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    src = _build.BUILD_DIR / "mma_probe.cu"
-    lib = _build.BUILD_DIR / f"libmma_probe_{os.getpid()}.so"
-    src.write_text(PROBE)
-    subprocess.run([_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                    "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", str(lib), str(src)],
-                   check=True)
-    fn = ctypes.CDLL(str(lib)).probe
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def toward_zero(s64: torch.Tensor) -> torch.Tensor:
-    r = s64.float()
-    return torch.where(r.double().abs() > s64.abs(),
-                       torch.nextafter(r, torch.zeros_like(r)), r).double()
-
-
-def phase_mma(fn, rs):
+def phase_mma(rs) -> None:
+    probe = _build.load("mma_probe")
     n = 3000
     bf = lambda x: torch.from_numpy(x).float().to(torch.bfloat16)  # noqa: E731
     for name, draw in (("normal", lambda sh: rs.normal(size=sh)),
@@ -101,33 +43,29 @@ def phase_mma(fn, rs):
         a, b = bf(draw((n, 16, 16))), bf(draw((n, 16, 8)))
         exact = torch.einsum("nik,nkj->nij", a.double(), b.double())
         for cname, c in (("C = 0", torch.zeros(n, 16, 8)),
-                         ("C ~ 40 N(0,1)", torch.from_numpy(rs.normal(size=(n, 16, 8)) * 40).float())):
+                         ("C ~ 40 N(0,1)",
+                          torch.from_numpy(rs.normal(size=(n, 16, 8)) * 40).float())):
             d = torch.empty_like(c).cuda()
             args = [a.cuda().contiguous(), b.transpose(1, 2).cuda().contiguous(),
                     c.cuda().contiguous(), d]
-            if fn(*(x.data_ptr() for x in args), n) != 0:
+            if probe(*(x.data_ptr() for x in args), n) != 0:
                 raise SystemExit("mma probe launch failed")
             s = exact + c.double()
             got = d.cpu().double()
             inexact = s.float().double() != s
             k = int(inexact.sum())
             rn = int(((got == s.float().double()) & inexact).sum())
-            rz = int(((got == toward_zero(s)) & inexact).sum())
+            rz = int(((got == fs._toward_zero(s).double()) & inexact).sum())
             print(f"[mma] {name}, {cname}: {k} of {s.numel()} sums not float32; "
                   f"result == RN {rn / k:.3f}, == RZ {rz / k:.3f}", flush=True)
 
 
-def split64(v):
-    hi = v.to(torch.bfloat16)
-    return hi.double(), (v - hi.float()).to(torch.bfloat16).double()
-
-
-def rel(a, b):
+def rel(a, b) -> float:
     a, b = a.double(), b.double()
     return ((a - b).abs().max() / max(a.abs().max(), b.abs().max(), 1)).item()
 
 
-def phase_reference(gen):
+def phase_reference(gen) -> None:
     ds = synthetic_dataset(num_samples=256, image_size=32, num_channels=3, seed=0)
     imgs = torch.from_numpy(ds.images).cuda()
     P = 4096
@@ -152,8 +90,8 @@ def phase_reference(gen):
             runs[kern] = fs.flash_score_update(*args, empty(), precision=prec)
             runs[f"plain {prec}"] = fs.flash_score_update_plain(*args, empty(), precision=prec)
         a, b = at.double().item(), bt.double().item()
-        qh, ql = split64(xq)
-        kh, kl = split64(p)
+        qh, ql = (v.double() for v in fs._split_bf16(xq))
+        kh, kl = (v.double() for v in fs._split_bf16(p))
         dots = {"split": qh @ kh.T + qh @ kl.T + ql @ kh.T,
                 "full": xq.double() @ p.double().T}
         refs = {}
@@ -172,14 +110,14 @@ def phase_reference(gen):
 
 def main() -> int:
     if not torch.cuda.is_available():
-        print("torch_k2_numerics: no CUDA device", file=sys.stderr)
+        print("k2_numerics: no CUDA device", file=sys.stderr)
         return 2
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
-    phase_mma(build_probe(), np.random.RandomState(1))
+    phase_mma(np.random.RandomState(1))
     phase_reference(torch.Generator(device="cuda").manual_seed(0))
     return 0
 
