@@ -1,14 +1,15 @@
 """Carrying state across from the JAX package.
 
 Counterpart of `convolutional_diffusion_tpu/convert.py` (and of the scales
-loader in its `cli/els.py`). This slice carries the cached patch banks and
-the calibrated scales files; `.pt` scales and model pickles come with the
-models slice. Everything crosses as numpy arrays.
+loader in its `cli/els.py`). Ported so far: the cached patch banks and the
+calibrated scales files (`.json`, `.npy`, `.pt`); model pickles come with
+the models slice. Everything crosses as numpy arrays.
 """
 
 from __future__ import annotations
 
 import json
+import pickle
 
 import numpy as np
 import torch
@@ -40,14 +41,25 @@ def bank_from_jax_numpy(bank, centers, pn, geometry: BankGeometry, device=None) 
     )
 
 
+def load_pt(path: str):
+    """A `torch.save`'d object, on the CPU: read with `weights_only=True`,
+    and with a full unpickle only where that refuses the file."""
+    try:
+        return torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError:
+        return torch.load(path, map_location="cpu", weights_only=False)
+
+
 def load_scales(path: str) -> list:
-    """Per-step kernel sizes from a `.json` list or a `.npy` array."""
+    """Per-step kernel sizes from a `.json` list, a `.npy` array, or a
+    `.pt` file (the reference's `scales_*.pt`: a `torch.save`'d list of
+    ints or a tensor, read by `load_pt`)."""
     if path.endswith(".json"):
         with open(path) as f:
             return [int(s) for s in json.load(f)]
     if path.endswith(".npy"):
         return [int(s) for s in np.load(path)]
-    raise NotImplementedError(
-        f"{path}: only .json and .npy scales files are read so far (.pt "
-        "scales come with the models slice)"
-    )
+    scales = load_pt(path)
+    if isinstance(scales, torch.Tensor):
+        scales = scales.reshape(-1).tolist()
+    return [int(s.item() if hasattr(s, "item") else s) for s in scales]

@@ -31,11 +31,13 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 # (q, bias, bank, values, dotscale, m_in, s1_in, s2_in, m_out, s1_out,
-#  s2_out, M, P, d, c, device, stream): the flash-score kernels' C interface
+#  s2_out, M, rows_per_seed, P, d, c, device, stream): the flash-score
+# kernels' C interface; bias is [M / rows_per_seed, P] (1-D weights:
+# rows_per_seed = M)
 _FLASH_ARGS = [
     _P, _P, _P, _P, ctypes.c_float, _P, _P, _P, _P, _P, _P,
-    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, _P,
+    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, _P,
 ]
 
 # name -> (source, C symbol, argtypes)

@@ -3,7 +3,10 @@
 //
 // Replaces the TPU kernel convolutional_diffusion_tpu/ops/flash_score.py
 // `_kernel` / `_kernel_body` (the one `pl.pallas_call` of that package) in
-// its precision='highest', v_strategy='vpu', 1-D-weights, no-prune variant.
+// its precision='highest', v_strategy='vpu', no-prune variant, with 1-D
+// weights (variant K1) or per-seed weights (variant K5: the JAX wrapper's
+// vmap of the kernel over seeds, `flash_score_update` with 2-D w and
+// rows_per_seed).
 //
 // What it computes, for queries q [M, d] against one bank chunk K [P, d] with
 // per-patch bias [P] and values V [P, C], carrying an online-softmax state
@@ -17,6 +20,14 @@
 // -|q|^2 / (2 beta^2) offset into m, exactly as the TPU wrapper does. Rows
 // whose max is still the -1e30 sentinel keep exp offsets from 0, so a tile of
 // excluded patches leaves the state exactly unchanged.
+//
+// Per-seed weights (K5): the M query rows are S = M / rows_per_seed
+// seed-major blocks and `bias` is [S, P]; seed s's rows use bias row s. The
+// grid is (ceil(rows_per_seed / BQ), S): block (x, s) owns rows
+// s * rows_per_seed + x * BQ up to the seed's end, so a block never mixes
+// seeds and stages one bias row. 1-D weights are the case S = 1,
+// rows_per_seed = M, the same launch as without the seed axis. The bound is
+// the 1-D kernel's for the same M, P, d; only the bias bytes grow to S * P.
 //
 // What bounds it on an H100: the QK^T dot, 2*M*P*d operations, in true fp32.
 // The 1/(2 beta^2) logit scale turns a TF32 or bf16 rounding (2^-10 .. 2^-9)
@@ -64,7 +75,7 @@ __global__ void __launch_bounds__(NT) flash_score_f32_kernel(
     float dotscale, const float* __restrict__ m_in,
     const float* __restrict__ s1_in, const float* __restrict__ s2_in,
     float* __restrict__ m_out, float* __restrict__ s1_out,
-    float* __restrict__ s2_out, int64_t M, int64_t P, int d) {
+    float* __restrict__ s2_out, int64_t rps, int64_t P, int d) {
   constexpr int VL = (BP * C + NT - 1) / NT;  // value elements each thread stages
 
   __shared__ __align__(16) float As[BK][AS];
@@ -75,7 +86,12 @@ __global__ void __launch_bounds__(NT) flash_score_f32_kernel(
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int ty = tid >> 4;
-  const int64_t row0 = (int64_t)blockIdx.x * BQ;
+  // this block's rows: [row0, row_end), inside seed blockIdx.y's rows
+  const int64_t seed = blockIdx.y;
+  const int64_t row0 = seed * rps + (int64_t)blockIdx.x * BQ;
+  const int64_t seed_end = (seed + 1) * rps;
+  const int64_t row_end = row0 + BQ < seed_end ? row0 + BQ : seed_end;
+  bias += seed * P;  // the seed's bias row
 
   // Carried state. m is the same in all 16 threads of a row; s1/s2 are
   // per-thread partial sums under that m (thread tx == 0 starts from the
@@ -84,7 +100,7 @@ __global__ void __launch_bounds__(NT) flash_score_f32_kernel(
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int64_t r = row0 + ty * TM + i;
-    const bool live = r < M;
+    const bool live = r < row_end;
     m[i] = live ? m_in[r] : NEG_INF;
     s1[i] = (live && tx == 0) ? s1_in[r] : 0.f;
 #pragma unroll
@@ -105,7 +121,7 @@ __global__ void __launch_bounds__(NT) flash_score_f32_kernel(
       const int e = tid + j * NT;
       const int64_t r = row0 + (e / BK);
       const int kk = k0 + (e % BK);
-      rq[j] = (r < M && kk < d) ? q[r * d + kk] : 0.f;
+      rq[j] = (r < row_end && kk < d) ? q[r * d + kk] : 0.f;
     }
     const int64_t p0 = pt * BP;
 #pragma unroll
@@ -234,7 +250,7 @@ __global__ void __launch_bounds__(NT) flash_score_f32_kernel(
         s2[i][c] += __shfl_xor_sync(0xffffffffu, s2[i][c], o);
     }
     const int64_t r = row0 + ty * TM + i;
-    if (tx == 0 && r < M) {
+    if (tx == 0 && r < row_end) {
       m_out[r] = m[i];
       s1_out[r] = s1[i];
 #pragma unroll
@@ -247,35 +263,41 @@ template <int C>
 void launch(const void* q, const void* bias, const void* bank,
             const void* values, float dotscale, const void* m_in,
             const void* s1_in, const void* s2_in, void* m_out, void* s1_out,
-            void* s2_out, int64_t M, int64_t P, int d, cudaStream_t stream) {
-  const dim3 grid((unsigned)((M + BQ - 1) / BQ));
+            void* s2_out, int64_t M, int64_t rps, int64_t P, int d,
+            cudaStream_t stream) {
+  const dim3 grid((unsigned)((rps + BQ - 1) / BQ), (unsigned)(M / rps));
   flash_score_f32_kernel<C><<<grid, NT, 0, stream>>>(
       (const float*)q, (const float*)bias, (const float*)bank,
       (const float*)values, dotscale, (const float*)m_in,
       (const float*)s1_in, (const float*)s2_in, (float*)m_out,
-      (float*)s1_out, (float*)s2_out, M, P, d);
+      (float*)s1_out, (float*)s2_out, rps, P, d);
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes). Launches on `stream` and does not
 // synchronise; returns cudaGetLastError() after the launch (0 = launched).
+// bias is [M / rows_per_seed, P]; rows_per_seed = M for 1-D weights.
 extern "C" int flash_score_f32(const void* q, const void* bias,
                                const void* bank, const void* values,
                                float dotscale, const void* m_in,
                                const void* s1_in, const void* s2_in,
                                void* m_out, void* s1_out, void* s2_out,
-                               long long M, long long P, int d, int c,
-                               int device, void* stream) {
+                               long long M, long long rows_per_seed,
+                               long long P, int d, int c, int device,
+                               void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (M <= 0) return (int)cudaSuccess;
+  if (rows_per_seed <= 0 || M % rows_per_seed != 0 ||
+      M / rows_per_seed > 65535)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (c) {
 #define CDT_CASE(CC)                                                        \
   case CC:                                                                  \
     launch<CC>(q, bias, bank, values, dotscale, m_in, s1_in, s2_in, m_out, \
-               s1_out, s2_out, M, P, d, s);                                 \
+               s1_out, s2_out, M, rows_per_seed, P, d, s);                  \
     break;
     CDT_CASE(1)
     CDT_CASE(2)

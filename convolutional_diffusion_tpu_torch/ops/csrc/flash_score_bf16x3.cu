@@ -6,11 +6,15 @@
 // `_kernel` / `_kernel_body` (the one `pl.pallas_call` of that package) in
 // its precision='high' variant: the manual bf16x3 QK dot (`_kernel_body`,
 // the `precision != HIGHEST` branch), fp32 exp2 (fast_exp off),
-// v_strategy='vpu', 1-D weights, no prune.
+// v_strategy='vpu', no prune, with 1-D weights (variant K2) or per-seed
+// weights (variant K5 at this tier: 2-D w with rows_per_seed).
 //
 // What it computes is what the fp32 kernel (flash_score.cu) computes, with
 // the same arguments, bias row, -1e30 sentinel and `m_new <= NEG_INF/2`
-// guards; only the dot differs. Each fp32 input x is split into bf16 parts
+// guards, and the same per-seed grid for 2-D weights (a (query block, seed)
+// grid; block (x, s) owns seed s's rows x * BQ .. up to the seed's end and
+// stages bias row s; 1-D weights are S = 1, rows_per_seed = M); only the dot
+// differs. Each fp32 input x is split into bf16 parts
 // hi = bf16(x), lo = bf16(x - hi) (round to nearest even, as the TPU
 // kernel's casts), and
 //   dot(q, k) = qh.kh + (qh.kl + ql.kh)
@@ -115,7 +119,7 @@ __global__ void __launch_bounds__(NT, 1) flash_score_bf16x3_kernel(
     float dotscale, const float* __restrict__ m_in,
     const float* __restrict__ s1_in, const float* __restrict__ s2_in,
     float* __restrict__ m_out, float* __restrict__ s1_out,
-    float* __restrict__ s2_out, int64_t M, int64_t P, int d) {
+    float* __restrict__ s2_out, int64_t rps, int64_t P, int d) {
   constexpr int VL = (BP * C + NT - 1) / NT;  // value elements each thread stages
 
   __shared__ __align__(16) uint32_t Qh[BQ][SW];
@@ -134,7 +138,12 @@ __global__ void __launch_bounds__(NT, 1) flash_score_bf16x3_kernel(
   const int wc = warp >> 2;  // warp column: tile columns 64*wc .. 64*wc+63
   const int g = lane >> 2;   // mma group: rows g and g+8 of the warp's 16
   const int t4 = lane & 3;   // thread in group: columns 2*t4, 2*t4+1 of an n8 tile
-  const int64_t row0 = (int64_t)blockIdx.x * BQ;
+  // this block's rows: [row0, row_end), inside seed blockIdx.y's rows
+  const int64_t seed = blockIdx.y;
+  const int64_t row0 = seed * rps + (int64_t)blockIdx.x * BQ;
+  const int64_t seed_end = (seed + 1) * rps;
+  const int64_t row_end = row0 + BQ < seed_end ? row0 + BQ : seed_end;
+  bias += seed * P;  // the seed's bias row
   const int lr[2] = {wr * 16 + g, wr * 16 + g + 8};  // this thread's local rows
 
   // Carried state. m is the same in all 8 threads of a row (4 per column
@@ -145,7 +154,7 @@ __global__ void __launch_bounds__(NT, 1) flash_score_bf16x3_kernel(
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int64_t r = row0 + lr[i];
-    const bool live = r < M;
+    const bool live = r < row_end;
     m[i] = live ? m_in[r] : NEG_INF;
     s1[i] = (live && owner) ? s1_in[r] : 0.f;
 #pragma unroll
@@ -166,7 +175,7 @@ __global__ void __launch_bounds__(NT, 1) flash_score_bf16x3_kernel(
       const int e = tid + j * NT;
       const int64_t r = row0 + e / PAIRS;
       const int kk = k0 + 2 * (e % PAIRS);
-      const bool live = r < M;
+      const bool live = r < row_end;
       rq[j][0] = (live && kk < d) ? q[r * d + kk] : 0.f;
       rq[j][1] = (live && kk + 1 < d) ? q[r * d + kk + 1] : 0.f;
     }
@@ -355,7 +364,7 @@ __global__ void __launch_bounds__(NT, 1) flash_score_bf16x3_kernel(
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int64_t r = row0 + lr[i];
-      if (r < M) {
+      if (r < row_end) {
         m_out[r] = m[i];
         s1_out[r] = s1[i] + part_s[lr[i]][0];
 #pragma unroll
@@ -370,35 +379,41 @@ template <int C>
 void launch(const void* q, const void* bias, const void* bank,
             const void* values, float dotscale, const void* m_in,
             const void* s1_in, const void* s2_in, void* m_out, void* s1_out,
-            void* s2_out, int64_t M, int64_t P, int d, cudaStream_t stream) {
-  const dim3 grid((unsigned)((M + BQ - 1) / BQ));
+            void* s2_out, int64_t M, int64_t rps, int64_t P, int d,
+            cudaStream_t stream) {
+  const dim3 grid((unsigned)((rps + BQ - 1) / BQ), (unsigned)(M / rps));
   flash_score_bf16x3_kernel<C><<<grid, NT, 0, stream>>>(
       (const float*)q, (const float*)bias, (const float*)bank,
       (const float*)values, dotscale, (const float*)m_in,
       (const float*)s1_in, (const float*)s2_in, (float*)m_out,
-      (float*)s1_out, (float*)s2_out, M, P, d);
+      (float*)s1_out, (float*)s2_out, rps, P, d);
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes). Launches on `stream` and does not
 // synchronise; returns cudaGetLastError() after the launch (0 = launched).
+// bias is [M / rows_per_seed, P]; rows_per_seed = M for 1-D weights.
 extern "C" int flash_score_bf16x3(const void* q, const void* bias,
                                   const void* bank, const void* values,
                                   float dotscale, const void* m_in,
                                   const void* s1_in, const void* s2_in,
                                   void* m_out, void* s1_out, void* s2_out,
-                                  long long M, long long P, int d, int c,
-                                  int device, void* stream) {
+                                  long long M, long long rows_per_seed,
+                                  long long P, int d, int c, int device,
+                                  void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (M <= 0) return (int)cudaSuccess;
+  if (rows_per_seed <= 0 || M % rows_per_seed != 0 ||
+      M / rows_per_seed > 65535)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (c) {
 #define CDT_CASE(CC)                                                        \
   case CC:                                                                  \
     launch<CC>(q, bias, bank, values, dotscale, m_in, s1_in, s2_in, m_out, \
-               s1_out, s2_out, M, P, d, s);                                 \
+               s1_out, s2_out, M, rows_per_seed, P, d, s);                  \
     break;
     CDT_CASE(1)
     CDT_CASE(2)

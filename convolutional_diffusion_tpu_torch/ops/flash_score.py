@@ -23,9 +23,16 @@ kernel: 'highest' runs the fp32 kernel (`csrc/flash_score.cu`, variant K1),
 'high' the bf16x3 tensor-core kernel (`csrc/flash_score_bf16x3.cu`, variant
 K2). Nothing falls back from one device, or one tier, to another.
 
-Ported: the 'highest' (K1) and 'high' (K2) tiers with per-channel value sums
-and 1-D weights. Not yet: 'default' (K3), the 'inbank' and 'mxu' value
-strategies (K4), per-seed weights (K5), prune masks (K6).
+Per-seed weights (variant K5): `w` may be [S, P], one weight row per seed,
+with `rows_per_seed` query rows per seed (M = S * rows_per_seed, seed-major),
+as in batched conditional generation with one label per seed. Both kernels
+take it on a 2-D grid of (query block, seed), so a block never mixes seeds;
+each launch with 2-D weights adds one to `launches[name + PER_SEED]`
+instead of `launches[name]`.
+
+Ported: the 'highest' (K1) and 'high' (K2) tiers with per-channel value sums,
+with 1-D or per-seed (K5) weights. Not yet: 'default' (K3), the 'inbank' and
+'mxu' value strategies (K4), prune masks (K6).
 """
 
 from __future__ import annotations
@@ -43,6 +50,8 @@ MAX_CHANNELS = 8  # value channels the kernel accumulates per row
 PLAIN_BLOCK = 8192  # bank rows per step of the plain version
 # precision tier -> the kernel that runs it on the card (ops._build.KERNELS)
 KERNEL_OF = {"highest": "flash_score", "high": "flash_score_bf16x3"}
+# suffix of a kernel's launch count with per-seed weights (variant K5)
+PER_SEED = "/per_seed"
 
 State = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -97,10 +106,21 @@ def _split_dot(qh64, ql64, kh, kl) -> torch.Tensor:
     return dots.float()
 
 
+def _add_bias(x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """x [M, n] + bias: a [n] row for every row of x, or [S, n] with row s
+    for the s-th of S equal blocks of rows (one rounding either way)."""
+    if bias.ndim == 1:
+        return x + bias
+    S, n = bias.shape
+    return (x.view(S, -1, n) + bias[:, None, :]).view(x.shape)
+
+
 def sweep_plain(q, bias, bank, values, dotscale: float, m, s1, s2,
                 precision: str = "highest") -> State:
     """Plain PyTorch version of the kernels: the same base-2 online softmax
     over the same bias row, PLAIN_BLOCK bank rows at a time, on any device.
+    `bias` is [P], or [S, P] with row s for the s-th of S equal blocks of
+    query rows (per-seed weights, K5).
 
     'highest' takes true fp32 dots, with TF32 switched off for the call
     (torch.backends.cuda.matmul.allow_tf32 = False, restored after).
@@ -125,9 +145,10 @@ def sweep_plain(q, bias, bank, values, dotscale: float, m, s1, s2,
             p1 = p0 + PLAIN_BLOCK
             if high:
                 dots = _split_dot(qh64, ql64, *_split_bf16(bank[p0:p1]))
-                logits = (dots.double() * dotscale + bias[p0:p1].double()).float()
+                logits = _add_bias(dots.double() * dotscale,
+                                   bias[..., p0:p1].double()).float()
             else:
-                logits = (q @ bank[p0:p1].T) * dotscale + bias[p0:p1]
+                logits = _add_bias((q @ bank[p0:p1].T) * dotscale, bias[..., p0:p1])
             m_new = torch.maximum(m, logits.amax(dim=1))
             m_safe = torch.where(m_new <= NEG_INF * 0.5, zero, m_new)
             e = torch.exp2(logits - m_safe[:, None])
@@ -143,11 +164,14 @@ def sweep_plain(q, bias, bank, values, dotscale: float, m, s1, s2,
 def sweep_kernel(q, bias, bank, values, dotscale: float, m, s1, s2,
                  precision: str = "highest") -> State:
     """Launch the tier's CUDA kernel on the current stream; returns new
-    tensors. Each launch adds one to that kernel's count in
-    `flash_score_update.launches`."""
+    tensors. `bias` is [P], or [S, P] for S equal blocks of query rows
+    (K5: the kernel's grid gains a seed axis). Each launch adds one to that
+    kernel's count in `flash_score_update.launches`, under `name` with a
+    1-D bias and `name + PER_SEED` with a 2-D one."""
     name = KERNEL_OF[precision]
     M, d = q.shape
     P, c = values.shape
+    rows_per_seed = M // bias.shape[0] if bias.ndim == 2 else M
     if not 1 <= c <= MAX_CHANNELS:
         raise NotImplementedError(
             f"the kernels accumulate 1..{MAX_CHANNELS} value channels, "
@@ -172,30 +196,34 @@ def sweep_kernel(q, bias, bank, values, dotscale: float, m, s1, s2,
         q.data_ptr(), bias.data_ptr(), bank.data_ptr(), values.data_ptr(),
         float(dotscale), m.data_ptr(), s1.data_ptr(), s2.data_ptr(),
         m_out.data_ptr(), s1_out.data_ptr(), s2_out.data_ptr(),
-        M, P, d, c, dev.index if dev.index is not None else torch.cuda.current_device(),
+        M, rows_per_seed, P, d, c,
+        dev.index if dev.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    flash_score_update.launches[name] += 1
+    flash_score_update.launches[name + (PER_SEED if bias.ndim == 2 else "")] += 1
     return m_out, s1_out, s2_out
 
 
-def _update(sweep, q, qn, bank, pn, values, w, at, bt, state, precision) -> State:
+def _update(sweep, q, qn, bank, pn, values, w, at, bt, state, precision,
+            rows_per_seed) -> State:
     _check_precision(precision)
     m0, s10, s20 = state
     M, d = q.shape
     P = bank.shape[0]
-    if w.ndim != 1:
-        raise NotImplementedError(
-            "per-seed weights [S, P] (rows_per_seed) are flash-score variant "
-            "K5, not ported yet; group seeds by label"
-        )
+    if w.ndim == 2:
+        S = w.shape[0]
+        if rows_per_seed is None or M != S * rows_per_seed:
+            raise ValueError(
+                "2-D weights need rows_per_seed with M == S * rows_per_seed"
+            )
     c = values.shape[1] if values.ndim == 2 else -1
     shapes = {
         "qn": (qn.shape, (M,)), "bank": (bank.shape, (P, d)),
         "pn": (pn.shape, (P,)), "values": (values.shape, (P, c)),
-        "w": (w.shape, (P,)), "m": (m0.shape, (M,)), "s1": (s10.shape, (M,)),
+        "w": (w.shape, (P,) if w.ndim < 2 else (w.shape[0], P)),
+        "m": (m0.shape, (M,)), "s1": (s10.shape, (M,)),
         "s2": (s20.shape, (M, c)),
     }
     for name, (got, want) in shapes.items():
@@ -230,36 +258,43 @@ def flash_score_update(
     bank: torch.Tensor,  # [P, d]
     pn: torch.Tensor,  # [P]
     values: torch.Tensor,  # [P, c]
-    w: torch.Tensor,  # [P]
+    w: torch.Tensor,  # [P], or [S, P] per-seed weights (see rows_per_seed)
     at,  # scalar sqrt(1 - beta)
     bt,  # scalar sqrt(beta)
     state: State,  # m [M], s1 [M], s2 [M, c], NEG_INF sentinel convention
     *,
     precision: str = "highest",
+    rows_per_seed: int | None = None,  # with 2-D w: M = S * rows_per_seed
 ) -> State:
     """One fused bank sweep; returns the updated (m, s1, s2) with the finite
-    NEG_INF sentinel convention. CUDA tensors run the tier's hand-written
-    kernel, K1 at 'highest' and K2 at 'high' (each launch adds one to
-    `flash_score_update.launches[name]`, name from KERNEL_OF); CPU tensors
-    run `sweep_plain`; any other device raises."""
+    NEG_INF sentinel convention. With 2-D weights [S, P], the query rows are
+    S seed-major blocks of `rows_per_seed` rows and block s uses weight row
+    s. CUDA tensors run the tier's hand-written kernel, K1 at 'highest' and
+    K2 at 'high' (each launch adds one to `flash_score_update.launches`
+    under the kernel's name from KERNEL_OF, with PER_SEED appended for 2-D
+    weights); CPU tensors run `sweep_plain`; any other device raises."""
     if q.is_cuda:
         sweep = sweep_kernel
     elif q.device.type == "cpu":
         sweep = sweep_plain
     else:
         raise ValueError(f"no flash-score sweep for device {q.device}")
-    return _update(sweep, q, qn, bank, pn, values, w, at, bt, state, precision)
+    return _update(sweep, q, qn, bank, pn, values, w, at, bt, state, precision,
+                   rows_per_seed)
 
 
-flash_score_update.launches = {name: 0 for name in KERNEL_OF.values()}
+flash_score_update.launches = {
+    name + kind: 0 for name in KERNEL_OF.values() for kind in ("", PER_SEED)
+}
 
 
 def flash_score_update_plain(q, qn, bank, pn, values, w, at, bt, state, *,
-                             precision: str = "highest") -> State:
+                             precision: str = "highest",
+                             rows_per_seed: int | None = None) -> State:
     """`flash_score_update` through the plain version on any device (the
     yardstick the kernel is held against on the card)."""
     return _update(sweep_plain, q, qn, bank, pn, values, w, at, bt, state,
-                   precision)
+                   precision, rows_per_seed)
 
 
 def state_to_kernel(m, s1, s2) -> State:

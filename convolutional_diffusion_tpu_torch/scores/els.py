@@ -51,11 +51,16 @@ def _empty_state(M: int, c: int, device):
     )
 
 
+def _rows_per_seed(q_flat, w_img):
+    """Query rows per seed for per-seed weights [S, n]; None for [n]."""
+    return q_flat.shape[0] // w_img.shape[0] if w_img.ndim == 2 else None
+
+
 @torch.no_grad()
 def els_sweep(
     images,  # [n, h, w, c]
-    w_img,  # [n] per-image weights
-    xq_flat,  # [M, d] query windows
+    w_img,  # [n] per-image weights, or [S, n] one row per seed
+    xq_flat,  # [M, d] query windows (seed-major with per-seed weights)
     qn_flat,  # [M]
     at,
     bt,
@@ -67,47 +72,60 @@ def els_sweep(
 ):
     """Stream the images through the online softmax, extracting each chunk's
     patches on the fly; returns (m, s1, s2) with the -inf empty convention.
+    With per-seed weights [S, n] each chunk is one per-seed sweep (K5 on the
+    card), the M query rows split into S equal seed blocks.
     Chaining: a sweep over images[:j] whose state feeds `state0` of a sweep
     over images[j:] (j a multiple of cs) equals one sweep over all of them."""
     n, h, w, c = images.shape
     per_img = (h - k + 1) * (w - k + 1)
+    rps = _rows_per_seed(xq_flat, w_img)
     state = (
         _empty_state(xq_flat.shape[0], c, xq_flat.device) if state0 is None
         else state_to_kernel(*state0)
     )
     for i0 in range(0, n, cs):
         p, ctr, pn = chunk_patches(images[i0 : i0 + cs], k)
-        w_p = w_img[i0 : i0 + cs].repeat_interleave(per_img)
+        w_p = w_img[..., i0 : i0 + cs].repeat_interleave(per_img, dim=-1)
         state = flash_score_update(
             xq_flat, qn_flat, p, pn, ctr, w_p, at, bt, state,
-            precision=precision,
+            precision=precision, rows_per_seed=rps,
         )
     return state_from_kernel(*state)
 
 
 @torch.no_grad()
 def banked_sweep(
-    q_flat,  # [M, d] query windows
+    q_flat,  # [M, d] query windows (seed-major with per-seed weights)
     qn_flat,  # [M]
     bank,  # scores.bank.Bank: bank [nblk, B, d], centers [nblk, B, c], pn [nblk, B]
-    w_b,  # [nblk, B] per-patch weights
+    w_img,  # [n] per-image weights, or [S, n] one row per seed; n <= nblk * cs
     at,
     bt,
     *,
+    per_img: int,  # bank rows per image (bank_geometry(...).per_img)
     precision: str = "highest",
     state0=None,  # (m, s1, s2) -inf convention; None = empty
 ):
     """Sweep prebuilt bank chunks through the online softmax; returns
-    (m, s1, s2) with the -inf empty convention (chainable via `state0`)."""
+    (m, s1, s2) with the -inf empty convention (chainable via `state0`).
+    Each chunk's per-patch weights ([B], or [S, B] with per-seed weights)
+    are built from the per-image ones as the chunk is swept; images past
+    the end of `w_img` (the chunk padding) get zero weight."""
+    nblk, B, _ = bank.bank.shape
     c = bank.centers.shape[-1]
+    cs = B // per_img
+    rps = _rows_per_seed(q_flat, w_img)
     state = (
         _empty_state(q_flat.shape[0], c, q_flat.device) if state0 is None
         else state_to_kernel(*state0)
     )
-    for i in range(bank.bank.shape[0]):
+    for i in range(nblk):
+        w_c = w_img[..., i * cs : (i + 1) * cs]
+        w_c = F.pad(w_c, (0, cs - w_c.shape[-1]))
         state = flash_score_update(
-            q_flat, qn_flat, bank.bank[i], bank.pn[i], bank.centers[i], w_b[i],
-            at, bt, state, precision=precision,
+            q_flat, qn_flat, bank.bank[i], bank.pn[i], bank.centers[i],
+            w_c.repeat_interleave(per_img, dim=-1), at, bt, state,
+            precision=precision, rows_per_seed=rps,
         )
     return state_from_kernel(*state)
 
@@ -115,10 +133,11 @@ def banked_sweep(
 @torch.no_grad()
 def patch_sweep(module, k: int, q_flat, qn_flat, w_img, at, bt):
     """Sweep the queries over every valid k x k patch of `module`'s images
-    (per-image weights `w_img`): through the module's cached bank where the
-    ledger holds it, else streamed chunk by chunk. Either way one sweep per
-    bank chunk, with the module's precision. Returns (m, s1, s2), -inf
-    convention. The ELS module and the bbELS center region share it."""
+    (per-image weights `w_img`, [n] or [S, n] per seed): through the
+    module's cached bank where the ledger holds it, else streamed chunk by
+    chunk. Either way one sweep per bank chunk, with the module's precision.
+    Returns (m, s1, s2), -inf convention. The ELS module and the bbELS
+    center region share it."""
     n, h, w, c = module.images.shape
     g = bank_geometry(n, h, w, c, k, module.target_block)
     bank = module._bank(k)
@@ -127,11 +146,9 @@ def patch_sweep(module, k: int, q_flat, qn_flat, w_img, at, bt):
             module.images, w_img, q_flat, qn_flat, at, bt,
             k=k, cs=g.cs, precision=module.precision,
         )
-    # chunk-padding images get zero weight
-    w_b = F.pad(w_img, (0, g.nblk * g.cs - n))
-    w_b = w_b.repeat_interleave(g.per_img).reshape(g.nblk, g.block)
     return banked_sweep(
-        q_flat, qn_flat, bank, w_b, at, bt, precision=module.precision
+        q_flat, qn_flat, bank, w_img, at, bt, per_img=g.per_img,
+        precision=module.precision,
     )
 
 
@@ -140,8 +157,9 @@ class LocalEquivScoreModule(BankCacheMixin, ScoreModuleBase):
     the ledger budget lasts (bank mode); a k whose bank does not fit streams
     its patches chunk by chunk (streaming mode). Both give the same result.
 
-    label may be a [b] vector (one label per seed): seeds are grouped by
-    label and each group is one call with a scalar label."""
+    label may be a [b] vector (one label per seed): each seed gets its own
+    image weights and the call is still one sweep per bank chunk, with
+    per-seed weights (kernel variant K5), banked or streamed."""
 
     supports_vector_label = True
 
@@ -161,31 +179,34 @@ class LocalEquivScoreModule(BankCacheMixin, ScoreModuleBase):
             bank_ledger=bank_ledger,
         )
 
-    def __call__(self, t, x, label=None, k=None, order=None):
+    def _image_weights(self, label, b: int, per_img: int, order):
+        """Per-image weights: [n] for a scalar label or None, [b, n] for a
+        [b] label vector (each distinct label's weights computed once)."""
+        def weights(lab):
+            return image_weights(
+                self.labels, lab,
+                batch_size=self.batch_size, max_samples=self.max_samples,
+                cutoff=CutoffRule.UNFILTERED, weighting=Weighting.MEAN,
+                per_image_bank=per_img, order=order,
+            )
+
         if label is None or np.ndim(label) == 0:
-            return super().__call__(t, x, label=label, k=k, order=order)
-        # one order for every group, so a shuffled module treats all seeds
-        # alike, as one batched sweep would
-        order = self._stream_order(order)
-        x = torch.as_tensor(x, dtype=torch.float32).to(self.device)
-        labs = np.asarray(label)
-        out = torch.empty_like(x)
-        for lab in np.unique(labs):
-            sel = torch.as_tensor(np.nonzero(labs == lab)[0], device=self.device)
-            out[sel] = super().__call__(t, x[sel], label=int(lab), k=k, order=order)
-        return out
+            return weights(label)
+        labs = [int(v) for v in np.asarray(label).reshape(-1)]
+        if len(labs) != b:
+            raise ValueError(
+                f"a label vector needs one label per seed: got {len(labs)} "
+                f"labels for {b} seeds"
+            )
+        by_label = {lab: weights(lab) for lab in set(labs)}
+        return torch.stack([by_label[lab] for lab in labs])
 
     @torch.no_grad()
     def _score(self, k, x, label, at, bt, order):
         n, h, w, c = self.images.shape
         b = x.shape[0]
         g = bank_geometry(n, h, w, c, k, self.target_block)
-        w_img = image_weights(
-            self.labels, label,
-            batch_size=self.batch_size, max_samples=self.max_samples,
-            cutoff=CutoffRule.UNFILTERED, weighting=Weighting.MEAN,
-            per_image_bank=g.per_img, order=order,
-        )
+        w_img = self._image_weights(label, b, g.per_img, order)
         xq = extract_patches(pad_image(x, k // 2, "circular"), k)
         xq = xq.reshape(b * h * w, g.d)
         qn = (xq * xq).sum(dim=-1)

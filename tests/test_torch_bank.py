@@ -110,7 +110,10 @@ def test_load_scales(tmp_path):
     js.write_text(json.dumps(CIFAR10_SCALES))
     npy = tmp_path / "s.npy"
     np.save(npy, np.asarray(CIFAR10_SCALES))
+    pt = tmp_path / "s.pt"
+    torch.save(CIFAR10_SCALES, pt)  # the reference's scales_*.pt format
     assert convert.load_scales(str(js)) == CIFAR10_SCALES
     assert convert.load_scales(str(npy)) == CIFAR10_SCALES
-    with pytest.raises(NotImplementedError, match=".pt"):
-        convert.load_scales(str(tmp_path / "s.pt"))
+    assert convert.load_scales(str(pt)) == CIFAR10_SCALES
+    with pytest.raises(FileNotFoundError):
+        convert.load_scales(str(tmp_path / "missing.pt"))

@@ -1,6 +1,7 @@
 """The hand-written flash-score kernels, K1 ('highest') and K2 ('high'),
-against their plain PyTorch version, on the card. Marked `cuda`; skips (from
-inside each test) where no CUDA device is present. On the card:
+with 1-D and per-seed (K5) weights, against their plain PyTorch version, on
+the card. Marked `cuda`; skips (from inside each test) where no CUDA device
+is present. On the card:
 `python -m pytest tests/test_torch_cuda.py -m cuda`.
 
 Tolerance: the repo's parity rule on the offset-invariant quantities,
@@ -119,3 +120,41 @@ def test_kernel_rejects_what_it_does_not_take():
         big = torch.zeros(32, 9, device=dev)
         tfs.flash_score_update(q, qn, bank, pn, big, w, 0.8, 0.6,
                                (*_empty(16, 3, dev)[:2], torch.zeros(16, 9, device=dev)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "high"])
+@pytest.mark.parametrize("rps", [144, 784, 1024])
+def test_per_seed_kernel_matches_plain(precision, rps):
+    """K5 in the tier's kernel: 2-D weights [S, P] with rows_per_seed, a
+    partial last query block per seed at 144 (12x12) and 784 (28x28), one
+    seed with its whole chunk excluded. Launches count under the per-seed
+    key only; the kernel equals S one-seed 1-D launches on each seed's rows
+    (rows are independent) within 1e-6."""
+    dev = _need_cuda()
+    S, d, P, c = 4, 75, 700, 3
+    M = S * rps
+    q, qn, bank, pn, values, _ = _case(M, d, P, c, seed=rps, dev=dev)
+    w = torch.rand(S, P, generator=torch.Generator().manual_seed(rps)).to(dev)
+    w[w < 0.3] = 0.0
+    w[2] = 0.0
+    state = tfs.flash_score_update_plain(q, qn, bank, pn, values, w[0], 0.8, 0.6,
+                                         _empty(M, c, dev), precision=precision)
+    args = (q, qn, bank, pn, values, w, 0.7, 0.5, state)
+    name = tfs.KERNEL_OF[precision]
+    before = dict(tfs.flash_score_update.launches)
+    got = tfs.flash_score_update(*args, precision=precision, rows_per_seed=rps)
+    torch.cuda.synchronize()
+    assert tfs.flash_score_update.launches == {
+        **before, name + tfs.PER_SEED: before[name + tfs.PER_SEED] + 1}
+    _assert_close(got, tfs.flash_score_update_plain(*args, precision=precision,
+                                                    rows_per_seed=rps))
+    for s in range(S):
+        r = slice(s * rps, (s + 1) * rps)
+        one = tfs.flash_score_update(q[r], qn[r], bank, pn, values, w[s].contiguous(),
+                                     0.7, 0.5, tuple(x[r] for x in state),
+                                     precision=precision)
+        for a, b in zip(one, got):
+            assert _rel(a, b[r]) <= 1e-6
+    r = slice(2 * rps, 3 * rps)  # the excluded seed keeps its state
+    assert torch.equal(got[1][r], state[1][r]) and torch.equal(got[2][r], state[2][r])

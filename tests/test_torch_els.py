@@ -107,6 +107,9 @@ JAX_CASES = {
     "max_samples": (dict(max_samples=9), dict()),
     "order": (dict(max_samples=10), dict(order=np.random.RandomState(3).permutation(16))),
     "vector_label": (dict(max_samples=15), dict(label=np.array([0, 2, 1, 0], np.int32))),
+    "vector_label_order": (dict(max_samples=10), dict(
+        label=np.array([1, 3, 1, 2], np.int32),
+        order=np.random.RandomState(4).permutation(16))),
     "k5": (dict(), dict(k=5)),
 }
 
@@ -130,6 +133,8 @@ def test_matches_jax_module(tiny_dataset, mode, case):
 
 @pytest.mark.parametrize("mode", MODES)
 def test_vector_label_equals_scalar_calls(tiny_dataset, mode):
+    """A label vector (one per-seed sweep) equals one scalar-label call per
+    seed, bit for bit: query rows are independent."""
     imgs, labs = tiny_dataset
     mod = _port(imgs, labs, mode, kernel_size=3, batch_size=5, max_samples=10)
     x = _x(4)
@@ -151,15 +156,17 @@ def test_shuffle_generator_deterministic_and_fresh(tiny_dataset):
 
 
 @pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("case", ["plain", "label", "k5"])
+@pytest.mark.parametrize("case", ["plain", "label", "k5", "vector_label"])
 def test_high_matches_jax_module_interpret(tiny_dataset, monkeypatch, mode, case):
     """'high': the port's plain bf16x3 sweep against the JAX module driving
     its Pallas kernel in interpret mode (use_pallas=True; without it the
-    JAX module on the CPU takes its fp32 jnp path)."""
+    JAX module on the CPU takes its fp32 jnp path). A label vector is one
+    per-seed sweep in the port; the JAX module runs the kernel per seed
+    (vmap) in bank mode and groups seeds by label when streaming."""
     monkeypatch.setenv("CDT_FLASH_INTERPRET", "1")
     imgs, labs = tiny_dataset
     ctor, call = JAX_CASES[case]
-    x = _x(2)
+    x = _x(len(call["label"]) if np.ndim(call.get("label")) else 2)
     kw = dict(kernel_size=3, batch_size=5, precision="high", **ctor)
     jmod = jscores.LocalEquivScoreModule(
         (imgs, labs), schedule=jcos, use_pallas=True, **kw,
@@ -199,15 +206,15 @@ def test_banked_sweep_equals_streaming_and_chains(tiny_dataset):
     images, w, xq, qn, g = _sweep_inputs(tiny_dataset)
     at, bt = torch.tensor(0.7), torch.tensor(0.5)
     bank = build_bank(images, 3, 100)
-    w_b = w.repeat_interleave(g.per_img).reshape(g.nblk, g.block)
-    banked = tels.banked_sweep(xq, qn, bank, w_b, at, bt)
+    banked = tels.banked_sweep(xq, qn, bank, w, at, bt, per_img=g.per_img)
     streamed = tels.els_sweep(images, w, xq, qn, at, bt, k=3, cs=g.cs)
     for a, b in zip(banked, streamed):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+    j = 5 * g.cs
     head = tels.banked_sweep(xq, qn, bank._replace(**{f: getattr(bank, f)[:5] for f in bank._fields}),
-                             w_b[:5], at, bt)
+                             w[:j], at, bt, per_img=g.per_img)
     tail = tels.banked_sweep(xq, qn, bank._replace(**{f: getattr(bank, f)[5:] for f in bank._fields}),
-                             w_b[5:], at, bt, state0=head)
+                             w[j:], at, bt, per_img=g.per_img, state0=head)
     for a, b in zip(banked, tail):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
@@ -222,3 +229,26 @@ def test_argument_errors(tiny_dataset):
     with pytest.raises(NotImplementedError, match="K3"):
         _port(imgs, labs, "bank", precision="default")(0.5, _x(1))
     assert jax.default_backend() == "cpu"  # the JAX reference stays on the CPU
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_vector_label_is_one_per_seed_sweep_per_chunk(tiny_dataset, monkeypatch, mode):
+    """A [b] label vector is one sweep per bank chunk with [b, B] weights
+    and rows_per_seed = h * w, banked and streamed: never one call per
+    label."""
+    imgs, labs = tiny_dataset
+    calls = []
+
+    def spy(*args, **kw):
+        calls.append((tuple(args[5].shape), kw.get("rows_per_seed")))
+        return flash_score_update(*args, **kw)
+
+    from convolutional_diffusion_tpu_torch.ops.flash_score import flash_score_update
+
+    monkeypatch.setattr(tels, "flash_score_update", spy)
+    mod = _port(imgs, labs, mode, kernel_size=3, batch_size=5, target_block=100)
+    mod(0.3, _x(4), label=np.array([3, 1, 1, 0], np.int32))
+    g = bank_geometry(16, 8, 8, 1, 3, 100)
+    assert calls == [((4, g.block), 64)] * g.nblk
+    with pytest.raises(ValueError, match="one label per seed"):
+        mod(0.3, _x(4), label=np.array([3, 1], np.int32))

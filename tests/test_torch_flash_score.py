@@ -33,11 +33,11 @@ def _empty(M, c):
             np.zeros((M, c), np.float32))
 
 
-def _port(a, at, bt, state, precision="highest"):
-    t = {k: torch.from_numpy(v) for k, v in a.items()}
+def _port(a, at, bt, state, precision="highest", **kw):
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in a.items()}
     out = tfs.flash_score_update(
         t["q"], t["qn"], t["bank"], t["pn"], t["values"], t["w"], at, bt,
-        tuple(torch.from_numpy(s) for s in state), precision=precision,
+        tuple(torch.from_numpy(s) for s in state), precision=precision, **kw,
     )
     return tuple(o.numpy() for o in out)
 
@@ -167,8 +167,9 @@ def test_state_conversions_roundtrip():
 @pytest.mark.parametrize("precision,variant", [("high", "K2"), ("default", "K3")])
 def test_unported_tiers_raise(precision, variant):
     """'default' (K3) is not ported and raises, naming its variant; 'high'
-    (K2) is ported and runs. At the ported tiers per-seed weights (K5) and
-    a shape mismatch raise."""
+    (K2) is ported and runs. At the ported tiers per-seed weights (K5) run
+    with rows_per_seed and raise the JAX wrapper's ValueError without it;
+    a shape mismatch raises."""
     a = _inputs(8, 12, 16, 3, seed=7)
     t = {k: torch.from_numpy(v) for k, v in a.items()}
     st = tuple(torch.from_numpy(s) for s in _empty(8, 3))
@@ -184,9 +185,15 @@ def test_unported_tiers_raise(precision, variant):
         with pytest.raises(NotImplementedError, match=variant):
             tfs.flash_score_update_plain(*args, precision=precision)
     precision = "high" if variant == "K2" else "highest"
-    with pytest.raises(NotImplementedError, match="K5"):
-        tfs.flash_score_update(*args[:5], t["w"][None].repeat(2, 1), 0.8, 0.6, st,
-                               precision=precision)
+    w2 = t["w"][None].repeat(2, 1)
+    with pytest.raises(ValueError, match="rows_per_seed"):
+        tfs.flash_score_update(*args[:5], w2, 0.8, 0.6, st, precision=precision)
+    with pytest.raises(ValueError, match="rows_per_seed"):
+        tfs.flash_score_update(*args[:5], w2, 0.8, 0.6, st, precision=precision,
+                               rows_per_seed=3)
+    m, s1, _ = tfs.flash_score_update(*args[:5], w2, 0.8, 0.6, st,
+                                      precision=precision, rows_per_seed=4)
+    assert torch.isfinite(m).all() and (s1 > 0).all()
     with pytest.raises(ValueError, match="shape"):
         tfs.flash_score_update(t["q"], t["qn"], t["bank"][:5], *args[3:],
                                precision=precision)
@@ -258,8 +265,81 @@ def test_high_all_excluded_chunk_leaves_state_unchanged():
 
 def test_cpu_path_does_not_count_launches():
     before = dict(tfs.flash_score_update.launches)
-    assert set(before) == {"flash_score", "flash_score_bf16x3"}
+    assert set(before) == {"flash_score", "flash_score_bf16x3",
+                           "flash_score/per_seed", "flash_score_bf16x3/per_seed"}
     a = _inputs(8, 12, 16, 3, seed=8)
     _port(a, 0.8, 0.6, _empty(8, 3))
     _port(a, 0.8, 0.6, _empty(8, 3), "high")
+    _port(dict(a, w=np.stack([a["w"], a["w"][::-1]])), 0.8, 0.6, _empty(8, 3),
+          "high", rows_per_seed=4)
     assert tfs.flash_score_update.launches == before
+
+
+# Per-seed weights (K5): S seeds of rows_per_seed query rows each, one weight
+# row per seed. (S, rows_per_seed, P, d, c): the JAX package's own case
+# (tests/test_cutoffs.py, per-seed bias rows through the kernel), a seed
+# block of 12 rows (not a multiple of any query block), and aligned sizes.
+K5_SHAPES = [(3, 16, 40, 12, 3), (4, 12, 200, 27, 3), (2, 128, 512, 75, 1)]
+
+
+def _per_seed(S, rps, P, d, c, seed):
+    a = _inputs(S * rps, d, P, c, seed=seed)
+    w = np.random.RandomState(seed + 100).uniform(0.0, 1.0, size=(S, P)).astype(np.float32)
+    w[w < 0.3] = 0.0  # some excluded entries
+    w[-1, : P // 2] = 0.0  # and a seed with half its bank excluded
+    a["w"] = w
+    return a
+
+
+@pytest.mark.parametrize("precision", ["highest", "high"])
+@pytest.mark.parametrize("shapes", K5_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_per_seed_matches_jax_kernel_interpret(shapes, precision):
+    """K5's plain version against the JAX kernel (its vmap over seeds) in
+    interpret mode, with rows_per_seed."""
+    S, rps, P, d, c = shapes
+    M = S * rps
+    a = _per_seed(S, rps, P, d, c, seed=20 + rps)
+    ours = _port(a, 0.8, 0.6, _empty(M, c), precision, rows_per_seed=rps)
+    want = _jax(a, 0.8, 0.6, _empty(M, c), block_q=64, block_p=128,
+                precision=precision, rows_per_seed=rps)
+    _assert_same(ours, want)
+
+
+@pytest.mark.parametrize("precision", ["highest", "high"])
+def test_per_seed_equals_one_seed_calls(precision):
+    """One per-seed sweep equals S one-seed sweeps with 1-D weights on each
+    seed's rows, bit for bit (rows are independent), with sentinel rows in
+    the carried state and a seed whose whole bank is excluded: that seed's
+    rows keep their state."""
+    S, rps, P, d, c = 3, 12, 300, 27, 3
+    M = S * rps
+    a = _per_seed(S, rps, P, d, c, seed=30)
+    a["w"][1] = 0.0
+    state = tuple(s.copy() for s in _port(dict(a, w=a["w"][0]), 0.8, 0.6, _empty(M, c),
+                                          precision))
+    state[0][::5], state[1][::5], state[2][::5] = -1e30, 0.0, 0.0
+    got = _port(a, 0.7, 0.5, state, precision, rows_per_seed=rps)
+    for s in range(S):
+        rows = slice(s * rps, (s + 1) * rps)
+        one = {k: (v[rows] if k in ("q", "qn") else v) for k, v in a.items()}
+        one["w"] = a["w"][s]
+        want = _port(one, 0.7, 0.5, tuple(x[rows] for x in state), precision)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g[rows], w)
+    rows = slice(rps, 2 * rps)
+    np.testing.assert_array_equal(got[1][rows], state[1][rows])
+    np.testing.assert_array_equal(got[2][rows], state[2][rows])
+
+
+def test_per_seed_chaining_matches_single_sweep():
+    S, rps, P, d, c = 2, 12, 256, 27, 3
+    M = S * rps
+    a = _per_seed(S, rps, P, d, c, seed=40)
+    full = _port(a, 0.7, 0.71, _empty(M, c), rows_per_seed=rps)
+    head = {k: (v[..., :100] if k == "w" else v[:100] if v.shape[0] == P else v)
+            for k, v in a.items()}
+    tail = {k: (v[..., 100:] if k == "w" else v[100:] if v.shape[0] == P else v)
+            for k, v in a.items()}
+    chained = _port(tail, 0.7, 0.71, _port(head, 0.7, 0.71, _empty(M, c), rows_per_seed=rps),
+                    rows_per_seed=rps)
+    _assert_same(chained, full)

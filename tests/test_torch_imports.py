@@ -12,7 +12,10 @@ import pytest
 import torch
 
 from convolutional_diffusion_tpu_torch import convert
+from convolutional_diffusion_tpu_torch.cli.common import build_score_module
+from convolutional_diffusion_tpu_torch.schedules import cosine_noise_schedule
 from convolutional_diffusion_tpu_torch.scores import (
+    IdealScoreModule,
     LocalEquivBordersScoreModule,
     LocalEquivScoreModule,
     LocalScoreModule,
@@ -43,7 +46,8 @@ def test_port_imports_no_jax_and_no_jax_package():
         check=True, timeout=120,
     )
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    for mod in ("scores.els", "scores.bbels", "scores.local"):
+    for mod in ("scores.els", "scores.bbels", "scores.local", "scores.ideal", "data",
+                "pipeline", "convert", "cli.common", "cli.els"):
         assert f"convolutional_diffusion_tpu_torch.{mod}" in res["imported"]
     assert "convolutional_diffusion_tpu_torch.ops.flash_score" in res["imported"]
     assert res["forbidden"] == []
@@ -55,9 +59,14 @@ def _no_cuda(monkeypatch):
 
 def test_default_device_without_cuda_raises(monkeypatch, tiny_dataset):
     _no_cuda(monkeypatch)
-    for cls in (LocalEquivScoreModule, LocalEquivBordersScoreModule, LocalScoreModule):
+    for cls in (LocalEquivScoreModule, LocalEquivBordersScoreModule, LocalScoreModule,
+                IdealScoreModule):
         with pytest.raises(RuntimeError, match="CUDA"):
             cls(tiny_dataset)
+    for kind in ("ELS", "bbELS", "LS", "IS"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build_score_module(kind, tiny_dataset, batch_size=4, image_size=8, channels=1,
+                               schedule=cosine_noise_schedule)
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device()
     g = bank_geometry(1, 4, 4, 1, 3, 64)
@@ -77,3 +86,7 @@ def test_explicit_cpu_runs_on_cpu(tiny_dataset):
     assert mod.images.device.type == "cpu"
     out = mod(0.5, np.zeros((1, 8, 8, 1), np.float32))
     assert out.device.type == "cpu" and torch.isfinite(out).all()
+    for kind in ("ELS", "bbELS", "LS", "IS"):
+        mod = build_score_module(kind, tiny_dataset, batch_size=4, image_size=8, channels=1,
+                                 schedule=cosine_noise_schedule, device="cpu")
+        assert mod.images.device.type == "cpu"
