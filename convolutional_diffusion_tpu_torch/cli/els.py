@@ -49,7 +49,8 @@ def main(argv=None):
                         choices=["highest", "high", "default"],
                         help="'highest' = fp32 dots (kernel K1); 'high' = "
                              "bf16x3 split dots on the tensor cores (K2); "
-                             "'default' (bf16 exp, K3) is not ported yet")
+                             "'default' = the same dots with a bf16 exp "
+                             "(K3/K4)")
     parser.add_argument("--target_block", type=int, default=None,
                         help="patches per sweep chunk (default 65536)")
     parser.add_argument("--ndevices", type=int, default=1,

@@ -4,7 +4,8 @@ Each `csrc/*.cu` source compiles with `nvcc` into a shared library with a
 plain C interface, loaded with `ctypes`. `build_all` compiles several
 sources at once, one `nvcc` process each. The build happens at first use, in
 `build/torch_kernels/` at the root of the checkout (git-ignored), under a
-name that carries a hash of the source and flags, so an edited source is
+name that carries a hash of the source, the shared `csrc/*.cuh` headers and
+the flags, so an edited source is
 rebuilt and an unchanged one is reused. Nothing here runs at import time.
 """
 
@@ -22,11 +23,17 @@ from typing import NamedTuple
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
+# Bank rows per tile of the split-dot kernels (`csrc/flash_score_split.cuh`,
+# its BP). Part of the 'default' tier's function, which re-bases m once per
+# tile; `flash_score.FAST_TILE` is this value, so the plain version follows.
+SPLIT_TILE = 128
+
 # No --use_fast_math: the flash-score dots' fp32 sums and exp2f must stay
 # full fp32.
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    f"-DSPLIT_TILE={SPLIT_TILE}",
 ]
 
 _P = ctypes.c_void_p
@@ -39,6 +46,8 @@ _FLASH_ARGS = [
     ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, _P,
 ]
+# the 'default' kernel adds (strategy, col0) after c
+_FAST_ARGS = _FLASH_ARGS[:16] + [ctypes.c_int, ctypes.c_int] + _FLASH_ARGS[16:]
 
 # name -> (source, C symbol, argtypes)
 KERNELS = {
@@ -46,6 +55,7 @@ KERNELS = {
     "flash_score_bf16x3": (
         "flash_score_bf16x3.cu", "flash_score_bf16x3", _FLASH_ARGS,
     ),
+    "flash_score_fast": ("flash_score_fast.cu", "flash_score_fast", _FAST_ARGS),
     # (A, B, C, D, n): the tensor-core rounding probe of `ops.k2_numerics`
     "mma_probe": ("mma_probe.cu", "mma_probe", [_P, _P, _P, _P, ctypes.c_int]),
 }
@@ -76,10 +86,11 @@ def _nvcc() -> str:
 
 def _target(name: str):
     """(source, library path) of kernel `name`; the path carries a hash of
-    the source and the flags."""
+    the source, the headers of `csrc/` it may include, and the flags."""
     src = CSRC / KERNELS[name][0]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return src, BUILD_DIR / f"lib{name}_{digest}.so"
 

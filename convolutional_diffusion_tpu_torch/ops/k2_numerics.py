@@ -7,8 +7,8 @@ returns, and how far each flash-score implementation is from float64.
    accumulate; `csrc/mma_probe.cu`) on random bf16 operands: among the
    results whose exact sum is not a float32, the share equal to the exact
    sum rounded to nearest (RN) and rounded toward zero (RZ), with a zero and
-   with a large accumulator. This is why the plain 'high' version rounds
-   each slice sum toward zero (`flash_score._split_dot`).
+   with a large accumulator. This is why the plain 'high' and 'default'
+   versions round each product step toward zero (`flash_score._split_dot`).
 2. float64 reference — K1, K2 and their plain versions at the main path's
    widths (8 seeds x 32x32x3, c = 3, 4096 bank rows of one CIFAR10 chunk)
    against the same sweep in float64, over the exact bf16x3 split ("split")
@@ -55,7 +55,7 @@ def phase_mma(rs) -> None:
             inexact = s.float().double() != s
             k = int(inexact.sum())
             rn = int(((got == s.float().double()) & inexact).sum())
-            rz = int(((got == fs._toward_zero(s).double()) & inexact).sum())
+            rz = int(((got == fs._rz32(s.clone())) & inexact).sum())
             print(f"[mma] {name}, {cname}: {k} of {s.numel()} sums not float32; "
                   f"result == RN {rn / k:.3f}, == RZ {rz / k:.3f}", flush=True)
 

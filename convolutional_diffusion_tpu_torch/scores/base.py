@@ -81,10 +81,12 @@ class ScoreModuleBase:
         **_unused,
     ):
         """precision: 'highest' (true fp32 dots: the parity configuration,
-        kernel K1 on the card) or 'high' (the flash-score sweeps' QK dots as
+        kernel K1 on the card), 'high' (the flash-score sweeps' QK dots as
         a bf16x3 split, ~2^-16 relative dot error, with fp32 elementwise:
-        kernel K2 on the card; dots outside the sweeps stay fp32). 'default'
-        is accepted here and raises NotImplementedError when a sweep runs.
+        kernel K2 on the card) or 'default' (the same split dots with a
+        bf16 exponential and bf16 value products, ~3e-3 on posterior
+        means: kernel K3/K4 on the card). Dots outside the sweeps stay
+        fp32 at every tier.
 
         chunk_size: images per compute chunk where a module streams the raw
         images (default batch_size); the reference's semantics stay keyed

@@ -13,7 +13,9 @@ windows whose position has the same class pair:
     patches of the images: the ELS bank. This region runs through the
     flash-score sweep (`els.patch_sweep`: the cached bank where the ledger
     holds it, else streamed chunk by chunk; on the card kernel K1 at
-    'highest', K2 at 'high');
+    'highest', K2 at 'high', K3/K4 at 'default', with the ELS module's
+    value-strategy rule: 'inbank' at 'default' where d padded to 128 is
+    at most 128);
   - (border row r, center): the windows at row r, any interior column;
   - (center, border col): symmetric;
   - (border, border): the single window at that exact position of each
@@ -21,7 +23,10 @@ windows whose position has the same class pair:
 
 The border regions stream the images chunk by chunk (the bank geometry's
 chunk) in plain tensor code: true fp32 dots (`base.fp32_einsum`) and the
-online softmax of `common.update_state`. The two border-row bands are one
+online softmax of `common.update_state`, at every tier, 'default'
+included: the JAX package's border einsums never take a pure-bf16 dot
+(`bbels.py:155-162`) and run in fp32 on the CPU, and its bf16 exp lives
+only in the flash-score kernel. The two border-row bands are one
 batch of 2p row regions, the two border-column bands another, the four
 corners one batch of 4p^2 positions.
 

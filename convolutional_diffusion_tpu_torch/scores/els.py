@@ -13,7 +13,14 @@ bank patches' CENTER pixels gives the score. As flash attention:
 
 swept chunk by chunk through `ops.flash_score.flash_score_update` (on CUDA
 the hand-written kernel of the module's precision tier: K1 at 'highest',
-K2 at 'high'), never materialising [b, P, h, w].
+K2 at 'high', K3/K4 at 'default'), never materialising [b, P, h, w].
+
+Value strategy: the JAX package's rule, kept because the strategies round
+differently. At 'default' a sweep whose d padded to 128 is at most
+`_inbank_max_dp('default')` = 128 (RGB k <= 5, grayscale k <= 11) takes
+'inbank': the centers are the bank's own columns, so the chunk's centers
+are not read; every other sweep takes 'auto' ('vpu', or 'mxu1' over
+P >= 2^18 bank rows in one call).
 
 Reference parity: per-batch means over n_kept * (h-k+1)^2 entries and the
 UNFILTERED max_samples cutoff come from `image_weights`.
@@ -31,7 +38,7 @@ from ..ops.flash_score import (
     state_from_kernel,
     state_to_kernel,
 )
-from ..ops.patches import extract_patches, pad_image
+from ..ops.patches import center_index, extract_patches, pad_image
 from .bank import BankCacheMixin, bank_geometry, chunk_patches
 from .base import ScoreModuleBase
 from .common import CutoffRule, Weighting, image_weights
@@ -41,6 +48,23 @@ from .common import CutoffRule, Weighting, image_weights
 # this caches k=17 (44.8 GB) and k=3 (5.6 GB) and streams the k's between,
 # leaving ~29 GB for the image set, per-chunk transients and the queries.
 DEFAULT_BANK_BUDGET = 48 << 30
+
+# Per-tier ceiling on d padded to 128 for the 'inbank' value strategy: the
+# JAX package's table (`scores/els.py:51`), without its environment override.
+_INBANK_MAX_DP = {"default": 128, "high": 0, "highest": 0}
+
+
+def _inbank_max_dp(precision: str) -> int:
+    return _INBANK_MAX_DP[precision]
+
+
+def _value_kw(precision: str, d: int, col0: int | None, c: int) -> dict:
+    """flash_score_update's value-strategy keywords for a sweep of d
+    features whose centers are the bank columns col0 .. col0 + c (None:
+    not bank columns): 'inbank' where the table allows it."""
+    if col0 is not None and -(-d // 128) * 128 <= _inbank_max_dp(precision):
+        return dict(v_strategy="inbank", inbank_cols=(col0, c))
+    return {}
 
 
 def _empty_state(M: int, c: int, device):
@@ -79,6 +103,7 @@ def els_sweep(
     n, h, w, c = images.shape
     per_img = (h - k + 1) * (w - k + 1)
     rps = _rows_per_seed(xq_flat, w_img)
+    vkw = _value_kw(precision, k * k * c, center_index(k, c).start, c)
     state = (
         _empty_state(xq_flat.shape[0], c, xq_flat.device) if state0 is None
         else state_to_kernel(*state0)
@@ -87,8 +112,8 @@ def els_sweep(
         p, ctr, pn = chunk_patches(images[i0 : i0 + cs], k)
         w_p = w_img[..., i0 : i0 + cs].repeat_interleave(per_img, dim=-1)
         state = flash_score_update(
-            xq_flat, qn_flat, p, pn, ctr, w_p, at, bt, state,
-            precision=precision, rows_per_seed=rps,
+            xq_flat, qn_flat, p, pn, None if vkw else ctr, w_p, at, bt, state,
+            precision=precision, rows_per_seed=rps, **vkw,
         )
     return state_from_kernel(*state)
 
@@ -105,16 +130,20 @@ def banked_sweep(
     per_img: int,  # bank rows per image (bank_geometry(...).per_img)
     precision: str = "highest",
     state0=None,  # (m, s1, s2) -inf convention; None = empty
+    inbank_col: int | None = None,  # centers == bank[..., col:col+c]
 ):
     """Sweep prebuilt bank chunks through the online softmax; returns
     (m, s1, s2) with the -inf empty convention (chainable via `state0`).
     Each chunk's per-patch weights ([B], or [S, B] with per-seed weights)
     are built from the per-image ones as the chunk is swept; images past
-    the end of `w_img` (the chunk padding) get zero weight."""
-    nblk, B, _ = bank.bank.shape
+    the end of `w_img` (the chunk padding) get zero weight. With
+    `inbank_col` the sweeps take 'inbank' where `_inbank_max_dp` allows it,
+    and `bank.centers` is not read."""
+    nblk, B, d = bank.bank.shape
     c = bank.centers.shape[-1]
     cs = B // per_img
     rps = _rows_per_seed(q_flat, w_img)
+    vkw = _value_kw(precision, d, inbank_col, c)
     state = (
         _empty_state(q_flat.shape[0], c, q_flat.device) if state0 is None
         else state_to_kernel(*state0)
@@ -123,9 +152,10 @@ def banked_sweep(
         w_c = w_img[..., i * cs : (i + 1) * cs]
         w_c = F.pad(w_c, (0, cs - w_c.shape[-1]))
         state = flash_score_update(
-            q_flat, qn_flat, bank.bank[i], bank.pn[i], bank.centers[i],
+            q_flat, qn_flat, bank.bank[i], bank.pn[i],
+            None if vkw else bank.centers[i],
             w_c.repeat_interleave(per_img, dim=-1), at, bt, state,
-            precision=precision, rows_per_seed=rps,
+            precision=precision, rows_per_seed=rps, **vkw,
         )
     return state_from_kernel(*state)
 
@@ -135,9 +165,9 @@ def patch_sweep(module, k: int, q_flat, qn_flat, w_img, at, bt):
     """Sweep the queries over every valid k x k patch of `module`'s images
     (per-image weights `w_img`, [n] or [S, n] per seed): through the
     module's cached bank where the ledger holds it, else streamed chunk by
-    chunk. Either way one sweep per bank chunk, with the module's precision.
-    Returns (m, s1, s2), -inf convention. The ELS module and the bbELS
-    center region share it."""
+    chunk. Either way one sweep per bank chunk, with the module's precision
+    and the value strategy of `_value_kw`. Returns (m, s1, s2), -inf
+    convention. The ELS module and the bbELS center region share it."""
     n, h, w, c = module.images.shape
     g = bank_geometry(n, h, w, c, k, module.target_block)
     bank = module._bank(k)
@@ -148,7 +178,7 @@ def patch_sweep(module, k: int, q_flat, qn_flat, w_img, at, bt):
         )
     return banked_sweep(
         q_flat, qn_flat, bank, w_img, at, bt, per_img=g.per_img,
-        precision=module.precision,
+        precision=module.precision, inbank_col=center_index(k, c).start,
     )
 
 

@@ -71,6 +71,24 @@ def test_els_cli_conditional(tmp_path):
                               "--expname", "cond"]) == 0  # resume: all done
 
 
+@pytest.mark.parametrize("kind", ["ELS", "bbELS"])
+def test_els_cli_default_precision(tmp_path, kind):
+    """--precision default (the bf16-exp tier, K3/K4 on the card) runs the
+    plain version under --cpu: conditional ELS (one per-seed sweep per
+    batch) and bbELS, with the layout and finite outputs."""
+    from convolutional_diffusion_tpu_torch.cli import els
+
+    common = _common(tmp_path, scales=(3, 3))  # one machine call
+    common[common.index("--numiters") + 1] = "1"
+    assert els.main(common + ["--scoremoduletype", kind, "--conditional",
+                              "--precision", "default"]) == 1
+    exp = tmp_path / "results" / "exp"
+    for sub in ("seeds", "els_outputs", "labels"):
+        assert os.listdir(exp / sub) == ["0000.npy"]
+    out = np.load(exp / "els_outputs" / "0000.npy")
+    assert out.shape == (1, 32, 32, 3) and np.isfinite(out).all()
+
+
 def test_els_cli_refuses_what_is_not_ported(tmp_path):
     from convolutional_diffusion_tpu_torch.cli import els
 

@@ -1,13 +1,15 @@
-"""The hand-written flash-score kernels, K1 ('highest') and K2 ('high'),
-with 1-D and per-seed (K5) weights, against their plain PyTorch version, on
-the card. Marked `cuda`; skips (from inside each test) where no CUDA device
+"""The hand-written flash-score kernels, K1 ('highest'), K2 ('high') and
+K3/K4 ('default', value strategies 'vpu', 'mxu1', 'inbank'), with 1-D and
+per-seed (K5) weights, against their plain PyTorch version, on the card.
+Marked `cuda`; skips (from inside each test) where no CUDA device
 is present. On the card:
 `python -m pytest tests/test_torch_cuda.py -m cuda`.
 
 Tolerance: the repo's parity rule on the offset-invariant quantities,
 max|a-b| / max(|a|,|b|,1) <= 1e-3 for the log total weight m + log s1 and
 for the posterior mean s2/s1 (two fp32 summation orders of the same dots;
-at 'high' of the same bf16 parts)."""
+at 'high' and 'default' of the same bf16 parts, at 'default' with the same
+bf16 roundings of the exponential and the values)."""
 
 import pytest
 import torch
@@ -123,7 +125,7 @@ def test_kernel_rejects_what_it_does_not_take():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("precision", ["highest", "high"])
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
 @pytest.mark.parametrize("rps", [144, 784, 1024])
 def test_per_seed_kernel_matches_plain(precision, rps):
     """K5 in the tier's kernel: 2-D weights [S, P] with rows_per_seed, a
@@ -158,3 +160,88 @@ def test_per_seed_kernel_matches_plain(precision, rps):
             assert _rel(a, b[r]) <= 1e-6
     r = slice(2 * rps, 3 * rps)  # the excluded seed keeps its state
     assert torch.equal(got[1][r], state[1][r]) and torch.equal(got[2][r], state[2][r])
+
+
+def _fast(strategy, values, d, c):
+    """('default' keywords, values) of a value strategy; 'inbank' takes the
+    bank's columns from the middle of d and no values."""
+    if strategy == "inbank":
+        return dict(v_strategy="inbank", inbank_cols=((d - c) // 2, c)), None
+    return dict(v_strategy=strategy), values
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", ["vpu", "mxu1", "inbank"])
+@pytest.mark.parametrize("M,d,P,c", SHAPES)
+def test_default_kernel_matches_plain(M, d, P, c, strategy):
+    """'default' launches the bf16-exp kernel under its strategy's count,
+    and only that, and matches the plain version (the same roundings)."""
+    dev = _need_cuda()
+    q, qn, bank, pn, values, w = _case(M, d, P, c, seed=M + d + 2, dev=dev)
+    kw, values = _fast(strategy, values, d, c)
+    args = (q, qn, bank, pn, values, w, 0.8, 0.6, _empty(M, c, dev))
+    key = "flash_score_fast" + tfs.STRATEGY_SUFFIX[strategy]
+    before = dict(tfs.flash_score_update.launches)
+    got = tfs.flash_score_update(*args, precision="default", **kw)
+    torch.cuda.synchronize()
+    assert tfs.flash_score_update.launches == {**before, key: before[key] + 1}
+    _assert_close(got, tfs.flash_score_update_plain(*args, precision="default", **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", ["vpu", "mxu1", "inbank"])
+def test_default_kernel_chaining_and_excluded_chunk(strategy):
+    """Two chained 'default' launches against the plain version chained at
+    the same row (one call differs from two by the tier's re-basing of m),
+    and an all-excluded chunk leaves s1, s2 bit-identical."""
+    dev = _need_cuda()
+    M, d, P, c = 256, 147, 1000, 3
+    q, qn, bank, pn, values, w = _case(M, d, P, c, seed=3, dev=dev)
+    kw, values = _fast(strategy, values, d, c)
+    kw["precision"] = "default"
+    v = (lambda a, b: None) if values is None else (lambda a, b: values[a:b])
+    outs = []
+    for fn in (tfs.flash_score_update, tfs.flash_score_update_plain):
+        half = fn(q, qn, bank[:400], pn[:400], v(0, 400), w[:400], 0.7, 0.7,
+                  _empty(M, c, dev), **kw)
+        outs.append(fn(q, qn, bank[400:], pn[400:], v(400, P), w[400:], 0.7, 0.7,
+                       half, **kw))
+    _assert_close(*outs)
+    whole = outs[0]
+    same = tfs.flash_score_update(q, qn, bank, pn, values, torch.zeros_like(w),
+                                  0.7, 0.7, whole, **kw)
+    assert torch.equal(same[1], whole[1]) and torch.equal(same[2], whole[2])
+    torch.testing.assert_close(same[0], whole[0], rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", ["mxu1", "inbank"])
+def test_default_per_seed_tensor_core_values(strategy):
+    """K5 with the tensor-core value sums: per-seed weights at rows_per_seed
+    784 (a partial last block per seed) with an all-excluded seed, against
+    the plain version and against one-seed 1-D launches (1e-6)."""
+    dev = _need_cuda()
+    S, rps, d, P, c = 4, 784, 75, 700, 3
+    M = S * rps
+    q, qn, bank, pn, values, _ = _case(M, d, P, c, seed=7, dev=dev)
+    kw, values = _fast(strategy, values, d, c)
+    kw["precision"] = "default"
+    w = torch.rand(S, P, generator=torch.Generator().manual_seed(7)).to(dev)
+    w[w < 0.3] = 0.0
+    w[2] = 0.0
+    key = "flash_score_fast" + tfs.STRATEGY_SUFFIX[strategy] + tfs.PER_SEED
+    before = dict(tfs.flash_score_update.launches)
+    args = (q, qn, bank, pn, values, w, 0.7, 0.5, _empty(M, c, dev))
+    got = tfs.flash_score_update(*args, rows_per_seed=rps, **kw)
+    torch.cuda.synchronize()
+    assert tfs.flash_score_update.launches == {**before, key: before[key] + 1}
+    live = got[1] > 0
+    want = tfs.flash_score_update_plain(*args, rows_per_seed=rps, **kw)
+    assert torch.equal(live, want[1] > 0)
+    _assert_close(tuple(x[live] for x in got), tuple(x[live] for x in want))
+    for s in (0, 3):
+        r = slice(s * rps, (s + 1) * rps)
+        one = tfs.flash_score_update(q[r], qn[r], bank, pn, values, w[s].contiguous(),
+                                     0.7, 0.5, _empty(rps, c, dev), **kw)
+        for a, b in zip(one, got):
+            assert _rel(a, b[r]) <= 1e-6

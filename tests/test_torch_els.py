@@ -226,8 +226,8 @@ def test_argument_errors(tiny_dataset):
         mod(0.5, _x(1), k=4)
     with pytest.raises(ValueError, match="precision"):
         _port(imgs, labs, "bank", precision="bf16")
-    with pytest.raises(NotImplementedError, match="K3"):
-        _port(imgs, labs, "bank", precision="default")(0.5, _x(1))
+    out = _port(imgs, labs, "bank", precision="default")(0.5, _x(1))
+    assert out.shape == (1, 8, 8, 1) and torch.isfinite(out).all()
     assert jax.default_backend() == "cpu"  # the JAX reference stays on the CPU
 
 
@@ -252,3 +252,81 @@ def test_vector_label_is_one_per_seed_sweep_per_chunk(tiny_dataset, monkeypatch,
     assert calls == [((4, g.block), 64)] * g.nblk
     with pytest.raises(ValueError, match="one label per seed"):
         mod(0.3, _x(4), label=np.array([3, 1], np.int32))
+
+
+# 'default' (K3/K4): the port's plain bf16-exp sweep against the JAX module
+# driving its Pallas kernel in interpret mode. The c = 1 tiny set at k = 3
+# (d = 9) takes 'inbank' on both sides; the RGB set at k = 7 (d = 147,
+# padded 256) takes 'vpu'. Tolerance 2e-3 relative to scale, half the
+# tier's 4e-3: the JAX kernel re-bases its running max every block_p >= 512
+# bank rows where the port re-bases every 128, and XLA's CPU backend drops
+# the bf16 rounding of 'vpu's products; worst observed ~4e-4.
+DEFAULT_CASES = {
+    "plain": (dict(), dict()),
+    "label": (dict(), dict(label=2)),
+    "vector_label": (dict(max_samples=15), dict(label=np.array([0, 2, 1, 0], np.int32))),
+    "rgb_k7": (dict(kernel_size=7), dict()),
+    "rgb_k7_vector_label": (dict(kernel_size=7), dict(label=np.array([3, 0], np.int32))),
+}
+
+
+def _rgb_set():
+    from convolutional_diffusion_tpu_torch.data import synthetic_dataset
+
+    ds = synthetic_dataset(num_samples=12, image_size=12, num_channels=3,
+                           num_classes=4, seed=2)
+    return ds.images, ds.labels
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("case", DEFAULT_CASES)
+def test_default_matches_jax_module_interpret(tiny_dataset, monkeypatch, mode, case):
+    monkeypatch.setenv("CDT_FLASH_INTERPRET", "1")
+    imgs, labs = _rgb_set() if case.startswith("rgb") else tiny_dataset
+    ctor, call = DEFAULT_CASES[case]
+    b = len(call["label"]) if np.ndim(call.get("label")) else 2
+    x = np.random.RandomState(5).normal(size=(b, *imgs.shape[1:])).astype(np.float32)
+    kw = dict(kernel_size=3, batch_size=5, precision="default")
+    kw.update(ctor)
+    jmod = jscores.LocalEquivScoreModule(
+        (imgs, labs), schedule=jcos, use_pallas=True, **kw,
+        **({"bank_budget_bytes": 0} if mode == "stream" else {}),
+    )
+    ours = _port(imgs, labs, mode, **kw)
+    for t in (0.05, 0.5):
+        _check(ours(t, x, **call), np.asarray(jmod(t, jnp.asarray(x), **call)),
+               atol=2e-3)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_default_value_strategy_rule(tiny_dataset, monkeypatch, mode):
+    """At 'default' the sweeps take 'inbank' over the bank's center columns
+    where d padded to 128 is at most 128 (values not passed) and the
+    'auto' rule elsewhere, banked and streamed, with 1-D and per-seed
+    weights; the other tiers never take 'inbank'."""
+    from convolutional_diffusion_tpu_torch.ops.flash_score import flash_score_update
+
+    calls = []
+
+    def spy(*args, **kw):
+        calls.append((args[4] is None, kw.get("v_strategy", "auto"),
+                      kw.get("inbank_cols")))
+        return flash_score_update(*args, **kw)
+
+    monkeypatch.setattr(tels, "flash_score_update", spy)
+    imgs, labs = tiny_dataset
+    mod = _port(imgs, labs, mode, kernel_size=3, batch_size=5, precision="default")
+    mod(0.3, _x(2))
+    mod(0.3, _x(2), label=np.array([1, 2], np.int32))
+    assert set(calls) == {(True, "inbank", (4, 1))}
+    calls.clear()
+    rgb, rlabs = _rgb_set()
+    x = np.zeros((1, 12, 12, 3), np.float32)
+    _port(rgb, rlabs, mode, kernel_size=5, precision="default")(0.3, x)
+    assert set(calls) == {(True, "inbank", (36, 3))}  # d 75
+    calls.clear()
+    _port(rgb, rlabs, mode, kernel_size=7, precision="default")(0.3, x)
+    _port(imgs, labs, mode, kernel_size=3, precision="high")(0.3, _x(1))
+    assert set(calls) == {(False, "auto", None)}  # d 147; 'high'
+    assert tels._inbank_max_dp("default") == 128
+    assert tels._inbank_max_dp("high") == tels._inbank_max_dp("highest") == 0

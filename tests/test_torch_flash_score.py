@@ -8,6 +8,8 @@ quantities are compared: the log total weight m + log s1 (rtol 1e-5,
 atol 1e-4) and the posterior mean s2/s1 (rtol 1e-4, atol 1e-5), as the JAX
 package's own kernel tests do."""
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,6 +18,7 @@ import torch
 import convolutional_diffusion_tpu.ops.flash_score as jfs
 import convolutional_diffusion_tpu.scores.common as jc
 import convolutional_diffusion_tpu_torch.ops.flash_score as tfs
+from convolutional_diffusion_tpu_torch.ops import _build
 
 
 def _inputs(M, d, P, c, seed, w_lo=0.5):
@@ -34,7 +37,8 @@ def _empty(M, c):
 
 
 def _port(a, at, bt, state, precision="highest", **kw):
-    t = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in a.items()}
+    t = {k: None if v is None else torch.from_numpy(np.ascontiguousarray(v))
+         for k, v in a.items()}
     out = tfs.flash_score_update(
         t["q"], t["qn"], t["bank"], t["pn"], t["values"], t["w"], at, bt,
         tuple(torch.from_numpy(s) for s in state), precision=precision, **kw,
@@ -44,7 +48,8 @@ def _port(a, at, bt, state, precision="highest", **kw):
 
 def _jax(a, at, bt, state, **kw):
     out = jfs.flash_score_update(
-        *(jnp.asarray(a[k]) for k in ("q", "qn", "bank", "pn", "values", "w")),
+        *(None if a[k] is None else jnp.asarray(a[k])
+          for k in ("q", "qn", "bank", "pn", "values", "w")),
         jnp.float32(at), jnp.float32(bt), tuple(jnp.asarray(s) for s in state),
         interpret=True, **kw,
     )
@@ -166,24 +171,30 @@ def test_state_conversions_roundtrip():
 
 @pytest.mark.parametrize("precision,variant", [("high", "K2"), ("default", "K3")])
 def test_unported_tiers_raise(precision, variant):
-    """'default' (K3) is not ported and raises, naming its variant; 'high'
-    (K2) is ported and runs. At the ported tiers per-seed weights (K5) run
-    with rows_per_seed and raise the JAX wrapper's ValueError without it;
-    a shape mismatch raises."""
+    """'high' (K2) and 'default' (K3) are ported and run, in the wrapper and
+    in its plain version; what is still unported raises NotImplementedError
+    naming its variant: the 'mxu' value strategy (c > 8, K4), 'inbank' at
+    'highest' and 'high' (K4), and fast_exp apart from 'default'. Per-seed
+    weights (K5) run with rows_per_seed and raise the JAX wrapper's
+    ValueError without it; a shape mismatch raises."""
     a = _inputs(8, 12, 16, 3, seed=7)
     t = {k: torch.from_numpy(v) for k, v in a.items()}
     st = tuple(torch.from_numpy(s) for s in _empty(8, 3))
     args = (t["q"], t["qn"], t["bank"], t["pn"], t["values"], t["w"], 0.8, 0.6, st)
-    if variant == "K2":
-        for fn in (tfs.flash_score_update, tfs.flash_score_update_plain):
-            m, s1, s2 = fn(*args, precision=precision)
-            assert torch.isfinite(m).all() and (s1 > 0).all()
-            assert torch.isfinite(s2).all()
-    else:
-        with pytest.raises(NotImplementedError, match=variant):
-            tfs.flash_score_update(*args, precision=precision)
-        with pytest.raises(NotImplementedError, match=variant):
-            tfs.flash_score_update_plain(*args, precision=precision)
+    for fn in (tfs.flash_score_update, tfs.flash_score_update_plain):
+        m, s1, s2 = fn(*args, precision=precision)
+        assert torch.isfinite(m).all() and (s1 > 0).all()
+        assert torch.isfinite(s2).all()
+        wide = torch.zeros(16, 9)
+        with pytest.raises(NotImplementedError, match="'mxu'.*K4"):
+            fn(*args[:4], wide, *args[5:8], (*st[:2], torch.zeros(8, 9)),
+               precision=precision)
+        for tier in ("highest", "high"):
+            with pytest.raises(NotImplementedError, match="'inbank'.*K4"):
+                fn(*args[:4], None, *args[5:], precision=tier,
+                   v_strategy="inbank", inbank_cols=(3, 3))
+        with pytest.raises(NotImplementedError, match="fast_exp.*K3"):
+            fn(*args, precision=precision, fast_exp=precision != "default")
     precision = "high" if variant == "K2" else "highest"
     w2 = t["w"][None].repeat(2, 1)
     with pytest.raises(ValueError, match="rows_per_seed"):
@@ -264,14 +275,24 @@ def test_high_all_excluded_chunk_leaves_state_unchanged():
 
 
 def test_cpu_path_does_not_count_launches():
+    """One count per kernel variant (the 'default' kernel's by value
+    strategy, each also per seed); CPU tensors count none."""
     before = dict(tfs.flash_score_update.launches)
-    assert set(before) == {"flash_score", "flash_score_bf16x3",
-                           "flash_score/per_seed", "flash_score_bf16x3/per_seed"}
+    assert set(before) == {
+        name + seeds
+        for name in ("flash_score", "flash_score_bf16x3", "flash_score_fast",
+                     "flash_score_fast/inbank", "flash_score_fast/mxu1")
+        for seeds in ("", "/per_seed")
+    }
     a = _inputs(8, 12, 16, 3, seed=8)
     _port(a, 0.8, 0.6, _empty(8, 3))
     _port(a, 0.8, 0.6, _empty(8, 3), "high")
     _port(dict(a, w=np.stack([a["w"], a["w"][::-1]])), 0.8, 0.6, _empty(8, 3),
           "high", rows_per_seed=4)
+    for strategy in ("vpu", "mxu1"):
+        _port(a, 0.8, 0.6, _empty(8, 3), "default", v_strategy=strategy)
+    _port(dict(a, values=None), 0.8, 0.6, _empty(8, 3), "default",
+          v_strategy="inbank", inbank_cols=(3, 3))
     assert tfs.flash_score_update.launches == before
 
 
@@ -343,3 +364,179 @@ def test_per_seed_chaining_matches_single_sweep():
     chained = _port(tail, 0.7, 0.71, _port(head, 0.7, 0.71, _empty(M, c), rows_per_seed=rps),
                     rows_per_seed=rps)
     _assert_same(chained, full)
+
+
+# 'default' (K3, K4 'inbank'): the plain version against the JAX kernel in
+# interpret mode, with block_p = 128 so that both re-base m every 128 bank
+# rows (FAST_TILE, the CUDA kernel's tile). The rounding points differ by
+# design: the port rounds where the Pallas kernel's dtypes say, XLA's CPU
+# backend drops some bf16 roundings ('vpu's bf16 product e * v); see
+# `sweep_plain`. So the comparison is relative to scale,
+# max|a-b| / max(|a|,|b|,1): 1e-3 on m + log s1 and 3e-3 on s2/s1, within
+# the tier's own tolerance (the JAX package holds 'default' at rtol 4e-3,
+# tests/test_flash_score.py:407). Worst observed here: ~1e-4 on m + log s1,
+# ~1e-3 on s2/s1 ('vpu'; 'mxu1' and 'inbank' ~1e-6).
+DEFAULT_LSE_TOL, DEFAULT_MEAN_TOL = 1e-3, 3e-3
+STRATEGIES = ["vpu", "inbank", "mxu1"]
+
+
+def _rel(a, b):
+    fin = np.isfinite(b)
+    assert (fin == np.isfinite(a)).all()
+    a, b = a[fin].astype(np.float64), b[fin].astype(np.float64)
+    return np.abs(a - b).max() / max(np.abs(a).max(), np.abs(b).max(), 1.0)
+
+
+def _assert_tier(ours, want, lse_tol=DEFAULT_LSE_TOL, mean_tol=DEFAULT_MEAN_TOL):
+    (lse_o, mean_o), (lse_w, mean_w) = _invariants(*ours), _invariants(*want)
+    assert _rel(lse_o, lse_w) <= lse_tol
+    assert _rel(mean_o, mean_w) <= mean_tol
+
+
+def _strategy_inputs(a, strategy, col0=12):
+    """The strategy's keywords, and the inputs with V = the bank's columns
+    col0 .. col0 + c for 'inbank' (values None: not read)."""
+    if strategy != "inbank":
+        return a, dict(v_strategy=strategy)
+    c = a["values"].shape[1]
+    return (dict(a, values=None),
+            dict(v_strategy="inbank", inbank_cols=(col0, c)))
+
+
+@pytest.mark.parametrize("weights", ["1d", "per_seed"])
+@pytest.mark.parametrize("strategy", STRATEGIES)
+def test_default_matches_jax_kernel_interpret(strategy, weights):
+    """The plain 'default' sweep against the JAX kernel at 'default' (fast
+    exp) with the same value strategy, 1-D or per-seed weights."""
+    S, rps, P, d, c = 2, 32, 200, 27, 3
+    a = (_per_seed(S, rps, P, d, c, seed=50) if weights == "per_seed"
+         else _inputs(S * rps, d, P, c, seed=50))
+    a, kw = _strategy_inputs(a, strategy)
+    if weights == "per_seed":
+        kw["rows_per_seed"] = rps
+    ours = _port(a, 0.8, 0.6, _empty(S * rps, c), "default", **kw)
+    want = _jax(a, 0.8, 0.6, _empty(S * rps, c), block_q=64, block_p=128,
+                precision="default", **kw)
+    _assert_tier(ours, want)
+
+
+@pytest.mark.parametrize("strategy", STRATEGIES)
+def test_default_chaining_and_sentinel_rows_match_jax(strategy):
+    """'default' chained over two bank parts, with sentinel and zero-weight
+    rows in the carried state, against the JAX kernel fed the same state;
+    and two chained calls against one, at the tier's tolerance: the second
+    call rounds x = logit - m under the first part's m, one call under the
+    whole bank's."""
+    M, d, P, c = 40, 75, 300, 3
+    a = _inputs(M, d, P, c, seed=51, w_lo=0.0)
+    a["w"][a["w"] < 0.3] = 0.0
+    a, kw = _strategy_inputs(a, strategy, col0=36)
+    head = {k: (v[:128] if v is not None and v.shape[0] == P else v) for k, v in a.items()}
+    tail = {k: (v[128:] if v is not None and v.shape[0] == P else v) for k, v in a.items()}
+    state = tuple(s.copy() for s in _port(head, 0.8, 0.6, _empty(M, c), "default", **kw))
+    state[0][::3], state[1][::3], state[2][::3] = -1e30, 0.0, 0.0
+    _assert_tier(_port(tail, 0.8, 0.6, state, "default", **kw),
+                 _jax(tail, 0.8, 0.6, state, block_q=64, block_p=128,
+                      precision="default", **kw))
+    full = _port(a, 0.8, 0.6, _empty(M, c), "default", **kw)
+    chained = _port(tail, 0.8, 0.6,
+                    _port(head, 0.8, 0.6, _empty(M, c), "default", **kw),
+                    "default", **kw)
+    _assert_tier(chained, full)
+
+
+@pytest.mark.parametrize("strategy", STRATEGIES)
+def test_default_all_excluded_chunk_leaves_state_unchanged(strategy):
+    M, d, P, c = 24, 27, 100, 3
+    a, kw = _strategy_inputs(_inputs(M, d, P, c, seed=52), strategy)
+    state = tuple(s.copy() for s in _port(a, 0.8, 0.6, _empty(M, c), "default", **kw))
+    state[0][:4], state[1][:4], state[2][:4] = -1e30, 0.0, 0.0
+    excluded = dict(_inputs(M, d, P, c, seed=53), q=a["q"], qn=a["qn"])
+    excluded, _ = _strategy_inputs(excluded, strategy)
+    excluded["w"][:] = 0.0
+    after = _port(excluded, 0.8, 0.6, state, "default", **kw)
+    np.testing.assert_array_equal(state[1], after[1])
+    np.testing.assert_array_equal(state[2], after[2])
+    np.testing.assert_allclose(state[0][4:], after[0][4:], rtol=1e-6)
+    assert (after[0][:4] <= -5e29).all()
+
+
+def test_default_strategies_share_the_exponential():
+    """'inbank' over the bank's columns equals 'mxu1' over the same columns
+    as values, bit for bit (one arithmetic); 'vpu' rounds the products e * v
+    to bf16 and differs from both, within the tier's tolerance."""
+    M, d, P, c = 32, 27, 256, 3
+    a = _inputs(M, d, P, c, seed=54)
+    a["values"] = np.ascontiguousarray(a["bank"][:, 12:15])
+    ib = _port(dict(a, values=None), 0.8, 0.6, _empty(M, c), "default",
+               v_strategy="inbank", inbank_cols=(12, 3))
+    mx = _port(a, 0.8, 0.6, _empty(M, c), "default", v_strategy="mxu1")
+    vp = _port(a, 0.8, 0.6, _empty(M, c), "default", v_strategy="vpu")
+    for x, y in zip(ib, mx):
+        np.testing.assert_array_equal(x, y)
+    np.testing.assert_array_equal(mx[0], vp[0])
+    np.testing.assert_array_equal(mx[1], vp[1])
+    assert not np.array_equal(mx[2], vp[2])
+    _assert_tier(vp, mx)
+
+
+def test_default_auto_strategy_rule():
+    """'auto' at 'default' takes 'mxu1' from P = 2^18 bank rows in one call
+    and 'vpu' below; the other tiers take 'vpu' (c <= 8) or 'mxu' (c > 8)."""
+    v3, v9 = torch.zeros(1, 3), torch.zeros(1, 9)
+    big = tfs.MXU1_MIN_P
+    assert tfs._strategy("default", "auto", None, v3, None, 27, big) == ("mxu1", 3)
+    assert tfs._strategy("default", "auto", None, v3, None, 27, big - 1) == ("vpu", 3)
+    assert tfs._strategy("high", "auto", None, v3, None, 27, big) == ("vpu", 3)
+    assert tfs._strategy("default", "inbank", True, None, (12, 3), 27, 10) == (
+        "inbank", 3)
+    with pytest.raises(NotImplementedError, match="'mxu'"):
+        tfs._strategy("highest", "auto", None, v9, None, 27, 10)
+    with pytest.raises(ValueError, match="mxu1"):
+        tfs._strategy("high", "mxu1", None, v3, None, 27, 10)
+    with pytest.raises(ValueError, match="inbank_cols"):
+        tfs._strategy("default", "inbank", None, None, None, 27, 10)
+    with pytest.raises(ValueError, match="out of range"):
+        tfs._strategy("default", "inbank", None, None, (26, 3), 27, 10)
+
+
+def test_default_tile_is_the_kernels_tile():
+    """Where m is re-based is part of the 'default' function: the plain
+    version re-bases every FAST_TILE bank rows, and the split-dot kernels'
+    tile (BP of csrc/flash_score_split.cuh) is the same constant, passed to
+    nvcc by _build, with no number of its own in the header."""
+    assert tfs.FAST_TILE == _build.SPLIT_TILE
+    assert f"-DSPLIT_TILE={tfs.FAST_TILE}" in _build.NVCC_FLAGS
+    header = (_build.CSRC / "flash_score_split.cuh").read_text()
+    assert "constexpr int BP = SPLIT_TILE;" in header
+    assert not re.search(r"\bBP\s*=\s*\d", header)
+
+def test_default_exp_is_the_bf16_exp2_of_jax():
+    """The tier's exponential is JAX's lowering of `jnp.exp2` on a bf16
+    array, exp(bf16(ln 2) * x) with the product in bf16: the port's
+    e = bf16(exp(bf16(bf16(x) * 0.69140625))) equals jnp.exp2(bf16(x)) bit
+    for bit over x in [-30, 0], where a true exp2 is off by up to ~11%. In
+    a whole 'mxu1' sweep (no rounding that XLA's CPU backend drops) the
+    port's form agrees with the JAX kernel to ~1e-6 on the posterior mean,
+    a true exp2 only to ~2.6e-3."""
+    x = np.linspace(-30.0, 0.0, 4001).astype(np.float32)
+    want = np.asarray(jnp.exp2(jnp.asarray(x).astype(jnp.bfloat16)).astype(jnp.float32))
+    xt = tfs._bf16(torch.from_numpy(x))
+    ours = tfs._bf16(torch.exp(tfs._bf16(xt * tfs.LN2_BF16).double()).float()).numpy()
+    np.testing.assert_array_equal(ours, want)
+    true = tfs._bf16(torch.exp2(xt)).numpy()
+    assert np.abs(true / want - 1).max() > 0.05
+
+    M, d, P, c = 64, 27, 200, 3
+    a = _inputs(M, d, P, c, seed=0)
+    jx = _invariants(*_jax(a, 0.8, 0.6, _empty(M, c), block_q=64, block_p=128,
+                           precision="default", v_strategy="mxu1"))[1]
+    port = _invariants(*_port(a, 0.8, 0.6, _empty(M, c), "default", v_strategy="mxu1"))[1]
+    orig = torch.exp
+    with pytest.MonkeyPatch.context() as mp:
+        # a true exp2: exp(y * ln 2 / bf16(ln 2)) == 2^(bf16(x)) up to rounding
+        mp.setattr(tfs.torch, "exp", lambda y: orig(y * (tfs.LN2 / tfs.LN2_BF16)))
+        true_exp2 = _invariants(*_port(a, 0.8, 0.6, _empty(M, c), "default",
+                                       v_strategy="mxu1"))[1]
+    assert _rel(port, jx) < 1e-5
+    assert _rel(true_exp2, jx) > DEFAULT_LSE_TOL

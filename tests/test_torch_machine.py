@@ -60,12 +60,12 @@ def test_machine_goldens(z, budget, prefix, imgs, c, imsize, bs, atol):
     _check(machine(_nhwc(z[x_key])[:1]), _nhwc(z[f"{prefix}/out"]), atol)
 
 
-def _assert_same_trajectory(ttraj, jtraj, steps):
+def _assert_same_trajectory(ttraj, jtraj, steps, tol=1e-3):
     assert len(ttraj) == len(jtraj) == steps
     for a, b in zip(ttraj, jtraj):
         a, b = a.numpy(), np.asarray(b)
         dev = np.abs(a - b).max() / max(np.abs(a).max(), np.abs(b).max(), 1.0)
-        assert dev <= 1e-3, dev
+        assert dev <= tol, dev
     assert np.isfinite(a).all()
 
 
@@ -113,6 +113,30 @@ def test_bbels_high_trajectory_matches_jax_machine(monkeypatch, budget):
         x0, collect_trajectory=True)
     _assert_same_trajectory(ttraj, jtraj, 4)
     assert tmod._local_fallback_cache is not None
+
+
+def test_default_trajectory_matches_jax_machine(monkeypatch):
+    """ELS at 'default' (banked): the JAX machine drives its Pallas kernel in
+    interpret mode with 128-row bank blocks (CDT_FLASH_BP), so that both
+    sides re-base the running max at the same rows: the bf16 rounding of
+    x = logit - m depends on that m (with the JAX default blocks the last
+    step differs by 3.1e-3). k = 3, 5 take 'inbank', k = 7 'vpu', whose
+    bf16 products XLA's CPU backend leaves unrounded; the steps amplify
+    that to 9.0e-4 at the last one, held at 2e-3 relative to scale, half
+    the tier's 4e-3 (`tests/test_flash_score.py:407`)."""
+    monkeypatch.setenv("CDT_FLASH_INTERPRET", "1")
+    monkeypatch.setenv("CDT_FLASH_BP", "128")
+    ds = tdata.synthetic_dataset(num_samples=32, image_size=16, seed=3)
+    scales = [3, 3, 5, 5, 7]
+    x0 = np.random.RandomState(11).normal(size=(2, 16, 16, 3)).astype(np.float32)
+    kw = dict(batch_size=8, precision="default")
+    jmod = jscores.LocalEquivScoreModule((ds.images, ds.labels), use_pallas=True, **kw)
+    _, jtraj = jscores.ScheduledScoreMachine(jmod, imsize=16, scales=scales)(
+        jnp.asarray(x0), collect_trajectory=True)
+    tmod = LocalEquivScoreModule((ds.images, ds.labels), device="cpu", **kw)
+    _, ttraj = ScheduledScoreMachine(tmod, imsize=16, scales=scales)(
+        x0, collect_trajectory=True)
+    _assert_same_trajectory(ttraj, jtraj, 4, tol=2e-3)
 
 
 def test_ddim_step_matches_jax():
