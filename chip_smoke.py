@@ -45,6 +45,22 @@ Phases, each printing its own lines; any failure exits non-zero:
               seed), and against 8 one-seed 1-D launches (gate 1e-6); K5's
               time against the 1-D kernel's on the same inputs, and the
               grouped alternative's (8 launches at M = 1024, information).
+   prune    — the prune skip bit, kernel variant K6, in K1, K2 and the
+              'default' kernel (in the variant the ELS module takes at k):
+              one full CIFAR10 chunk clustered by the port's k-means
+              (`build_clustered_bank`), M = 8192, k in {3, 9, 17}, t in
+              {0.05, 0.5, 0.95}. (a) Sound masks from `sweep_masks`: the
+              skip fraction; kernel + mask against plain + mask at 1e-3 and
+              against the unmasked kernel at 1e-5. (b) At t = 0.5 a forced
+              mask (every other stats block, the first and the last, all
+              blocks of two query blocks) over a carried state with
+              sentinel rows: against plain + mask at 1e-3, and the kernel's
+              state of the all-skipped query blocks bit-equal to its input.
+              (c) The clustered stress problem (8 tight clusters, M = 8192,
+              P = 65536, d = 27, a_t = 0.99, b_t = 0.08): more than 50%
+              skipped, both gates; masked against unmasked ms beside
+              1 - skip. Times at t = 0.05 with the bound of the unskipped
+              work (`bound()` x (1 - skip)).
 5. machines — one 20-step ScheduledScoreMachine call each, CIFAR10 scales,
               8 seeds of 32x32x3 (the same seeds for all), over N synthetic
               bank images (default 50000; a smaller --n is printed as
@@ -52,11 +68,20 @@ Phases, each printing its own lines; any failure exits non-zero:
               els_20step_50kbank fp32 key), bbels = bbELS 'high', els_high =
               ELS 'high', els_default = ELS 'default' (the JAX bench's
               els_20step_50kbank_images_per_sec_fast), bbels_default = bbELS
-              'default'. Each kernel variant's launch count must equal the
-              sum of bank chunks over the steps where the ELS rule takes it
-              (at 'default': 'inbank' at k <= 5, 'vpu' above), and nothing
-              else may run; the output finite. The 'default' outputs are
-              compared with the 'high' ones (information).
+              'default', els_prune = ELS 'highest' with prune=True (clustered
+              cached banks, K6 masks). Each kernel variant's launch count
+              must equal the sum of bank chunks over the steps where the
+              ELS rule takes it (at 'default': 'inbank' at k <= 5, 'vpu'
+              above; els_prune: '/prune' at the k's the 48 GiB ledger
+              caches, 17 and 3), and nothing else may run; the output
+              finite. els_prune also prints each clustered build's parts
+              and peak memory (which must stay under the card, within one
+              bank plus 4 GB above what was held before: no second copy),
+              each step's skip fraction and mask-building ms, and
+              its output's distance to main's; its gate is one k = 3,
+              t = 0.05 call against the same clustered bank unmasked, at
+              1e-5. The 'default' outputs are compared with the 'high' ones
+              (information).
 6. mxu1     — one ELS 'default' module call at k = 9 with a target block
               of 2^19 patches: every sweep must be one 'mxu1' launch.
 7. cond     — conditional generation through pipeline.generate_els_samples:
@@ -81,7 +106,11 @@ Phases, each printing its own lines; any failure exits non-zero:
               'default' ELS banked and streamed, bbELS and ELS with the
               label vector (a 'default' case past 1e-3 is held at 2.5e-3,
               with the reason printed, and its gap to the CPU's 'high'
-              machine prints beside it).
+              machine prints beside it); ELS prune=True at 'highest' and
+              'high' over prototype images (a few flat colours plus small
+              noise, where the masks skip: the skip fraction must be above
+              0 on both devices), and one label-vector call on the
+              clustered bank (K5, unmasked).
 
 Artifacts of phases 7 and 8 go to build/chip_smoke/ (git-ignored). The
 card's name and power limit print as the first line, the kernels JSON
@@ -92,6 +121,7 @@ last. Without a CUDA device it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import shutil
@@ -108,6 +138,8 @@ from convolutional_diffusion_tpu_torch.cli.common import build_score_module
 from convolutional_diffusion_tpu_torch.data import synthetic_dataset
 from convolutional_diffusion_tpu_torch.ops import _build
 from convolutional_diffusion_tpu_torch.ops import flash_score as fs
+from convolutional_diffusion_tpu_torch.ops import prune as pr
+from convolutional_diffusion_tpu_torch.ops.fp32 import true_fp32
 from convolutional_diffusion_tpu_torch.ops.patches import (
     center_index,
     extract_patches,
@@ -121,7 +153,13 @@ from convolutional_diffusion_tpu_torch.scores import (
     LocalEquivScoreModule,
     ScheduledScoreMachine,
 )
-from convolutional_diffusion_tpu_torch.scores.bank import bank_geometry, chunk_patches
+from convolutional_diffusion_tpu_torch.scores import els as tels
+from convolutional_diffusion_tpu_torch.scores.bank import (
+    bank_cache_nbytes,
+    bank_geometry,
+    build_clustered_bank,
+    chunk_patches,
+)
 from convolutional_diffusion_tpu_torch.scores.common import (
     CutoffRule,
     Weighting,
@@ -162,7 +200,16 @@ REPLACES = {
     FAST + "/mxu1": _TPU + "225",
     **{name + fs.PER_SEED: _TPU + "399"
        for name in ("flash_score", "flash_score_bf16x3", FAST, FAST + "/inbank")},
+    # K6, `_kernel`'s prune branch; the 'default' kernel's K6 is checked in
+    # phase prune but reached by no path (the ELS gate keeps 'default'
+    # unmasked), so it has no entry in the kernels line
+    **{name + fs.PRUNE: _TPU + "122" for name in ("flash_score", "flash_score_bf16x3")},
 }
+PRUNE_T = (0.05, 0.5, 0.95)  # t of phase prune; times at the first
+STRESS_AT_BT = (0.99, 0.08)  # the stress problem's low-noise step
+# a clustered build may hold one bank plus this much (k-means sample and
+# distance blocks, the sort's ids): a second copy of the bank would not fit
+BUILD_TRANSIENT = 4e9
 
 
 def source(name: str) -> str:
@@ -176,12 +223,13 @@ def value_kw(precision: str, k: int, c: int = 3) -> dict:
     return els_value_kw(precision, k * k * c, center_index(k, c).start, c)
 
 
-def launch_key(precision: str, k: int, per_seed: bool = False) -> str:
+def launch_key(precision: str, k: int, per_seed: bool = False,
+               prune: bool = False) -> str:
     """The launch-count key of a module sweep at k (kernel, strategy,
-    per-seed suffix)."""
+    per-seed or prune suffix)."""
     strategy = value_kw(precision, k).get("v_strategy", "vpu")
     return (fs.KERNEL_OF[precision] + fs.STRATEGY_SUFFIX[strategy]
-            + (fs.PER_SEED if per_seed else ""))
+            + (fs.PER_SEED if per_seed else fs.PRUNE if prune else ""))
 
 
 def kernel_record(name: str, rec: dict, launches: int) -> dict:
@@ -318,11 +366,19 @@ def phase_device():
 
 def phase_build():
     for name, built in _build.build_all(list(TIER_OF)).items():
+        regs, spills = [], 0
         for line in built.log.splitlines():
             if any(t in line for t in ("registers", "spill", "smem", "Compiling entry")):
                 print(f"[build] {name}: {line.strip()}", flush=True)
+            words = line.split()
+            if "registers," in words:
+                regs.append(int(words[words.index("registers,") - 1]))
+            if "spill" in words and "stores," in words:
+                spills += int(words[words.index("spill") - 2])
         how = f"built in {built.seconds:.1f} s" if built.seconds else "reused an identical build"
-        print(f"[build] {source(name)}: {how}", flush=True)
+        regs = f"{min(regs)}-{max(regs)}" if regs else "not in the log"
+        print(f"[build] {source(name)}: {how}; registers {regs}, "
+              f"spill stores {spills} bytes", flush=True)
         _build.load(name)
 
 
@@ -474,12 +530,8 @@ def phase_kernel(images_dev, n_bank, gen):
                             f"plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), "
                             f"{b_ms / ms:.1%} of bound")
                     if prec == "highest":
-                        prev = torch.backends.cuda.matmul.allow_tf32
-                        torch.backends.cuda.matmul.allow_tf32 = False
-                        try:
+                        with true_fp32():
                             mm_ms = cuda_ms(lambda: torch.matmul(xq, p.T), 5)
-                        finally:
-                            torch.backends.cuda.matmul.allow_tf32 = prev
                         line += f", fp32 matmul Q.K^T alone (partial yardstick) {mm_ms:.3f} ms"
                     else:
                         ms_center[name][k] = cuda_ms(
@@ -682,33 +734,222 @@ def phase_kernel_per_seed(images_dev, labels_dev, n_bank, gen):
     return recs
 
 
-def expected_launches(precision, n_bank, per_seed=False):
+def prune_variants(k: int):
+    """(launch key, keywords) of each kernel with a prune mask at k: K1, K2
+    and the 'default' kernel in the variant the ELS module takes at k."""
+    return [(launch_key(prec, k, prune=True), dict(precision=prec, **value_kw(prec, k)))
+            for prec in ("highest", "high", "default")]
+
+
+def forced_mask(M: int, P: int):
+    """A mask that tests the mechanism, not the bound: every other stats
+    block (so the first), the last, and every block of two query blocks
+    (the first and one in the middle). Returns (mask, the all-skipped
+    query rows)."""
+    mask = torch.zeros(fs.prune_grid(M, P), dtype=torch.int32, device="cuda")
+    mask[:, ::2] = 1
+    mask[:, -1] = 1
+    full = [0, mask.shape[0] // 2]
+    mask[full] = 1
+    rows = torch.cat([torch.arange(b * fs.PRUNE_ROWS, min(M, (b + 1) * fs.PRUNE_ROWS))
+                      for b in full]).cuda()
+    return mask, rows
+
+
+def kernel_state_io(*args, **kw):
+    """One `fs.flash_score_update` call on the card; returns (its result,
+    the state the kernel was given, the state it returned), the last two in
+    the kernel's own convention (before the wrapper moves m out of it)."""
+    seen = []
+    inner = fs.sweep_kernel
+
+    def spy(*a, **k):
+        out = inner(*a, **k)
+        seen.append((a[5:8], out))
+        return out
+
+    fs.sweep_kernel = spy
+    try:
+        got = fs.flash_score_update(*args, **kw)
+    finally:
+        fs.sweep_kernel = inner
+    return (got, *seen[0])
+
+
+def check_masked(tag, key, k, t, what, args, state, mask, kw, rec):
+    """Kernel + mask against plain + mask at TOL (folded into `rec`) and
+    against the unmasked kernel at 1e-5; returns the masked result."""
+    got = fs.flash_score_update(*args, state, prune_mask=mask, **kw)
+    want = fs.flash_score_update_plain(*args, state, prune_mask=mask, **kw)
+    unmasked = fs.flash_score_update(*args, state, **kw)
+    torch.cuda.synchronize()
+    check_cases(tag, key, k, t, {what: (got, want)}, rec)
+    check_cases(tag, key, k, t, {f"{what}, vs the unmasked kernel": (got, unmasked)},
+                {"max_abs_err": 0.0}, tol=1e-5)
+    return got
+
+
+def time_masked(tag, key, k, what, args, M, P, d, mask, kw, rec):
+    """ms per launch with the mask and without, the plain version's with
+    the mask, and the bound of the unskipped work; into `rec`."""
+    c = 3
+    skip = mask.float().mean().item()
+    ms = cuda_ms(lambda: fs.flash_score_update(*args, empty_state(M, c), prune_mask=mask,
+                                               **kw), 5)
+    ms_full = cuda_ms(lambda: fs.flash_score_update(*args, empty_state(M, c), **kw), 5)
+    plain_ms = plain_time(kw["precision"], lambda: fs.flash_score_update_plain(
+        *args, empty_state(M, c), prune_mask=mask, **kw))
+    b_ms, b_by = bound(M, P, d, c, kw["precision"], strategy=kw.get("v_strategy", "vpu"))
+    b_ms *= 1.0 - skip
+    print(f"[{tag}] {key} k={k} d={d} M={M} P={P} {what}: {skip:.2%} skipped; kernel "
+          f"{ms:.3f} ms with the mask, {ms_full:.3f} ms without ({ms / ms_full:.3f}x; "
+          f"1 - skip {1.0 - skip:.3f}); plain {plain_ms:.3f} ms; bound of the unskipped "
+          f"work {b_ms:.3f} ms ({b_by})", flush=True)
+    rec.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, k=k, skip=skip)
+
+
+def phase_prune_kernel(images_dev, n_bank, gen):
+    """K6 in K1, K2 and the 'default' kernel (see the module docstring,
+    phase prune). Returns per K6 launch key the JSON numbers, timed on the
+    sound masks at t = 0.05 of the largest k."""
+    recs = {}
+    for k in CHECKED_K:
+        g = bank_geometry(n_bank, 32, 32, 3, k, TARGET_BLOCK)
+        t0 = time.perf_counter()
+        cb = build_clustered_bank(images_dev[: g.cs], k, TARGET_BLOCK)
+        torch.cuda.synchronize()
+        p, ctr, pn = cb.bank[0], cb.centers[0], cb.pn[0]
+        w_img = torch.full((g.cs,), 1.0 / (MODULE_BATCH * g.per_img), device="cuda")
+        w_img[-max(1, g.cs // 8):] = 0.0  # zero-weight rows, as chunk padding has
+        w = tels._row_weights(cb, w_img, 0, g.per_img)
+        M, P, c = SEEDS * 32 * 32, p.shape[0], 3
+        print(f"[prune] k={k}: one chunk of P={P} rows ({g.cs} images) clustered "
+              f"(4096 k-means centers) in {time.perf_counter() - t0:.2f} s", flush=True)
+        imgs = images_dev[: g.cs]
+        for t in PRUNE_T:
+            beta = cosine_noise_schedule(t)
+            at, bt = torch.sqrt(1.0 - beta), torch.sqrt(beta)
+            x = at.item() * imgs[:SEEDS] + bt.item() * torch.randn(
+                imgs[:SEEDS].shape, generator=gen, device="cuda")
+            xq = extract_patches(pad_image(x, k // 2, "circular"), k).reshape(M, g.d)
+            qn = (xq * xq).sum(-1)
+            t1 = time.perf_counter()
+            mask = tels.sweep_masks(cb, w_img, xq, qn, at, bt, per_img=g.per_img)[0]
+            torch.cuda.synchronize()
+            mask_ms = (time.perf_counter() - t1) * 1e3
+            skip = mask.float().mean().item()
+            print(f"[prune] k={k} t={t}: sound mask {tuple(mask.shape)}, {skip:.2%} "
+                  f"skipped, built in {mask_ms:.1f} ms", flush=True)
+            for key, kw in prune_variants(k):
+                vals = None if kw.get("v_strategy") == "inbank" else ctr
+                args = (xq, qn, p, pn, vals, w, at, bt)
+                rec = recs.setdefault(key, {"max_abs_err": 0.0})
+                want = check_masked("prune", key, k, t, f"sound mask ({skip:.2%} skipped)",
+                                    args, empty_state(M, c), mask, kw, rec)
+                if t == 0.5:
+                    st = tuple(s_.clone() for s_ in want)
+                    st[0][::7], st[1][::7], st[2][::7] = fs.NEG_INF, 0.0, 0.0
+                    fmask, rows = forced_mask(M, P)
+                    got, k_in, k_out = kernel_state_io(*args, st, prune_mask=fmask, **kw)
+                    want_f = fs.flash_score_update_plain(*args, st, prune_mask=fmask, **kw)
+                    torch.cuda.synchronize()
+                    check_cases("prune", key, k, t, {
+                        f"forced mask ({fmask.float().mean().item():.2%} skipped), "
+                        "carried state with sentinel rows": (got, want_f)}, rec)
+                    same = all(torch.equal(a[rows], b[rows]) for a, b in zip(k_in, k_out))
+                    print(f"[prune] {key} k={k}: the kernel's state of the {rows.numel()} "
+                          f"all-skipped query rows bit-equal to its input: {same}", flush=True)
+                    if not same:
+                        fail(f"{key} changed the state of all-skipped query blocks at k={k}")
+                if t == PRUNE_T[0]:
+                    time_masked("prune", key, k, "sound mask", args, M, P, g.d, mask, kw,
+                                rec)
+        del cb, p, ctr, pn
+    return recs
+
+
+def phase_prune_stress(recs, M=8192, P=65536):
+    """The clustered stress problem: 8 tight clusters of P / 8 bank rows in
+    order, queries near one cluster per 256 rows, M = 8192, P = 65536,
+    d = 27, uniform weights, at a_t = 0.99, b_t = 0.08. Its mask must skip
+    more than half; each kernel with it against the plain version (1e-3)
+    and the unmasked kernel (1e-5); ms masked against unmasked."""
+    d, c = 27, 3
+    rng = np.random.RandomState(0)
+    means = rng.normal(0, 2.0, (8, d))
+    bank = means[np.repeat(np.arange(8), P // 8)] + rng.normal(0, 0.2, (P, d))
+    q = means[np.repeat(rng.randint(0, 8, M // 256), 256)] + rng.normal(0, 0.1, (M, d))
+    bank, q = (torch.from_numpy(a.astype(np.float32)).cuda() for a in (bank, q))
+    qn, pn = (q * q).sum(-1), (bank * bank).sum(-1)
+    w = torch.full((P,), 1.0 / P, device="cuda")
+    at, bt = STRESS_AT_BT
+    stats = pr.block_stats(bank[None], torch.ones((1, P), dtype=torch.bool, device="cuda"))
+    mask = pr.prune_masks(q, qn, at, bt, stats, *pr.logw_block_stats(w[None]))
+    skip = mask.float().mean().item()
+    print(f"[prune] stress problem M={M} P={P} d={d} a_t={at} b_t={bt}: {skip:.2%} "
+          "skipped (must be above 50%)", flush=True)
+    if not skip > 0.5:
+        fail(f"the stress problem's mask skips only {skip:.2%}")
+    vals = bank[:, 12:15].contiguous()  # the k = 3 center columns, as 'inbank' reads
+    stress = {}
+    for key, kw in prune_variants(3):
+        args = (q, qn, bank, pn, None if kw.get("v_strategy") == "inbank" else vals, w,
+                at, bt)
+        rec = stress.setdefault(key, {"max_abs_err": 0.0})
+        check_masked("prune", key, "stress", f"(a_t {at}, b_t {bt})", "stress mask", args,
+                     empty_state(M, c), mask, kw, rec)
+        time_masked("prune", key, "stress", "stress mask", args, M, P, d, mask, kw, rec)
+        recs[key]["max_abs_err"] = max(recs[key]["max_abs_err"], rec["max_abs_err"])
+    return stress
+
+
+def expected_launches(precision, n_bank, per_seed=False, pruned=()):
     """Launch counts of a 20-step CIFAR10 machine over n_bank images: one
     sweep per bank chunk per step, under the key of the variant the ELS
-    rule takes at that step's k."""
+    rule takes at that step's k (with a prune mask at the k's in
+    `pruned`)."""
     want = {}
     for i in range(len(CIFAR10_SCALES) - 1, 0, -1):
         k = CIFAR10_SCALES[i]
-        key = launch_key(precision, k, per_seed)
+        key = launch_key(precision, k, per_seed, prune=k in pruned)
         nblk = bank_geometry(n_bank, 32, 32, 3, k, TARGET_BLOCK).nblk
         want[key] = want.get(key, 0) + nblk
     return want
 
 
-def phase_machine(tag, cls, precision, ds, n_bank, x, ms_by_k):
+def cached_ks(n_bank: int, prune: bool) -> set:
+    """The k's an ELS module caches under its default ledger over a 20-step
+    CIFAR10 machine: first come, first served in step order, each bank's
+    `bank_cache_nbytes` (a k that misses once misses again)."""
+    used, ks = 0, set()
+    for k in CIFAR10_SCALES[:0:-1]:
+        nbytes = bank_cache_nbytes(n_bank, 32, 32, 3, k, TARGET_BLOCK, prune)
+        if k not in ks and used + nbytes <= tels.DEFAULT_BANK_BUDGET:
+            used += nbytes
+            ks.add(k)
+    return ks
+
+
+def phase_machine(tag, cls, precision, ds, n_bank, x, ms_by_k, prune=False,
+                  before=None, after=None):
     """One 20-step machine call at full width from seeds x; the tier's
     kernel must carry every sweep (one launch per bank chunk per step, in
-    the variant of the step's k), no other kernel may run. Returns
-    (launches by key, wall, output)."""
+    the variant of the step's k; with `prune`, masked at the cached k's),
+    no other kernel may run. `before(module)` runs inside the wall, just
+    before the machine call, and returns the device peak it saw;
+    `after(module)` runs before the module is dropped. Returns (launches by
+    key, wall, output)."""
     if n_bank < FULL_N:
         print(f"[{tag}] reduced: {n_bank} of {FULL_N} bank images (depth cut; "
               "widths, scales and seeds as published)", flush=True)
     mod = cls((ds.images[:n_bank], ds.labels[:n_bank]), batch_size=MODULE_BATCH,
-              target_block=TARGET_BLOCK, precision=precision, device="cuda")
+              target_block=TARGET_BLOCK, precision=precision, device="cuda",
+              **({"prune": True} if prune else {}))
     machine = ScheduledScoreMachine(mod, in_channels=3, imsize=32,
                                     scales=CIFAR10_SCALES)
     steps = range(len(CIFAR10_SCALES) - 1, 0, -1)
-    expected = expected_launches(precision, n_bank)
+    pruned = cached_ks(n_bank, True) if prune else set()
+    expected = expected_launches(precision, n_bank, pruned=pruned)
     kernel_s = sum(
         bank_geometry(n_bank, 32, 32, 3, CIFAR10_SCALES[i], TARGET_BLOCK).nblk
         * ms_by_k[CIFAR10_SCALES[i]] for i in steps) / 1e3
@@ -716,29 +957,119 @@ def phase_machine(tag, cls, precision, ds, n_bank, x, ms_by_k):
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
+    peak = before(mod) if before is not None else 0
     out = machine(x)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(fs.flash_score_update.launches)
     banked = sorted(mod._bank_cache)
     streamed = sorted(set(CIFAR10_SCALES[1:]) - set(banked))
-    print(f"[{tag}] {cls.__name__} precision={precision!r}: {len(steps)} steps, "
-          f"N={n_bank}, b={SEEDS}: wall {wall:.2f} s (bank builds included), "
-          f"{SEEDS / wall:.4f} images/s, peak memory "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    print(f"[{tag}] {cls.__name__} precision={precision!r}{', prune' if prune else ''}: "
+          f"{len(steps)} steps, N={n_bank}, b={SEEDS}: wall {wall:.2f} s (bank builds "
+          f"included), {SEEDS / wall:.4f} images/s, peak memory {peak / 1e9:.2f} GB",
+          flush=True)
     ran = {key: n for key, n in launches.items() if n}
     print(f"[{tag}] banked k={banked} streamed k={streamed}; launches {ran} "
           f"(expected: the sum of chunks over the steps, {expected})", flush=True)
     print(f"[{tag}] kernel time at the phase-3 per-launch times: {kernel_s:.2f} s "
           f"({100 * kernel_s / wall:.1f}% of the wall); the rest (bbELS: the border "
           f"regions; bank builds, glue) {wall - kernel_s:.2f} s", flush=True)
+    if prune and set(banked) != pruned:
+        fail(f"{tag}: cached k={banked}, the ledger's rule gives {sorted(pruned)}")
     if ran != expected:
         fail(f"{tag}: launches {ran}, expected {expected}")
     if out.shape != x.shape or not torch.isfinite(out).all():
         fail(f"{tag}: output is not a finite [8, 32, 32, 3] tensor")
+    if after is not None:
+        after(mod)
     del mod, machine
     torch.cuda.empty_cache()
     return ran, wall, out
+
+
+class MaskSpy:
+    """Within `with`, records each `els.sweep_masks` call: (d, ms with a
+    device synchronisation at each end, skip fraction)."""
+
+    def __enter__(self):
+        self.calls, self.inner = [], tels.sweep_masks
+
+        def spy(bank, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            masks = self.inner(bank, *a, **kw)
+            torch.cuda.synchronize()
+            self.calls.append((bank.bank.shape[-1], (time.perf_counter() - t0) * 1e3,
+                               masks.float().mean().item()))
+            return masks
+
+        tels.sweep_masks = spy
+        return self
+
+    def __exit__(self, *exc):
+        tels.sweep_masks = self.inner
+
+
+def phase_els_prune(ds, n_bank, x, ms_by_k, main_out, main_wall):
+    """The pruned ELS 'highest' machine (machine phase els_prune): launch
+    counts, the clustered builds' parts and peak memory, each step's skip
+    fraction and mask ms, the distance to main's output; gate: one k = 3,
+    t = 0.05 call against the same clustered bank unmasked at 1e-5.
+    Returns (launches by key, wall)."""
+    card = torch.cuda.get_device_properties(0).total_memory
+    builds = []  # (k, the parts' seconds, bytes held before, peak during)
+    machine_masks = []  # the machine's mask builds (the gate's come after)
+
+    def build_banks(mod):
+        """The machine's bank builds ahead of its call, in its step order
+        (the ledger's first come, first served, so the same k's are cached),
+        each with its own peak; returns the device peak over them."""
+        peak = 0
+        for k in dict.fromkeys(CIFAR10_SCALES[:0:-1]):
+            torch.cuda.synchronize()
+            peak = max(peak, torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            bank = mod._bank(k)
+            torch.cuda.synchronize()
+            if bank is not None:
+                builds.append((k, bank.build_seconds, held,
+                               torch.cuda.max_memory_allocated()))
+        return peak
+
+    def one_call(mod):
+        machine_masks.extend(masks.calls)
+        masked = mod(0.05, x, k=3)
+        mod.prune = False  # the same cached clustered bank, swept unmasked
+        unmasked = mod(0.05, x, k=3)
+        e = rel(masked, unmasked)
+        print(f"[els_prune] one call at k=3 t=0.05 against the same clustered bank "
+              f"swept without masks: rel {e:.2e} (tol 1e-05)", flush=True)
+        if not e <= 1e-5:
+            fail("the pruned k = 3 call differs from the unmasked one")
+
+    with MaskSpy() as masks:
+        ran, wall, out = phase_machine("els_prune", LocalEquivScoreModule, "highest", ds,
+                                       n_bank, x, ms_by_k, prune=True, before=build_banks,
+                                       after=one_call)
+    for k, times, held, peak in builds:
+        bank = bank_cache_nbytes(n_bank, 32, 32, 3, k, TARGET_BLOCK, True)
+        print(f"[els_prune] clustered build k={k}: " + ", ".join(
+            f"{part} {s:.2f} s" for part, s in times.items())
+            + f"; peak {peak / 1e9:.2f} GB of the card's {card / 1e9:.2f} GB, "
+            f"{(peak - held) / 1e9:.2f} GB above the {held / 1e9:.2f} GB held "
+            f"before ({(peak - held) / bank:.3f}x the clustered bank's "
+            f"{bank / 1e9:.2f} GB)", flush=True)
+        if not (peak < card and peak - held < bank + BUILD_TRANSIENT):
+            fail(f"the clustered k = {k} build peaked at {peak / 1e9:.2f} GB")
+    for step, (d, ms, frac) in enumerate(machine_masks):
+        print(f"[els_prune] masked sweep {step}: k={round((d / 3) ** 0.5)}, "
+              f"{frac:.4%} of the cells skipped, masks built in {ms:.1f} ms", flush=True)
+    print(f"[els_prune] wall {wall / main_wall:.3f}x main's; output vs main's from the "
+          f"same seeds (information: the clustered order changes the fp32 summation "
+          f"order) rel {rel(out, main_out):.2e}", flush=True)
+    return ran, wall
 
 
 def phase_mxu1_path(ds, n_bank, gen):
@@ -964,6 +1295,73 @@ def phase_devices(seed):
             fail(f"card and CPU disagree on the small {what} machine")
 
 
+def prototype_set(seed, n=64, protos=4, size=16, noise=0.01):
+    """n images in `protos` runs of one flat colour each (distinct corners
+    of the colour cube at +-0.8) plus small noise, labelled by colour: the
+    clustered bank's stats blocks hold one colour each, so the masks skip
+    at the last, low-noise steps (on the synthetic textures they do not)."""
+    rs = np.random.RandomState(seed)
+    corners = np.array(list(itertools.product([-0.8, 0.8], repeat=3)), np.float32)
+    colour = corners[rs.permutation(8)[:protos]].reshape(protos, 1, 1, 3)
+    idx = np.arange(n) * protos // n
+    imgs = colour[idx] + noise * rs.normal(size=(n, size, size, 3))
+    return imgs.astype(np.float32), idx.astype(np.int32)
+
+
+def phase_devices_prune(seed):
+    """ELS prune=True 10-step machines at 'highest' and 'high' over
+    prototype images, card against CPU at TOL, each with a skip fraction
+    above 0 on both devices; then one label-vector call on the clustered
+    bank (per-seed weights, K5, unmasked). Returns the card's launches."""
+    imgs, labels = prototype_set(seed)
+    x = np.random.RandomState(seed).normal(size=(2, 16, 16, 3)).astype(np.float32)
+    scales = [3, 3, 3, 3, 5, 5, 5, 7, 7, 9]
+    vec = np.array([1, 3])
+    launches = {}
+    for precision in ("highest", "high"):
+        outs, mods, fracs = {}, {}, {}
+        for dev in ("cuda", "cpu"):
+            mods[dev] = LocalEquivScoreModule((imgs, labels), batch_size=16,
+                                              precision=precision, device=dev, prune=True)
+            if dev == "cuda":
+                reset_launches()
+            with MaskSpy() as masks:
+                outs[dev] = ScheduledScoreMachine(mods[dev], imsize=16, scales=scales)(x).cpu()
+            if dev == "cuda":
+                for key, n in fs.flash_score_update.launches.items():
+                    launches[key] = launches.get(key, 0) + n
+            fracs[dev] = np.mean([f for _, _, f in masks.calls])
+        e = rel(outs["cuda"], outs["cpu"])
+        print(f"[devices] ELS {precision!r} prune=True 10-step machine, scales {scales}, "
+              f"prototype images N=64 16x16x3, b=2: cuda vs cpu rel {e:.2e} (tol {TOL:g}); "
+              f"mean skip fraction cuda {fracs['cuda']:.2%}, cpu {fracs['cpu']:.2%}",
+              flush=True)
+        if not e <= TOL:
+            fail(f"card and CPU disagree on the small pruned {precision!r} machine")
+        if not (fracs["cuda"] > 0 and fracs["cpu"] > 0):
+            fail(f"the small pruned {precision!r} machine's masks skip nothing")
+        if precision != "highest":
+            continue
+        vouts = {}
+        for dev in ("cuda", "cpu"):
+            xv = torch.from_numpy(x).to(dev)
+            before = dict(fs.flash_score_update.launches)
+            vouts[dev] = mods[dev](0.05, xv, k=3, label=vec).cpu()
+            ran = {key: n - before[key] for key, n in fs.flash_score_update.launches.items()
+                   if n != before[key]}
+            if dev == "cuda":
+                if ran != {"flash_score" + fs.PER_SEED: 1}:
+                    fail(f"the label-vector call on the clustered bank launched {ran}")
+                launches["flash_score" + fs.PER_SEED] += 1
+        e = rel(vouts["cuda"], vouts["cpu"])
+        print(f"[devices] ELS 'highest' prune=True, label vector {vec.tolist()} at k=3 "
+              f"t=0.05 on the clustered bank (K5, unmasked): cuda vs cpu rel {e:.2e} "
+              f"(tol {TOL:g})", flush=True)
+        if not e <= TOL:
+            fail("card and CPU disagree on the label-vector call on the clustered bank")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=FULL_N, help="bank images (depth)")
@@ -983,6 +1381,16 @@ def main(argv=None) -> int:
     phase_mxu1_kernel(images_dev, args.n, gen, recs)
     recs.update(phase_kernel_per_seed(
         images_dev, torch.from_numpy(ds.labels.astype(np.int64)).cuda(), args.n, gen))
+    print(f"[time] {time.perf_counter() - t_start:.1f} s so far", flush=True)
+    prune_recs = phase_prune_kernel(images_dev, args.n, gen)
+    phase_prune_stress(prune_recs)
+    for key, rec in prune_recs.items():
+        if key.startswith(FAST):  # checked, but on no path: not in the kernels line
+            print(f"[prune] {key} (no path launches it: the ELS module masks only "
+                  f"'highest' and 'high'): worst max abs error {rec['max_abs_err']:.3e}, "
+                  f"{rec['ms']:.3f} ms at k={rec['k']}", flush=True)
+        else:
+            recs[key] = rec
     del images_dev
     torch.cuda.empty_cache()
     print("[exact] worst rel of each variant against the exact split sum, over the "
@@ -1008,6 +1416,11 @@ def main(argv=None) -> int:
                                                    times)
         add(ran)
         print(f"[time] {time.perf_counter() - t_start:.1f} s so far", flush=True)
+        if tag == "main":
+            ran, walls["els_prune"] = phase_els_prune(ds, args.n, x, times, outs["main"],
+                                                      walls["main"])
+            add(ran)
+            print(f"[time] {time.perf_counter() - t_start:.1f} s so far", flush=True)
     for fast, high in (("els_default", "els_high"), ("bbels_default", "bbels")):
         print(f"[{fast}] the tier's cost in accuracy (information): output vs {high}'s "
               f"from the same seeds, rel {rel(outs[fast], outs[high]):.2e}; wall "
@@ -1022,6 +1435,7 @@ def main(argv=None) -> int:
     add(phase_cli())
     print(f"[time] {time.perf_counter() - t_start:.1f} s so far", flush=True)
     phase_devices(args.seed)
+    add(phase_devices_prune(args.seed))
     print(f"[time] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     never = [key for key in recs if not path.get(key)]
     if never:

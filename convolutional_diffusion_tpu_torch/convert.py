@@ -1,8 +1,8 @@
 """Carrying state across from the JAX package.
 
 Counterpart of `convolutional_diffusion_tpu/convert.py` (and of the scales
-loader in its `cli/els.py`). Ported so far: the cached patch banks and the
-calibrated scales files (`.json`, `.npy`, `.pt`); model pickles come with
+loader in its `cli/els.py`). Ported so far: the cached patch banks (plain
+and clustered) and the calibrated scales files (`.json`, `.npy`, `.pt`); model pickles come with
 the models slice. Everything crosses as numpy arrays.
 """
 
@@ -14,7 +14,8 @@ import pickle
 import numpy as np
 import torch
 
-from .scores.bank import Bank, BankGeometry
+from .ops.prune import BankBlockStats
+from .scores.bank import Bank, BankGeometry, ClusteredBank
 from .scores.base import resolve_device
 
 
@@ -39,6 +40,34 @@ def bank_from_jax_numpy(bank, centers, pn, geometry: BankGeometry, device=None) 
         torch.from_numpy(centers.reshape(g.nblk, g.block, c)).to(dev),
         torch.from_numpy(pn).to(dev),
     )
+
+
+def clustered_bank_from_jax_numpy(bank, centers, pn, img_idx, centroids, radii,
+                                  valid, geometry: BankGeometry,
+                                  device=None) -> ClusteredBank:
+    """The JAX package's `ClusteredBank` as numpy (bank [nblk, B*d], centers
+    [nblk, B*c], pn and img_idx [nblk, B], and its stats flattened over
+    (chunk, block): centroids [J, d], radii [J], valid [J]) -> this
+    package's ClusteredBank on `device` (default cuda): the same rows in the
+    same order, whatever k-means did with ties."""
+    g = geometry
+    plain = bank_from_jax_numpy(bank, centers, pn, g, device=device)
+    dev = plain.bank.device
+    img_idx = np.asarray(img_idx, np.int32)
+    centroids = np.asarray(centroids, np.float32)
+    J = centroids.shape[0]
+    if img_idx.shape != (g.nblk, g.block) or centroids.shape != (J, g.d) \
+            or np.shape(radii) != (J,) or np.shape(valid) != (J,):
+        raise ValueError(
+            f"img_idx {img_idx.shape} / stats {centroids.shape} do not match "
+            f"geometry {g}"
+        )
+    stats = BankBlockStats(
+        torch.from_numpy(centroids).to(dev),
+        torch.from_numpy(np.asarray(radii, np.float32)).to(dev),
+        torch.from_numpy(np.asarray(valid, bool)).to(dev),
+    )
+    return ClusteredBank(*plain, torch.from_numpy(img_idx).to(dev), stats)
 
 
 def load_pt(path: str):

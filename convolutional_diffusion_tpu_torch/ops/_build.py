@@ -28,26 +28,35 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 # tile; `flash_score.FAST_TILE` is this value, so the plain version follows.
 SPLIT_TILE = 128
 
+# The prune mask's cell (variant K6, `ops.prune`): PRUNE_ROWS query rows by
+# PRUNE_BLOCK bank rows, one int32 skip flag each. Every kernel's query
+# block and bank tile nest in it (static_asserts in the sources); the plain
+# version and the mask builders read the same values.
+PRUNE_ROWS = 64
+PRUNE_BLOCK = 2048
+
 # No --use_fast_math: the flash-score dots' fp32 sums and exp2f must stay
 # full fp32.
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-    f"-DSPLIT_TILE={SPLIT_TILE}",
+    f"-DSPLIT_TILE={SPLIT_TILE}", f"-DPRUNE_ROWS={PRUNE_ROWS}",
+    f"-DPRUNE_BLOCK={PRUNE_BLOCK}",
 ]
 
 _P = ctypes.c_void_p
 # (q, bias, bank, values, dotscale, m_in, s1_in, s2_in, m_out, s1_out,
-#  s2_out, M, rows_per_seed, P, d, c, device, stream): the flash-score
-# kernels' C interface; bias is [M / rows_per_seed, P] (1-D weights:
-# rows_per_seed = M)
+#  s2_out, M, rows_per_seed, P, d, c, mask, mask_stride, device, stream):
+# the flash-score kernels' C interface; bias is [M / rows_per_seed, P]
+# (1-D weights: rows_per_seed = M); mask is null or the int32 skip mask
+# [ceil(M / PRUNE_ROWS), mask_stride] of 1-D weights (K6)
 _FLASH_ARGS = [
     _P, _P, _P, _P, ctypes.c_float, _P, _P, _P, _P, _P, _P,
     ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, _P,
+    ctypes.c_int, _P, ctypes.c_longlong, ctypes.c_int, _P,
 ]
-# the 'default' kernel adds (strategy, col0) after c
-_FAST_ARGS = _FLASH_ARGS[:16] + [ctypes.c_int, ctypes.c_int] + _FLASH_ARGS[16:]
+# the 'default' kernel adds (strategy, col0) after mask_stride
+_FAST_ARGS = _FLASH_ARGS[:18] + [ctypes.c_int, ctypes.c_int] + _FLASH_ARGS[18:]
 
 # name -> (source, C symbol, argtypes)
 KERNELS = {

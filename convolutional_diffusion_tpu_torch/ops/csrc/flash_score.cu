@@ -3,10 +3,11 @@
 //
 // Replaces the TPU kernel convolutional_diffusion_tpu/ops/flash_score.py
 // `_kernel` / `_kernel_body` (the one `pl.pallas_call` of that package) in
-// its precision='highest', v_strategy='vpu', no-prune variant, with 1-D
-// weights (variant K1) or per-seed weights (variant K5: the JAX wrapper's
-// vmap of the kernel over seeds, `flash_score_update` with 2-D w and
-// rows_per_seed).
+// its precision='highest', v_strategy='vpu' variant, with 1-D weights
+// (variant K1) or per-seed weights (variant K5: the JAX wrapper's vmap of
+// the kernel over seeds, `flash_score_update` with 2-D w and
+// rows_per_seed), and with 1-D weights the prune skip bit (variant K6:
+// `_kernel`'s `prune` branch, one skip flag per query block and bank block).
 //
 // What it computes, for queries q [M, d] against one bank chunk K [P, d] with
 // per-patch bias [P] and values V [P, C], carrying an online-softmax state
@@ -50,9 +51,22 @@
 // across the 16 threads once, at exit. The carried state is read at entry
 // and written once at exit. Offsets formed from row indices are 64-bit.
 // Built without fast-math: exp2f and the dot stay full fp32.
+//
+// Prune mask (K6): with a mask (the PRUNE instantiation; without one the
+// loop walks every tile as before, prune_tiles.cuh), block x reads row
+// x * BQ / PRUNE_ROWS of the int32 mask [ceil(M / PRUNE_ROWS), mask_stride],
+// one flag per PRUNE_BLOCK bank rows (ops/prune.py builds it), and walks only
+// the tiles whose flag is 0: the first load targets the first such tile,
+// each prefetch the next one.
+// A skipped tile leaves the state as its logits at -1e30 would (m does not
+// move, every exp2 is 0), so the plain version masks logits instead. A block
+// with every tile skipped writes its carried state through unchanged. All
+// threads of a block read the same flags: no divergence.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "prune_tiles.cuh"
 
 namespace {
 
@@ -68,14 +82,15 @@ constexpr int QL = BQ * BK / NT;  // query elements each thread stages
 constexpr int KL = BP * BK / NT;  // bank elements each thread stages
 constexpr float NEG_INF = -1e30f;
 
-template <int C>
+template <int C, bool PRUNE>
 __global__ void __launch_bounds__(NT) flash_score_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ bias,
     const float* __restrict__ bank, const float* __restrict__ values,
     float dotscale, const float* __restrict__ m_in,
     const float* __restrict__ s1_in, const float* __restrict__ s2_in,
     float* __restrict__ m_out, float* __restrict__ s1_out,
-    float* __restrict__ s2_out, int64_t rps, int64_t P, int d) {
+    float* __restrict__ s2_out, int64_t rps, int64_t P, int d,
+    const int* __restrict__ mask, int64_t mask_stride) {
   constexpr int VL = (BP * C + NT - 1) / NT;  // value elements each thread stages
 
   __shared__ __align__(16) float As[BK][AS];
@@ -109,7 +124,8 @@ __global__ void __launch_bounds__(NT) flash_score_f32_kernel(
   }
 
   const int nk = (d + BK - 1) / BK;
-  const int64_t n_it = ((P + BP - 1) / BP) * nk;
+  // the live bank tiles (all of them without a mask), K6
+  const cdt_prune::TileWalk<BQ, BP, PRUNE> tiles(mask, mask_stride, blockIdx.x, P);
 
   float rq[QL], rk[KL], rb = NEG_INF, rv[VL];
 
@@ -168,18 +184,23 @@ __global__ void __launch_bounds__(NT) flash_score_f32_kernel(
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
-  if (n_it > 0) {
-    load(0, 0);
+  // stages (pt, kt) over the live tiles pt, kt = 0 .. nk-1; stage (first
+  // live tile, 0) is loaded before the loop, each next stage's loads are
+  // issued before the current stage's FFMAs. Without PRUNE every tile is
+  // live and the loop counts its n_it stages, as it did before the mask.
+  const int64_t n_it = tiles.n_pt * nk;
+  int64_t pt = tiles.live(0);
+  if (PRUNE ? pt < tiles.n_pt : n_it > 0) {
+    load(pt, 0);
     store(0);
   }
   __syncthreads();
 
   int kt = 0;
-  int64_t pt = 0;
-  for (int64_t it = 0; it < n_it; ++it) {
-    const bool has_next = it + 1 < n_it;
+  for (int64_t it = 0; PRUNE ? pt < tiles.n_pt : it < n_it; ++it) {
     const int kt_next = (kt + 1 == nk) ? 0 : kt + 1;
-    const int64_t pt_next = (kt + 1 == nk) ? pt + 1 : pt;
+    const int64_t pt_next = (kt + 1 == nk) ? tiles.live(pt + 1) : pt;
+    const bool has_next = PRUNE ? pt_next < tiles.n_pt : it + 1 < n_it;
     if (has_next) load(pt_next, kt_next);
 
 #pragma unroll
@@ -264,40 +285,48 @@ void launch(const void* q, const void* bias, const void* bank,
             const void* values, float dotscale, const void* m_in,
             const void* s1_in, const void* s2_in, void* m_out, void* s1_out,
             void* s2_out, int64_t M, int64_t rps, int64_t P, int d,
-            cudaStream_t stream) {
+            const int* mask, int64_t mask_stride, cudaStream_t stream) {
   const dim3 grid((unsigned)((rps + BQ - 1) / BQ), (unsigned)(M / rps));
-  flash_score_f32_kernel<C><<<grid, NT, 0, stream>>>(
+  auto kernel = mask != nullptr ? flash_score_f32_kernel<C, true>
+                                : flash_score_f32_kernel<C, false>;
+  kernel<<<grid, NT, 0, stream>>>(
       (const float*)q, (const float*)bias, (const float*)bank,
       (const float*)values, dotscale, (const float*)m_in,
       (const float*)s1_in, (const float*)s2_in, (float*)m_out,
-      (float*)s1_out, (float*)s2_out, rps, P, d);
+      (float*)s1_out, (float*)s2_out, rps, P, d, mask, mask_stride);
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes). Launches on `stream` and does not
 // synchronise; returns cudaGetLastError() after the launch (0 = launched).
-// bias is [M / rows_per_seed, P]; rows_per_seed = M for 1-D weights.
+// bias is [M / rows_per_seed, P]; rows_per_seed = M for 1-D weights. mask is
+// null or, with 1-D weights only, the int32 skip mask
+// [ceil(M / PRUNE_ROWS), mask_stride] (K6, see the top).
 extern "C" int flash_score_f32(const void* q, const void* bias,
                                const void* bank, const void* values,
                                float dotscale, const void* m_in,
                                const void* s1_in, const void* s2_in,
                                void* m_out, void* s1_out, void* s2_out,
                                long long M, long long rows_per_seed,
-                               long long P, int d, int c, int device,
+                               long long P, int d, int c, const void* mask,
+                               long long mask_stride, int device,
                                void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (M <= 0) return (int)cudaSuccess;
   if (rows_per_seed <= 0 || M % rows_per_seed != 0 ||
-      M / rows_per_seed > 65535)
+      M / rows_per_seed > 65535 ||
+      (mask != nullptr &&
+       (rows_per_seed != M || mask_stride < (P + PRUNE_BLOCK - 1) / PRUNE_BLOCK)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (c) {
 #define CDT_CASE(CC)                                                        \
   case CC:                                                                  \
     launch<CC>(q, bias, bank, values, dotscale, m_in, s1_in, s2_in, m_out, \
-               s1_out, s2_out, M, rows_per_seed, P, d, s);                  \
+               s1_out, s2_out, M, rows_per_seed, P, d, (const int*)mask,   \
+               mask_stride, s);                                             \
     break;
     CDT_CASE(1)
     CDT_CASE(2)

@@ -6,8 +6,9 @@
 // `_kernel` / `_kernel_body` (the one `pl.pallas_call` of that package) in
 // its precision='high' variant: the manual bf16x3 QK dot (`_kernel_body`,
 // the `precision != HIGHEST` branch), fp32 exp2 (fast_exp off),
-// v_strategy='vpu', no prune, with 1-D weights (variant K2) or per-seed
-// weights (variant K5 at this tier: 2-D w with rows_per_seed).
+// v_strategy='vpu', with 1-D weights (variant K2) or per-seed weights
+// (variant K5 at this tier: 2-D w with rows_per_seed), and with 1-D weights
+// the prune skip bit (variant K6, flash_score_split.cuh).
 //
 // What it computes is what the fp32 kernel (flash_score.cu) computes, with
 // the same arguments, bias row, -1e30 sentinel and `m_new <= NEG_INF/2`
@@ -70,16 +71,19 @@
 
 // Plain C entry point (bound with ctypes). Launches on `stream` and does not
 // synchronise; returns cudaGetLastError() after the launch (0 = launched).
-// bias is [M / rows_per_seed, P]; rows_per_seed = M for 1-D weights.
+// bias is [M / rows_per_seed, P]; rows_per_seed = M for 1-D weights. mask is
+// null or the K6 skip mask of 1-D weights (flash_score_split.cuh).
 extern "C" int flash_score_bf16x3(const void* q, const void* bias,
                                   const void* bank, const void* values,
                                   float dotscale, const void* m_in,
                                   const void* s1_in, const void* s2_in,
                                   void* m_out, void* s1_out, void* s2_out,
                                   long long M, long long rows_per_seed,
-                                  long long P, int d, int c, int device,
+                                  long long P, int d, int c, const void* mask,
+                                  long long mask_stride, int device,
                                   void* stream) {
   return cdt_split::launch_checked<cdt_split::HIGH>(
       q, bias, bank, values, dotscale, m_in, s1_in, s2_in, m_out, s1_out,
-      s2_out, M, rows_per_seed, P, d, c, -1, device, stream);
+      s2_out, M, rows_per_seed, P, d, c, mask, mask_stride, -1, device,
+      stream);
 }

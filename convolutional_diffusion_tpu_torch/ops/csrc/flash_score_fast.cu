@@ -9,7 +9,8 @@
 // 'mxu1' (one bf16 product e @ [V | 1] giving s2 and s1, K3) and 'inbank'
 // (the same product against the bank's own center columns, no values
 // operand, K4), with 1-D weights or per-seed weights (2-D w with
-// rows_per_seed, variant K5).
+// rows_per_seed, variant K5), and with 1-D weights the prune skip bit
+// (variant K6, flash_score_split.cuh).
 //
 // The dot, the online softmax, the -1e30 sentinel and `m_new <= NEG_INF/2`
 // guards and the (query block, seed) grid are the 'high' kernel's, shared
@@ -42,27 +43,29 @@
 // 2 'inbank' (values may be null; V = bank[:, col0 : col0 + c]). Launches on
 // `stream` and does not synchronise; returns cudaGetLastError() after the
 // launch (0 = launched). bias is [M / rows_per_seed, P]; rows_per_seed = M
-// for 1-D weights.
+// for 1-D weights. mask is null or the K6 skip mask of 1-D weights
+// (flash_score_split.cuh).
 extern "C" int flash_score_fast(const void* q, const void* bias,
                                 const void* bank, const void* values,
                                 float dotscale, const void* m_in,
                                 const void* s1_in, const void* s2_in,
                                 void* m_out, void* s1_out, void* s2_out,
                                 long long M, long long rows_per_seed,
-                                long long P, int d, int c, int strategy,
+                                long long P, int d, int c, const void* mask,
+                                long long mask_stride, int strategy,
                                 int col0, int device, void* stream) {
   using namespace cdt_split;
   if (strategy == 0)
     return launch_checked<FAST_VPU>(q, bias, bank, values, dotscale, m_in,
                                     s1_in, s2_in, m_out, s1_out, s2_out, M,
-                                    rows_per_seed, P, d, c, -1, device,
-                                    stream);
+                                    rows_per_seed, P, d, c, mask, mask_stride,
+                                    -1, device, stream);
   if (strategy == 1 || strategy == 2) {
     if (strategy == 2 && (col0 < 0 || col0 + c > d))
       return (int)cudaErrorInvalidValue;
     return launch_checked<FAST_MMA>(q, bias, bank, values, dotscale, m_in,
                                     s1_in, s2_in, m_out, s1_out, s2_out, M,
-                                    rows_per_seed, P, d, c,
+                                    rows_per_seed, P, d, c, mask, mask_stride,
                                     strategy == 2 ? col0 : -1, device,
                                     stream);
   }

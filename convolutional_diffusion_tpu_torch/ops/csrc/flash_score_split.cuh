@@ -17,6 +17,16 @@
 // s's rows x * BQ .. up to the seed's end and stages bias row s; 1-D
 // weights are S = 1, rows_per_seed = M.
 //
+// Prune mask (variant K6, 1-D weights only; the PRUNE instantiation, so an
+// unmasked launch walks every tile as before): the block's mask row
+// (prune_tiles.cuh) decides which bank tiles it walks. The first stage
+// loaded before the loop is the first live tile's, each prefetch targets the
+// next live tile, and a block with no live tile writes its carried state
+// through unchanged. A skipped tile is not a tile: the 'default' modes
+// re-base m only on the tiles they visit, which is what the plain version's
+// -1e30 logits on the skipped cells give (m does not move there and every
+// exponential is 0).
+//
 // Epilogue modes:
 //  HIGH      fp32 exp2 of the logit, fp32 per-channel sums of e * v (K2);
 //  FAST_VPU  e = bf16(expf(bf16(bf16(x) * bf16(ln 2)))), x = logit - m:
@@ -42,6 +52,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "prune_tiles.cuh"
 
 namespace cdt_split {
 
@@ -115,14 +127,15 @@ __device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-template <int C, int MODE>
+template <int C, int MODE, bool PRUNE>
 __global__ void __launch_bounds__(NT, 1) split_sweep_kernel(
     const float* __restrict__ q, const float* __restrict__ bias,
     const float* __restrict__ bank, const float* __restrict__ values,
     float dotscale, const float* __restrict__ m_in,
     const float* __restrict__ s1_in, const float* __restrict__ s2_in,
     float* __restrict__ m_out, float* __restrict__ s1_out,
-    float* __restrict__ s2_out, int64_t rps, int64_t P, int d, int col0) {
+    float* __restrict__ s2_out, int64_t rps, int64_t P, int d, int col0,
+    const int* __restrict__ mask, int64_t mask_stride) {
   constexpr int VL = (BP * C + NT - 1) / NT;  // value elements each thread stages
   constexpr int NV = (C + 8) / 8;  // n8 tiles of [V | 1] (FAST_MMA)
   constexpr int VR = MODE == FAST_MMA ? NV * 8 : C;  // rows of the bf16 value tile
@@ -192,7 +205,8 @@ __global__ void __launch_bounds__(NT, 1) split_sweep_kernel(
   }
 
   const int nk = (d + BK - 1) / BK;
-  const int64_t n_it = ((P + BP - 1) / BP) * nk;
+  // the live bank tiles (all of them without a mask), K6
+  const cdt_prune::TileWalk<BQ, BP, PRUNE> tiles(mask, mask_stride, blockIdx.x, P);
 
   float rq[QP][2], rk[KP][2], rb = NEG_INF, rv[VL];
 
@@ -276,18 +290,23 @@ __global__ void __launch_bounds__(NT, 1) split_sweep_kernel(
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc_hh[j][e] = acc_x[j][e] = 0.f;
 
-  if (n_it > 0) {
-    load(0, 0);
+  // stages (pt, kt) over the live tiles pt, kt = 0 .. nk-1; stage (first
+  // live tile, 0) is loaded before the loop, each next stage's loads are
+  // issued before the current stage's mma's. Without PRUNE every tile is
+  // live and the loop counts its n_it stages, as it did before the mask.
+  const int64_t n_it = tiles.n_pt * nk;
+  int64_t pt = tiles.live(0);
+  if (PRUNE ? pt < tiles.n_pt : n_it > 0) {
+    load(pt, 0);
     store(0);
   }
   __syncthreads();
 
   int kt = 0;
-  int64_t pt = 0;
-  for (int64_t it = 0; it < n_it; ++it) {
-    const bool has_next = it + 1 < n_it;
+  for (int64_t it = 0; PRUNE ? pt < tiles.n_pt : it < n_it; ++it) {
     const int kt_next = (kt + 1 == nk) ? 0 : kt + 1;
-    const int64_t pt_next = (kt + 1 == nk) ? pt + 1 : pt;
+    const int64_t pt_next = (kt + 1 == nk) ? tiles.live(pt + 1) : pt;
+    const bool has_next = PRUNE ? pt_next < tiles.n_pt : it + 1 < n_it;
     if (has_next) load(pt_next, kt_next);
 
 #pragma unroll
@@ -515,31 +534,38 @@ void launch(const void* q, const void* bias, const void* bank,
             const void* values, float dotscale, const void* m_in,
             const void* s1_in, const void* s2_in, void* m_out, void* s1_out,
             void* s2_out, int64_t M, int64_t rps, int64_t P, int d, int col0,
-            cudaStream_t stream) {
+            const int* mask, int64_t mask_stride, cudaStream_t stream) {
   const dim3 grid((unsigned)((rps + BQ - 1) / BQ), (unsigned)(M / rps));
-  split_sweep_kernel<C, MODE><<<grid, NT, 0, stream>>>(
+  auto kernel = mask != nullptr ? split_sweep_kernel<C, MODE, true>
+                                : split_sweep_kernel<C, MODE, false>;
+  kernel<<<grid, NT, 0, stream>>>(
       (const float*)q, (const float*)bias, (const float*)bank,
       (const float*)values, dotscale, (const float*)m_in,
       (const float*)s1_in, (const float*)s2_in, (float*)m_out,
-      (float*)s1_out, (float*)s2_out, rps, P, d, col0);
+      (float*)s1_out, (float*)s2_out, rps, P, d, col0, mask, mask_stride);
 }
 
 // The checks and the channel switch of the C entry points: launches
 // launch<c, MODE> on `stream` without synchronising; returns
 // cudaGetLastError() after the launch (0 = launched). bias is
-// [M / rows_per_seed, P]; rows_per_seed = M for 1-D weights.
+// [M / rows_per_seed, P]; rows_per_seed = M for 1-D weights. mask is null
+// or, with 1-D weights only, the int32 skip mask
+// [ceil(M / PRUNE_ROWS), mask_stride] (K6).
 template <int MODE>
 int launch_checked(const void* q, const void* bias, const void* bank,
                    const void* values, float dotscale, const void* m_in,
                    const void* s1_in, const void* s2_in, void* m_out,
                    void* s1_out, void* s2_out, long long M,
                    long long rows_per_seed, long long P, int d, int c,
-                   int col0, int device, void* stream) {
+                   const void* mask, long long mask_stride, int col0,
+                   int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (M <= 0) return (int)cudaSuccess;
   if (rows_per_seed <= 0 || M % rows_per_seed != 0 ||
-      M / rows_per_seed > 65535)
+      M / rows_per_seed > 65535 ||
+      (mask != nullptr &&
+       (rows_per_seed != M || mask_stride < (P + PRUNE_BLOCK - 1) / PRUNE_BLOCK)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (c) {
@@ -547,7 +573,7 @@ int launch_checked(const void* q, const void* bias, const void* bank,
   case CC:                                                                \
     launch<CC, MODE>(q, bias, bank, values, dotscale, m_in, s1_in, s2_in, \
                      m_out, s1_out, s2_out, M, rows_per_seed, P, d, col0, \
-                     s);                                                  \
+                     (const int*)mask, mask_stride, s);                   \
     break;
     CDT_CASE(1)
     CDT_CASE(2)

@@ -37,12 +37,20 @@ with `rows_per_seed` query rows per seed (M = S * rows_per_seed, seed-major),
 as in batched conditional generation with one label per seed. The kernels
 take it on a 2-D grid of (query block, seed), so a block never mixes seeds.
 
+Prune masks (variant K6, `ops.prune`): `prune_mask` is an integer skip
+mask [ceil(M / PRUNE_ROWS), ceil(P / PRUNE_BLOCK)], one flag per 64 query
+rows and 2048 bank rows (`prune_grid`); a set flag skips that cell. With 1-D
+weights only, at every tier and value strategy, as the JAX wrapper takes
+it. The kernels walk only the live bank tiles; the plain version sets the
+skipped cells' logits to -1e30, which leaves the state as skipping does.
+
 Launch counts: each launch adds one to `flash_score_update.launches` under
 the kernel's name, then '/inbank' or '/mxu1' for those strategies, then
-'/per_seed' for 2-D weights, so a run shows which variant every chunk took.
+'/per_seed' for 2-D weights or '/prune' with a mask, so a run shows which
+variant every chunk took.
 
 Not ported yet: the 'mxu' strategy (c > 8, K4), 'inbank' at 'highest' and
-'high', `fast_exp` apart from the tier, prune masks (K6); each raises.
+'high', `fast_exp` apart from the tier; each raises.
 """
 
 from __future__ import annotations
@@ -53,6 +61,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .fp32 import true_fp32
 
 NEG_INF = float(-1e30)  # finite -inf stand-in: keeps exp2()/rescale exact at fp32
 LOG2E = 1.4426950408889634
@@ -69,8 +78,12 @@ KERNEL_OF = {"highest": "flash_score", "high": "flash_score_bf16x3",
 # suffix of its launch count
 STRATEGY_CODE = {"vpu": 0, "mxu1": 1, "inbank": 2}
 STRATEGY_SUFFIX = {"vpu": "", "mxu1": "/mxu1", "inbank": "/inbank"}
-# suffix of a kernel's launch count with per-seed weights (variant K5)
+# suffix of a kernel's launch count with per-seed weights (variant K5), and
+# with a prune mask (variant K6)
 PER_SEED = "/per_seed"
+PRUNE = "/prune"
+PRUNE_ROWS = _build.PRUNE_ROWS  # query rows per prune-mask cell
+PRUNE_BLOCK = _build.PRUNE_BLOCK  # bank rows per prune-mask cell
 
 State = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -129,6 +142,17 @@ def _strategy(precision, v_strategy, fast_exp, values, inbank_cols, d, P):
             f"got {v_strategy!r}"
         )
     return v_strategy, c
+
+
+def prune_grid(M: int, P: int) -> Tuple[int, int]:
+    """The shape of a prune mask over M query rows and P bank rows."""
+    return -(-M // PRUNE_ROWS), -(-P // PRUNE_BLOCK)
+
+
+def _mask_cells(mask: torch.Tensor, M: int, p0: int, p1: int) -> torch.Tensor:
+    """[M, p1 - p0] bool: the skipped cells of bank rows p0 .. p1 - 1."""
+    cols = torch.arange(p0, p1, device=mask.device) // PRUNE_BLOCK
+    return mask[:, cols].bool().repeat_interleave(PRUNE_ROWS, dim=0)[:M]
 
 
 def _scalar(x) -> torch.Tensor:
@@ -235,15 +259,18 @@ def _default_tiles(logits, v, m, s1, s2, strategy: str) -> State:
 
 def sweep_plain(q, bias, bank, values, dotscale: float, m, s1, s2,
                 precision: str = "highest", strategy: str = "vpu",
-                col0: int = -1) -> State:
+                col0: int = -1, prune_mask=None) -> State:
     """Plain PyTorch version of the kernels: the same base-2 online softmax
     over the same bias row, PLAIN_BLOCK bank rows at a time, on any device.
     `bias` is [P], or [S, P] with row s for the s-th of S equal blocks of
     query rows (per-seed weights, K5). With strategy 'inbank' the values are
-    the bank's columns col0 .. col0 + c (`values` is not read).
+    the bank's columns col0 .. col0 + c (`values` is not read). A prune mask
+    (K6, `prune_grid` shape) sets the logits of its skipped cells to NEG_INF:
+    there m does not move and every exponential is 0, at every tier, so the
+    state is what the kernels' skipping leaves.
 
-    'highest' takes true fp32 dots, with TF32 switched off for the call
-    (torch.backends.cuda.matmul.allow_tf32 = False, restored after).
+    'highest' takes true fp32 dots (`fp32.true_fp32`: TF32 off for the
+    call).
 
     'high' takes the TPU kernel's bf16x3 split, qh.kh + qh.kl + ql.kh, and
     repeats the CUDA kernel's arithmetic: the split dot summed step for
@@ -279,9 +306,7 @@ def sweep_plain(q, bias, bank, values, dotscale: float, m, s1, s2,
     mean."""
     high = precision != "highest"
     fast = precision == "default"
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with true_fp32():
         zero = torch.zeros((), dtype=torch.float32, device=q.device)
         if high:
             qh, ql = _split_bf16(q)
@@ -294,6 +319,10 @@ def sweep_plain(q, bias, bank, values, dotscale: float, m, s1, s2,
                                    bias[..., p0:p1].double()).float()
             else:
                 logits = _add_bias((q @ bank[p0:p1].T) * dotscale, bias[..., p0:p1])
+            if prune_mask is not None:
+                logits = logits.masked_fill(
+                    _mask_cells(prune_mask, q.shape[0], p0, p0 + logits.shape[1]),
+                    NEG_INF)
             v = (bank[p0:p1, col0 : col0 + s2.shape[1]] if strategy == "inbank"
                  else values[p0:p1])
             if fast:
@@ -306,19 +335,18 @@ def sweep_plain(q, bias, bank, values, dotscale: float, m, s1, s2,
             s1 = s1 * scale + e.sum(dim=1)
             s2 = s2 * scale[:, None] + e @ v
             m = m_new
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
     return m, s1, s2
 
 
 def sweep_kernel(q, bias, bank, values, dotscale: float, m, s1, s2,
                  precision: str = "highest", strategy: str = "vpu",
-                 col0: int = -1) -> State:
+                 col0: int = -1, prune_mask=None) -> State:
     """Launch the tier's CUDA kernel on the current stream; returns new
     tensors. `bias` is [P], or [S, P] for S equal blocks of query rows
     (K5: the kernel's grid gains a seed axis). With strategy 'inbank'
     `values` is None and the kernel takes the bank's columns col0 ..
-    col0 + c. Each launch adds one to its count in
+    col0 + c. A prune mask (1-D bias only) makes each block walk only its
+    live bank tiles (K6). Each launch adds one to its count in
     `flash_score_update.launches` (see the module docstring)."""
     name = KERNEL_OF[precision]
     M, d = q.shape
@@ -336,6 +364,8 @@ def sweep_kernel(q, bias, bank, values, dotscale: float, m, s1, s2,
             raise ValueError(
                 "flash-score kernel takes contiguous float32 CUDA tensors"
             )
+    if prune_mask is not None:  # int32, shape checked by the wrapper
+        tensors += (prune_mask,)
     if len({t.device for t in tensors}) != 1:
         raise ValueError("flash-score kernel inputs lie on different devices")
     m_out = torch.empty_like(m)
@@ -351,25 +381,41 @@ def sweep_kernel(q, bias, bank, values, dotscale: float, m, s1, s2,
         None if values is None else values.data_ptr(),
         float(dotscale), m.data_ptr(), s1.data_ptr(), s2.data_ptr(),
         m_out.data_ptr(), s1_out.data_ptr(), s2_out.data_ptr(),
-        M, rows_per_seed, P, d, c, *fast,
+        M, rows_per_seed, P, d, c,
+        None if prune_mask is None else prune_mask.data_ptr(),
+        0 if prune_mask is None else prune_mask.shape[1], *fast,
         dev.index if dev.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    key = name + STRATEGY_SUFFIX[strategy] + (PER_SEED if bias.ndim == 2 else "")
+    key = name + STRATEGY_SUFFIX[strategy] + (
+        PER_SEED if bias.ndim == 2 else PRUNE if prune_mask is not None else "")
     flash_score_update.launches[key] += 1
     return m_out, s1_out, s2_out
 
 
 def _update(sweep, q, qn, bank, pn, values, w, at, bt, state, precision,
-            rows_per_seed, v_strategy, fast_exp, inbank_cols) -> State:
+            rows_per_seed, v_strategy, fast_exp, inbank_cols,
+            prune_mask) -> State:
     _check_precision(precision)
     m0, s10, s20 = state
     M, d = q.shape
     P = bank.shape[0]
     strategy, c = _strategy(precision, v_strategy, fast_exp, values,
                             inbank_cols, d, P)
+    if prune_mask is not None:
+        if w.ndim == 2:  # the JAX wrapper's refusal (`flash_score.py:390-397`)
+            raise ValueError(
+                "prune_mask is unsupported on the vector-label and chunked "
+                "paths (ops.prune targets the small-dp banked sweeps)"
+            )
+        if tuple(prune_mask.shape) != prune_grid(M, P):
+            raise ValueError(
+                f"prune_mask shape {tuple(prune_mask.shape)} != grid "
+                f"{prune_grid(M, P)} — size it with prune_grid()"
+            )
+        prune_mask = prune_mask.to(q.device, torch.int32).contiguous()
     if w.ndim == 2:
         S = w.shape[0]
         if rows_per_seed is None or M != S * rows_per_seed:
@@ -409,7 +455,8 @@ def _update(sweep, q, qn, bank, pn, values, w, at, bt, state, precision,
     m_k = torch.where(m0 <= NEG_INF * 0.5, m0, (m0 + qn_s) * LOG2E)
     dotscale = float(2.0 * at * inv2bt2 * LOG2E)
     m, s1, s2 = sweep(q, bias, bank, values, dotscale, m_k, s10, s20,
-                      precision=precision, strategy=strategy, col0=col0)
+                      precision=precision, strategy=strategy, col0=col0,
+                      prune_mask=prune_mask)
     m = torch.where(m <= NEG_INF * 0.5, m, m * LN2 - qn_s)
     return m, s1, s2
 
@@ -430,11 +477,13 @@ def flash_score_update(
     fast_exp: bool | None = None,  # default: precision == 'default'
     rows_per_seed: int | None = None,  # with 2-D w: M = S * rows_per_seed
     inbank_cols: Tuple[int, int] | None = None,  # (start, c) for 'inbank'
+    prune_mask: torch.Tensor | None = None,  # int32 prune_grid(M, P) (K6)
 ) -> State:
     """One fused bank sweep; returns the updated (m, s1, s2) with the finite
     NEG_INF sentinel convention. With 2-D weights [S, P], the query rows are
     S seed-major blocks of `rows_per_seed` rows and block s uses weight row
-    s. CUDA tensors run the tier's hand-written kernel, K1 at 'highest', K2
+    s. With a prune mask (1-D weights) the masked cells are skipped (K6).
+    CUDA tensors run the tier's hand-written kernel, K1 at 'highest', K2
     at 'high', K3/K4 at 'default' (each launch counted, see the module
     docstring); CPU tensors run `sweep_plain`; any other device raises."""
     if q.is_cuda:
@@ -444,14 +493,14 @@ def flash_score_update(
     else:
         raise ValueError(f"no flash-score sweep for device {q.device}")
     return _update(sweep, q, qn, bank, pn, values, w, at, bt, state, precision,
-                   rows_per_seed, v_strategy, fast_exp, inbank_cols)
+                   rows_per_seed, v_strategy, fast_exp, inbank_cols, prune_mask)
 
 
 flash_score_update.launches = {
-    name + STRATEGY_SUFFIX[strategy] + seeds: 0
+    name + STRATEGY_SUFFIX[strategy] + variant: 0
     for prec, name in KERNEL_OF.items()
     for strategy in (STRATEGY_SUFFIX if prec == "default" else ("vpu",))
-    for seeds in ("", PER_SEED)
+    for variant in ("", PER_SEED, PRUNE)
 }
 
 
@@ -460,11 +509,13 @@ def flash_score_update_plain(q, qn, bank, pn, values, w, at, bt, state, *,
                              v_strategy: str = "auto",
                              fast_exp: bool | None = None,
                              rows_per_seed: int | None = None,
-                             inbank_cols: Tuple[int, int] | None = None) -> State:
+                             inbank_cols: Tuple[int, int] | None = None,
+                             prune_mask: torch.Tensor | None = None) -> State:
     """`flash_score_update` through the plain version on any device (the
     yardstick the kernel is held against on the card)."""
     return _update(sweep_plain, q, qn, bank, pn, values, w, at, bt, state,
-                   precision, rows_per_seed, v_strategy, fast_exp, inbank_cols)
+                   precision, rows_per_seed, v_strategy, fast_exp, inbank_cols,
+                   prune_mask)
 
 
 def state_to_kernel(m, s1, s2) -> State:

@@ -24,21 +24,6 @@ from ..schedules import cosine_noise_schedule
 PRECISIONS = ("highest", "high", "default")
 
 
-def fp32_einsum(spec: str, *operands: torch.Tensor) -> torch.Tensor:
-    """`torch.einsum` in true fp32: TF32 is switched off for the call
-    (torch.backends.cuda.matmul.allow_tf32 = False) and restored after. The
-    region dot products and value sums that the score modules compute
-    outside the flash-score kernels go through here at every precision tier,
-    as the JAX package's do on the CPU: a TF32 rounding of a score logit is
-    amplified by the 1/(2 beta^2) scale to a large posterior error."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        return torch.einsum(spec, *operands)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
-
-
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: `cuda` unless the caller asks for
     another. Without a CUDA device that is an error, never a quiet CPU run."""

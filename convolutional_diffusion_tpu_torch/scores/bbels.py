@@ -22,7 +22,7 @@ windows whose position has the same class pair:
     training image.
 
 The border regions stream the images chunk by chunk (the bank geometry's
-chunk) in plain tensor code: true fp32 dots (`base.fp32_einsum`) and the
+chunk) in plain tensor code: true fp32 dots (`ops.fp32.fp32_einsum`) and the
 online softmax of `common.update_state`, at every tier, 'default'
 included: the JAX package's border einsums never take a pure-bf16 dot
 (`bbels.py:155-162`) and run in fp32 on the CPU, and its bf16 exp lives
@@ -41,9 +41,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.fp32 import fp32_einsum
 from ..ops.patches import center_index, extract_patches, pad_image, window_view
 from .bank import BankCacheMixin, bank_geometry
-from .base import ScoreModuleBase, fp32_einsum
+from .base import ScoreModuleBase
 from .common import CutoffRule, Weighting, image_weights, init_state, update_state
 from .els import DEFAULT_BANK_BUDGET, patch_sweep
 from .local import LocalScoreModule
@@ -93,9 +94,11 @@ class LocalEquivBordersScoreModule(BankCacheMixin, ScoreModuleBase):
         **kw,
     ):
         super().__init__(dataset, batch_size=batch_size, **kw)
+        # pruning is the ELS bank mode's only, as in the JAX package
+        # (`bbels.py:74-77`): the center region sweeps a plain bank
         self._init_bank_cache(
             target_block=target_block, bank_budget_bytes=bank_budget_bytes,
-            bank_ledger=bank_ledger,
+            bank_ledger=bank_ledger, prune=False,
         )
         self._local_fallback_cache = None
 

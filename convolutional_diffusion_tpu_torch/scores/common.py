@@ -18,7 +18,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .base import fp32_einsum
+from ..ops.fp32 import fp32_einsum
 
 NEG_INF = float("-inf")
 

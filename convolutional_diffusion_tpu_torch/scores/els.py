@@ -22,6 +22,14 @@ differently. At 'default' a sweep whose d padded to 128 is at most
 are not read; every other sweep takes 'auto' ('vpu', or 'mxu1' over
 P >= 2^18 bank rows in one call).
 
+Exact block pruning (`prune=True`, kernel variant K6, `ops.prune`): the
+cached banks are clustered (`bank.ClusteredBank`, each row's weight taken
+through its image index), and at 'highest' and 'high', with 1-D weights and
+a query count that is a multiple of PRUNE_ROWS, every call builds one skip
+mask per bank chunk from the banks' block statistics: the JAX package's
+gate (`scores/els.py:391-409`). Streamed k's, 'default' and label vectors
+sweep unmasked, as there.
+
 Reference parity: per-batch means over n_kept * (h-k+1)^2 entries and the
 UNFILTERED max_samples cutoff come from `image_weights`.
 """
@@ -39,7 +47,8 @@ from ..ops.flash_score import (
     state_to_kernel,
 )
 from ..ops.patches import center_index, extract_patches, pad_image
-from .bank import BankCacheMixin, bank_geometry, chunk_patches
+from ..ops.prune import PRUNE_ROWS, logw_block_stats, prune_masks
+from .bank import BankCacheMixin, ClusteredBank, bank_geometry, chunk_patches
 from .base import ScoreModuleBase
 from .common import CutoffRule, Weighting, image_weights
 
@@ -118,11 +127,26 @@ def els_sweep(
     return state_from_kernel(*state)
 
 
+def _row_weights(bank, w_img, i, per_img: int):
+    """Chunk i's per-row weights ([B], or [S, B] per seed) from per-image
+    weights [n] or [S, n]: padding images (index >= n) weigh 0; a clustered
+    bank's rows take their image's weight through `img_idx` (there i may
+    also be slice(None): every chunk's, [nblk, B])."""
+    B = bank.bank.shape[1]
+    if isinstance(bank, ClusteredBank):
+        w_pad = F.pad(w_img, (0, bank.bank.shape[0] * (B // per_img) - w_img.shape[-1]))
+        return w_pad[..., bank.img_idx[i].long()]
+    cs = B // per_img
+    w_c = w_img[..., i * cs : (i + 1) * cs]
+    return F.pad(w_c, (0, cs - w_c.shape[-1])).repeat_interleave(per_img, dim=-1)
+
+
 @torch.no_grad()
 def banked_sweep(
     q_flat,  # [M, d] query windows (seed-major with per-seed weights)
     qn_flat,  # [M]
-    bank,  # scores.bank.Bank: bank [nblk, B, d], centers [nblk, B, c], pn [nblk, B]
+    bank,  # scores.bank.Bank or ClusteredBank: bank [nblk, B, d], centers
+    # [nblk, B, c], pn [nblk, B] (and img_idx [nblk, B])
     w_img,  # [n] per-image weights, or [S, n] one row per seed; n <= nblk * cs
     at,
     bt,
@@ -131,17 +155,18 @@ def banked_sweep(
     precision: str = "highest",
     state0=None,  # (m, s1, s2) -inf convention; None = empty
     inbank_col: int | None = None,  # centers == bank[..., col:col+c]
+    masks=None,  # [nblk, ceil(M / PRUNE_ROWS), ceil(B / PRUNE_BLOCK)] (K6)
 ):
     """Sweep prebuilt bank chunks through the online softmax; returns
     (m, s1, s2) with the -inf empty convention (chainable via `state0`).
     Each chunk's per-patch weights ([B], or [S, B] with per-seed weights)
-    are built from the per-image ones as the chunk is swept; images past
-    the end of `w_img` (the chunk padding) get zero weight. With
-    `inbank_col` the sweeps take 'inbank' where `_inbank_max_dp` allows it,
-    and `bank.centers` is not read."""
+    are built from the per-image ones as the chunk is swept (`_row_weights`:
+    through `img_idx` for a clustered bank); images past the end of `w_img`
+    (the chunk padding) get zero weight. With `inbank_col` the sweeps take
+    'inbank' where `_inbank_max_dp` allows it, and `bank.centers` is not
+    read. `masks` (1-D weights) gives each chunk's sweep its prune mask."""
     nblk, B, d = bank.bank.shape
     c = bank.centers.shape[-1]
-    cs = B // per_img
     rps = _rows_per_seed(q_flat, w_img)
     vkw = _value_kw(precision, d, inbank_col, c)
     state = (
@@ -149,15 +174,27 @@ def banked_sweep(
         else state_to_kernel(*state0)
     )
     for i in range(nblk):
-        w_c = w_img[..., i * cs : (i + 1) * cs]
-        w_c = F.pad(w_c, (0, cs - w_c.shape[-1]))
         state = flash_score_update(
             q_flat, qn_flat, bank.bank[i], bank.pn[i],
             None if vkw else bank.centers[i],
-            w_c.repeat_interleave(per_img, dim=-1), at, bt, state,
-            precision=precision, rows_per_seed=rps, **vkw,
+            _row_weights(bank, w_img, i, per_img), at, bt, state,
+            precision=precision, rows_per_seed=rps,
+            prune_mask=None if masks is None else masks[i], **vkw,
         )
     return state_from_kernel(*state)
+
+
+@torch.no_grad()
+def sweep_masks(bank: ClusteredBank, w_img, q_flat, qn_flat, at, bt, *,
+                per_img: int):
+    """One prune mask per chunk of a clustered bank, [nblk,
+    M / PRUNE_ROWS, ceil(B / PRUNE_BLOCK)] int32, from its block statistics
+    and the call's per-image weights [n] (`ops.prune`; the JAX package's
+    `build_masks`, `scores/els.py:447-457`)."""
+    nblk = bank.bank.shape[0]
+    lmax, lmin, anyinc = logw_block_stats(_row_weights(bank, w_img, slice(None), per_img))
+    mk = prune_masks(q_flat, qn_flat, at, bt, bank.stats, lmax, lmin, anyinc)
+    return mk.view(mk.shape[0], nblk, -1).transpose(0, 1).contiguous()
 
 
 @torch.no_grad()
@@ -166,8 +203,11 @@ def patch_sweep(module, k: int, q_flat, qn_flat, w_img, at, bt):
     (per-image weights `w_img`, [n] or [S, n] per seed): through the
     module's cached bank where the ledger holds it, else streamed chunk by
     chunk. Either way one sweep per bank chunk, with the module's precision
-    and the value strategy of `_value_kw`. Returns (m, s1, s2), -inf
-    convention. The ELS module and the bbELS center region share it."""
+    and the value strategy of `_value_kw`; with the module's `prune` set, a
+    clustered bank at 'highest' or 'high' with 1-D weights and M a multiple
+    of PRUNE_ROWS sweeps with prune masks (`sweep_masks`, K6). Returns
+    (m, s1, s2), -inf convention. The ELS module and the bbELS center
+    region share it."""
     n, h, w, c = module.images.shape
     g = bank_geometry(n, h, w, c, k, module.target_block)
     bank = module._bank(k)
@@ -176,9 +216,15 @@ def patch_sweep(module, k: int, q_flat, qn_flat, w_img, at, bt):
             module.images, w_img, q_flat, qn_flat, at, bt,
             k=k, cs=g.cs, precision=module.precision,
         )
+    masks = None
+    if (module.prune and isinstance(bank, ClusteredBank)
+            and module.precision in ("highest", "high")
+            and w_img.ndim == 1 and q_flat.shape[0] % PRUNE_ROWS == 0):
+        masks = sweep_masks(bank, w_img, q_flat, qn_flat, at, bt, per_img=g.per_img)
     return banked_sweep(
         q_flat, qn_flat, bank, w_img, at, bt, per_img=g.per_img,
         precision=module.precision, inbank_col=center_index(k, c).start,
+        masks=masks,
     )
 
 
@@ -189,7 +235,11 @@ class LocalEquivScoreModule(BankCacheMixin, ScoreModuleBase):
 
     label may be a [b] vector (one label per seed): each seed gets its own
     image weights and the call is still one sweep per bank chunk, with
-    per-seed weights (kernel variant K5), banked or streamed."""
+    per-seed weights (kernel variant K5), banked or streamed.
+
+    prune: cache clustered banks and skip the bank tiles whose weights are
+    exactly 0 in fp32 (exact block pruning, `ops.prune`, kernel variant K6;
+    see the module docstring for where masks apply)."""
 
     supports_vector_label = True
 
@@ -201,12 +251,13 @@ class LocalEquivScoreModule(BankCacheMixin, ScoreModuleBase):
         target_block: int = 65536,
         bank_budget_bytes: int = DEFAULT_BANK_BUDGET,
         bank_ledger=None,
+        prune: bool = False,
         **kw,
     ):
         super().__init__(dataset, batch_size=batch_size, **kw)
         self._init_bank_cache(
             target_block=target_block, bank_budget_bytes=bank_budget_bytes,
-            bank_ledger=bank_ledger,
+            bank_ledger=bank_ledger, prune=prune,
         )
 
     def _image_weights(self, label, b: int, per_img: int, order):

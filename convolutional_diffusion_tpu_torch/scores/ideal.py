@@ -6,7 +6,7 @@ weight of training image n given x is softmax_n(-||x - a_t img_n||^2 /
 
 The distance expands to ||x||^2 - 2 a_t <x, img> + a_t^2 ||img||^2, so the
 sweep is a [b, D] @ [D, cs] product per chunk of `chunk_size` images, in
-true fp32 (`base.fp32_einsum`, TF32 off, at every precision tier), streamed
+true fp32 (`ops.fp32.fp32_einsum`, TF32 off, at every precision tier), streamed
 through the shared online softmax (`common.update_state`) with the images
 themselves as the values. No kernel: the JAX package leaves this product to
 XLA, and the port to the matrix-product library. The reference's per-batch
@@ -17,7 +17,8 @@ from __future__ import annotations
 
 import torch
 
-from .base import ScoreModuleBase, fp32_einsum
+from ..ops.fp32 import fp32_einsum
+from .base import ScoreModuleBase
 from .common import CutoffRule, Weighting, image_weights, init_state, update_state
 
 

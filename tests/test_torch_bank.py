@@ -117,3 +117,46 @@ def test_load_scales(tmp_path):
     assert convert.load_scales(str(pt)) == CIFAR10_SCALES
     with pytest.raises(FileNotFoundError):
         convert.load_scales(str(tmp_path / "missing.pt"))
+
+
+def test_clustered_bank_in_the_ledger(tiny_dataset, monkeypatch):
+    """With prune, `_bank` reserves the bank's bytes plus its int32 image
+    indices, caches a ClusteredBank, and releases the reservation when the
+    clustered build fails; a budget that holds the plain bank but not the
+    indices misses."""
+    imgs, labs = tiny_dataset
+    need = tb.bank_cache_nbytes(16, 8, 8, 1, 3, 65536, prune=True)
+    g = tb.bank_geometry(16, 8, 8, 1, 3, 65536)
+    assert need == tb.bank_nbytes(16, 8, 8, 1, 3, 65536) + g.nblk * g.block * 4
+    assert _module(imgs, labs, prune=True, bank_budget_bytes=need - 1)._bank(3) is None
+    mod = _module(imgs, labs, prune=True, bank_budget_bytes=need)
+    bank = mod._bank(3)
+    assert isinstance(bank, tb.ClusteredBank) and mod.bank_ledger.used == need
+    assert bank.img_idx.dtype == torch.int32 and bank.img_idx.shape == (g.nblk, g.block)
+    assert sorted(bank.img_idx.reshape(-1).tolist()) == sorted(
+        i for i in range(16) for _ in range(g.per_img))
+
+    def boom(*_a, **_k):
+        raise MemoryError("simulated")
+
+    monkeypatch.setattr(tb, "build_clustered_bank", boom)
+    failed = _module(imgs, labs, prune=True, bank_budget_bytes=need)
+    with pytest.raises(MemoryError):
+        failed._bank(3)
+    assert failed.bank_ledger.used == 0
+
+
+def test_gather_patches_are_extract_patches(tiny_dataset):
+    """A row gathered by (image, position) is that image's extracted patch;
+    a padding image's row is zero."""
+    from convolutional_diffusion_tpu_torch.ops.patches import extract_patches
+
+    imgs = torch.from_numpy(tiny_dataset[0])
+    k = 5
+    want = extract_patches(imgs, k).reshape(16, -1, k * k)
+    img = torch.tensor([0, 3, 15, 16, 7])
+    pos = torch.tensor([0, 5, 15, 2, 11])
+    got = tb.gather_patches(imgs, img, pos, k)
+    for r in (0, 1, 2, 4):
+        assert torch.equal(got[r], want[img[r], pos[r]])
+    assert not got[3].any()

@@ -1,6 +1,7 @@
 """The hand-written flash-score kernels, K1 ('highest'), K2 ('high') and
 K3/K4 ('default', value strategies 'vpu', 'mxu1', 'inbank'), with 1-D and
-per-seed (K5) weights, against their plain PyTorch version, on the card.
+per-seed (K5) weights and with prune masks (K6), against their plain
+PyTorch version, on the card.
 Marked `cuda`; skips (from inside each test) where no CUDA device
 is present. On the card:
 `python -m pytest tests/test_torch_cuda.py -m cuda`.
@@ -11,6 +12,7 @@ for the posterior mean s2/s1 (two fp32 summation orders of the same dots;
 at 'high' and 'default' of the same bf16 parts, at 'default' with the same
 bf16 roundings of the exponential and the values)."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -245,3 +247,89 @@ def test_default_per_seed_tensor_core_values(strategy):
                                      0.7, 0.5, _empty(rps, c, dev), **kw)
         for a, b in zip(one, got):
             assert _rel(a, b[r]) <= 1e-6
+
+
+def _forced_mask(M, P, dev):
+    """A skip mask that tests the mechanism, not the bound: the first and
+    the last stats block, every other one, and every block of two query
+    blocks (the first and one in the middle)."""
+    mask = torch.zeros(tfs.prune_grid(M, P), dtype=torch.int32)
+    mask[:, ::2] = 1
+    mask[:, -1] = 1
+    mask[[0, mask.shape[0] // 2]] = 1
+    return mask.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision,strategy", [
+    ("highest", "vpu"), ("high", "vpu"), ("default", "vpu"), ("default", "mxu1"),
+    ("default", "inbank")])
+@pytest.mark.parametrize("P", [4096 + 700, 3 * 2048])
+def test_prune_kernel_matches_plain(precision, strategy, P):
+    """K6 in every kernel: a forced mask against the plain version with the
+    same mask (launches under the '/prune' key only), a partial last query
+    block and a partial last stats block; an all-skipped query block
+    keeps its carried state bit for bit; an all-zero mask equals no mask
+    bit for bit."""
+    dev = _need_cuda()
+    M, d, c = 1000, 75, 3
+    q, qn, bank, pn, values, w = _case(M, d, P, c, seed=P, dev=dev)
+    kw, values = _fast(strategy, values, d, c) if precision == "default" else ({}, values)
+    kw["precision"] = precision
+    state = tfs.flash_score_update_plain(q, qn, bank[:500], pn[:500],
+                                         None if values is None else values[:500],
+                                         w[:500], 0.8, 0.6, _empty(M, c, dev), **kw)
+    mask = _forced_mask(M, P, dev)
+    args = (q, qn, bank, pn, values, w, 0.8, 0.6, state)
+    key = tfs.KERNEL_OF[precision] + tfs.STRATEGY_SUFFIX[strategy] + tfs.PRUNE
+    before = dict(tfs.flash_score_update.launches)
+    got = tfs.flash_score_update(*args, prune_mask=mask, **kw)
+    torch.cuda.synchronize()
+    assert tfs.flash_score_update.launches == {**before, key: before[key] + 1}
+    _assert_close(got, tfs.flash_score_update_plain(*args, prune_mask=mask, **kw))
+    for r in (slice(0, 64), slice(mask.shape[0] // 2 * 64, mask.shape[0] // 2 * 64 + 64)):
+        assert torch.equal(got[1][r], state[1][r]) and torch.equal(got[2][r], state[2][r])
+        torch.testing.assert_close(got[0][r], state[0][r], rtol=1e-6, atol=0)
+    zero = tfs.flash_score_update(*args, prune_mask=torch.zeros_like(mask), **kw)
+    for a, b in zip(zero, tfs.flash_score_update(*args, **kw)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_prune_mask_refused_before_launch():
+    dev = _need_cuda()
+    q, qn, bank, pn, values, w = _case(128, 27, 4096, 3, seed=9, dev=dev)
+    before = dict(tfs.flash_score_update.launches)
+    with pytest.raises(ValueError, match="prune_mask shape"):
+        tfs.flash_score_update(q, qn, bank, pn, values, w, 0.8, 0.6, _empty(128, 3, dev),
+                               prune_mask=torch.zeros(2, 3, dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError, match="vector-label"):
+        tfs.flash_score_update(q, qn, bank, pn, values, w[None].repeat(2, 1), 0.8, 0.6,
+                               _empty(128, 3, dev), rows_per_seed=64,
+                               prune_mask=torch.zeros(2, 2, dtype=torch.int32, device=dev))
+    assert tfs.flash_score_update.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "high"])
+def test_pruned_module_card_vs_cpu(precision):
+    """A pruned ELS module on the card (its own k-means, masks, K6 launches)
+    against the same module on the CPU, on flat-colour prototype images
+    where the masks skip, at 1e-3 relative to scale."""
+    dev = _need_cuda()
+    rs = np.random.RandomState(0)
+    colour = rs.uniform(-1, 1, (4, 1, 1, 3)).astype(np.float32)
+    idx = np.arange(64) * 4 // 64
+    imgs = (colour[idx] + 0.01 * rs.normal(size=(64, 16, 16, 3))).astype(np.float32)
+    from convolutional_diffusion_tpu_torch.scores import LocalEquivScoreModule
+
+    x = (0.99 * imgs[:2] + 0.1 * rs.normal(size=(2, 16, 16, 3))).astype(np.float32)
+    outs = []
+    key = tfs.KERNEL_OF[precision] + tfs.PRUNE
+    before = tfs.flash_score_update.launches[key]
+    for device in (dev, "cpu"):
+        mod = LocalEquivScoreModule((imgs, idx), batch_size=16, precision=precision,
+                                    prune=True, device=device)
+        outs.append(mod(0.02, x, k=3).cpu())
+    assert tfs.flash_score_update.launches[key] == before + 1
+    assert _rel(*outs) <= 1e-3

@@ -330,3 +330,27 @@ def test_default_value_strategy_rule(tiny_dataset, monkeypatch, mode):
     assert set(calls) == {(False, "auto", None)}  # d 147; 'high'
     assert tels._inbank_max_dp("default") == 128
     assert tels._inbank_max_dp("high") == tels._inbank_max_dp("highest") == 0
+
+
+@pytest.mark.parametrize("call", [
+    dict(), dict(label=1), dict(label=np.array([3, 1], np.int32)),
+    dict(label=np.array([0, 2], np.int32), order=np.random.RandomState(7).permutation(16)),
+], ids=["plain", "label", "vector_label", "vector_label_order"])
+def test_clustered_bank_sweeps_like_the_plain_bank(tiny_dataset, call):
+    """A clustered bank (`prune=True`) sweeps with each row's weight taken
+    through its image index: the pruned module equals the plain-bank and the
+    streamed module to fp32 summation order, with scalar labels (masked
+    sweeps), label vectors (per-seed weights gathered per seed, unmasked)
+    and a shuffled order (which changes only which weight each image
+    gets)."""
+    imgs, labs = tiny_dataset
+    kw = dict(kernel_size=3, batch_size=5, target_block=100)
+    x = _x(2)
+    clustered = _port(imgs, labs, "bank", prune=True, **kw)
+    out = clustered(0.2, x, **call)
+    assert torch.isfinite(out).all()
+    from convolutional_diffusion_tpu_torch.scores.bank import ClusteredBank
+
+    assert isinstance(clustered._bank_cache[3], ClusteredBank)
+    for mode in MODES:
+        _check(out, _port(imgs, labs, mode, **kw)(0.2, x, **call).numpy())

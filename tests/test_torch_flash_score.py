@@ -276,17 +276,19 @@ def test_high_all_excluded_chunk_leaves_state_unchanged():
 
 def test_cpu_path_does_not_count_launches():
     """One count per kernel variant (the 'default' kernel's by value
-    strategy, each also per seed); CPU tensors count none."""
+    strategy, each also per seed and with a prune mask); CPU tensors count
+    none."""
     before = dict(tfs.flash_score_update.launches)
     assert set(before) == {
-        name + seeds
+        name + variant
         for name in ("flash_score", "flash_score_bf16x3", "flash_score_fast",
                      "flash_score_fast/inbank", "flash_score_fast/mxu1")
-        for seeds in ("", "/per_seed")
+        for variant in ("", "/per_seed", "/prune")
     }
     a = _inputs(8, 12, 16, 3, seed=8)
     _port(a, 0.8, 0.6, _empty(8, 3))
     _port(a, 0.8, 0.6, _empty(8, 3), "high")
+    _port(a, 0.8, 0.6, _empty(8, 3), "high", prune_mask=torch.zeros(1, 1, dtype=torch.int32))
     _port(dict(a, w=np.stack([a["w"], a["w"][::-1]])), 0.8, 0.6, _empty(8, 3),
           "high", rows_per_seed=4)
     for strategy in ("vpu", "mxu1"):
@@ -540,3 +542,84 @@ def test_default_exp_is_the_bf16_exp2_of_jax():
                                        v_strategy="mxu1"))[1]
     assert _rel(port, jx) < 1e-5
     assert _rel(true_exp2, jx) > DEFAULT_LSE_TOL
+
+
+# Prune masks (K6): the plain version with a mask against the JAX kernel with
+# the same mask, on the JAX package's clustered fixture (`tests/test_prune.py`)
+# with clusters of PRUNE_BLOCK bank rows, so that the port's sound mask skips.
+def _pruned_inputs(M=256, P=16384, d=27, c=3, seed=0):
+    import convolutional_diffusion_tpu_torch.ops.prune as tp
+
+    rng = np.random.RandomState(seed)
+    means = rng.normal(0, 2.0, (8, d)).astype(np.float32)
+    bank = (means[np.arange(P) * 8 // P]
+            + rng.normal(0, 0.2, (P, d))).astype(np.float32)
+    q = (means[np.repeat(rng.permutation(8)[: M // 256], 256)]
+         + rng.normal(0, 0.1, (M, d))).astype(np.float32)
+    w = np.full((P,), 1.0 / P, np.float32)
+    w[::5] = 0.0
+    a = dict(q=q, qn=(q**2).sum(1), bank=bank, pn=(bank**2).sum(1),
+             values=np.ascontiguousarray(bank[:, :c]), w=w)
+    stats = tp.block_stats(torch.from_numpy(bank)[None], torch.ones(1, P, dtype=torch.bool))
+    mask = tp.prune_masks(torch.from_numpy(q), torch.from_numpy(a["qn"]), 0.9, 0.3, stats,
+                          *tp.logw_block_stats(torch.from_numpy(w)[None]))
+    return a, mask
+
+
+@pytest.mark.parametrize("precision", ["highest", "high"])
+def test_prune_mask_matches_jax_kernel_interpret(precision):
+    """The plain version with a sound mask (7 of 8 stats blocks skipped)
+    against the JAX kernel with the same mask at block_q = 64, block_p =
+    2048, at the file's parity rule; and within 1e-6 of the unmasked plain
+    sweep, since the skipped weights are exactly 0 in fp32."""
+    a, mask = _pruned_inputs()
+    M, c = a["q"].shape[0], 3
+    assert mask.shape == tfs.prune_grid(M, a["bank"].shape[0]) == (4, 8)
+    assert mask.float().mean() == 7 / 8
+    ours = _port(a, 0.9, 0.3, _empty(M, c), precision, prune_mask=mask)
+    _assert_same(ours, _jax(a, 0.9, 0.3, _empty(M, c), block_q=64, block_p=2048,
+                            precision=precision, v_strategy="vpu",
+                            prune_mask=jnp.asarray(mask.numpy())))
+    unmasked = _port(a, 0.9, 0.3, _empty(M, c), precision)
+    for x, y in zip(_invariants(*ours), _invariants(*unmasked)):
+        assert _rel(x, y) <= 1e-6
+
+
+@pytest.mark.parametrize("strategy", STRATEGIES)
+def test_default_prune_mask_matches_jax_kernel_interpret(strategy):
+    """'default' with a forced mask (every other stats block, and all of one
+    query block) against the JAX kernel at block_p = 128, the port's tile,
+    fed the same mask column for column, at the tier's tolerance; the
+    all-skipped query block keeps its carried state bit for bit."""
+    a, _ = _pruned_inputs(P=4096 + 700)
+    M, c = a["q"].shape[0], 3
+    mask = torch.zeros(tfs.prune_grid(M, a["bank"].shape[0]), dtype=torch.int32)
+    mask[:, ::2] = 1
+    mask[2] = 1
+    a, kw = _strategy_inputs(a, strategy)
+    state = tuple(s.copy() for s in _port(a, 0.9, 0.3, _empty(M, c), "default", **kw))
+    ours = _port(a, 0.9, 0.3, state, "default", prune_mask=mask, **kw)
+    jmask = mask.repeat_interleave(tfs.PRUNE_BLOCK // 128, dim=1)[:, : -(-a["bank"].shape[0] // 128)]
+    _assert_tier(ours, _jax(a, 0.9, 0.3, state, block_q=64, block_p=128, precision="default",
+                            prune_mask=jnp.asarray(jmask.numpy()), **kw))
+    rows = slice(128, 192)
+    np.testing.assert_array_equal(ours[1][rows], state[1][rows])
+    np.testing.assert_array_equal(ours[2][rows], state[2][rows])
+    np.testing.assert_allclose(ours[0][rows], state[0][rows], rtol=1e-6)
+
+
+def test_prune_mask_errors():
+    """A mask of another shape than prune_grid(M, P) raises, and so does a
+    mask with 2-D (per-seed) weights, with the JAX wrapper's message; both
+    before anything runs."""
+    a, mask = _pruned_inputs()
+    M = a["q"].shape[0]
+    for fn in (tfs.flash_score_update, tfs.flash_score_update_plain):
+        t = {k: torch.from_numpy(v) for k, v in a.items()}
+        args = (t["q"], t["qn"], t["bank"], t["pn"], t["values"])
+        st = tuple(torch.from_numpy(s) for s in _empty(M, 3))
+        with pytest.raises(ValueError, match="prune_mask shape"):
+            fn(*args, t["w"], 0.9, 0.3, st, prune_mask=mask[:, :-1])
+        with pytest.raises(ValueError, match="vector-label"):
+            fn(*args, t["w"][None].repeat(2, 1), 0.9, 0.3, st, rows_per_seed=M // 2,
+               prune_mask=mask)

@@ -49,7 +49,8 @@ def test_port_imports_no_jax_and_no_jax_package():
     for mod in ("scores.els", "scores.bbels", "scores.local", "scores.ideal", "data",
                 "pipeline", "convert", "cli.common", "cli.els"):
         assert f"convolutional_diffusion_tpu_torch.{mod}" in res["imported"]
-    assert "convolutional_diffusion_tpu_torch.ops.flash_score" in res["imported"]
+    for mod in ("ops.flash_score", "ops.prune"):
+        assert f"convolutional_diffusion_tpu_torch.{mod}" in res["imported"]
     assert res["forbidden"] == []
 
 
@@ -73,6 +74,11 @@ def test_default_device_without_cuda_raises(monkeypatch, tiny_dataset):
     with pytest.raises(RuntimeError, match="CUDA"):
         convert.bank_from_jax_numpy(np.zeros((1, g.block * g.d)), np.zeros((1, g.block)),
                                     np.zeros((1, g.block)), g)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.clustered_bank_from_jax_numpy(
+            np.zeros((1, g.block * g.d)), np.zeros((1, g.block)), np.zeros((1, g.block)),
+            np.zeros((1, g.block), np.int32), np.zeros((1, g.d)), np.zeros(1),
+            np.ones(1, bool), g)
 
 
 def test_default_device_is_cuda(monkeypatch):
