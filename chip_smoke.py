@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU, end to end.
 
-    python3 chip_smoke.py [--n IMAGES] [--seed SEED]
+    python3 chip_smoke.py [--n IMAGES] [--n-wide IMAGES] [--seed SEED]
 
 Phases, each printing its own lines; any failure exits non-zero:
 
@@ -61,9 +61,39 @@ Phases, each printing its own lines; any failure exits non-zero:
               skipped, both gates; masked against unmasked ms beside
               1 - skip. Times at t = 0.05 with the bound of the unskipped
               work (`bound()` x (1 - skip)).
+   variants — 'mxu', 'inbank' at 'highest'/'high' and the bf16 exponential
+              apart from the tier, each against its plain version at
+              1e-3 (one call, and where marked a two-call chain
+              and a carried state with sentinel rows), its launch key
+              checked, its time, plain time and bound printed: (1) 'mxu',
+              what 'auto' takes at c > 8, in K1, K2 and the 'default'
+              kernel on one full chunk of the 16-channel bank, M = 8192,
+              k in {3, 9, 17}, t in {0.05, 0.5, 0.95}, chained at t = 0.5
+              and k = 3 (at d >= 200 the plain versions run over every
+              eighth 64-row query block, rows being independent, and K1's
+              repeats K1's fp32 summation order, `fs.fp32_logits_in_order`:
+              at d = 4624, t = 0.05 two fp32 orders of the same dot part by
+              ~3e-3 on the posterior mean; the BLAS order's distance
+              prints), 'default' also within 4e-3 of the exact split sum;
+              per-launch times at every k of the schedule; (2)
+              'mxu' at c = 9 and 48 (k = 3), and forced at c = 3 against
+              'vpu' (1e-3; 'default' 4e-3); (3) 'inbank' at 'highest' and
+              'high', c = 3, k = 3, 5; (4) 'highest' with the bf16
+              exponential in 'vpu', 'mxu1', 'inbank' and 'mxu' (k = 3, 9),
+              also within 4e-3 of the plain version over float64 dots; (5)
+              'high' with the bf16 exponential and 'default' without: they
+              launch the 'default' kernel and K2; (6) K5 in each new
+              variant, 8 seeds of 1024 rows (one label-filtered weight row
+              each, the last seed's class absent), against the plain
+              version and 7 one-seed 1-D launches (1e-6); (7) K6: 'mxu'
+              masked at 'highest' and 'high' on a clustered 16-channel
+              chunk (sound masks, against plain + mask 1e-3 and the
+              unmasked kernel 1e-5) and on the stress problem at d = 144,
+              c = 16 (more than half skipped).
 5. machines — one 20-step ScheduledScoreMachine call each, CIFAR10 scales,
               8 seeds of 32x32x3 (the same seeds for all), over N synthetic
-              bank images (default 50000; a smaller --n is printed as
+              bank images (--n, default 25000, cut from the published
+              50000 to keep the script within its time limit; printed as
               `reduced`): main = ELS 'highest' (the JAX bench's
               els_20step_50kbank fp32 key), bbels = bbELS 'high', els_high =
               ELS 'high', els_default = ELS 'default' (the JAX bench's
@@ -82,6 +112,15 @@ Phases, each printing its own lines; any failure exits non-zero:
               t = 0.05 call against the same clustered bank unmasked, at
               1e-5. The 'default' outputs are compared with the 'high' ones
               (information).
+   wide     — the slice's path: 20-step ELS machines at 'highest',
+              'high' and 'default' on 8 seeds of 32x32x16 over N images of
+              synthetic_dataset(num_channels=16) (--n-wide, default 10000,
+              for 'highest', half of it for the other two, whose sweeps take
+              ~0.7x K1's time each; cut from 50000 and printed as reduced),
+              every sweep 'mxu':
+              each launch count equal to the sum of bank chunks over the
+              19 steps, no other variant, the output finite; wall, images/s,
+              peak memory, kernel time at the per-launch times.
 6. mxu1     — one ELS 'default' module call at k = 9 with a target block
               of 2^19 patches: every sweep must be one 'mxu1' launch.
 7. cond     — conditional generation through pipeline.generate_els_samples:
@@ -110,7 +149,21 @@ Phases, each printing its own lines; any failure exits non-zero:
               'high' over prototype images (a few flat colours plus small
               noise, where the masks skip: the skip fraction must be above
               0 on both devices), and one label-vector call on the
-              clustered bank (K5, unmasked).
+              clustered bank (K5, unmasked); then on 16x16x16 images (every
+              sweep 'mxu'): ELS at each tier, bbELS at 'high', ELS with a
+              2-seed label vector at each tier, and ELS prune=True at
+              'highest' and 'high' over 16-channel prototype images with
+              the skip fraction above 0. The 16-channel 'default' machines
+              are held at 2.5e-2, not 2.5e-3: on the CPU alone a last-bit
+              change of their split dots moves them by ~1.1e-2 (printed
+              beside each, with the tier gap to 'high').
+
+The kernels line lists every variant checked; the variants no module path
+reaches ('inbank' at 'highest'/'high', the bf16 exponential after fp32
+dots, the 'default' kernel's K6), which the JAX package reaches only
+through keywords or an environment override, carry their path launches
+(0) and are exempt from the rule that each listed variant ran on the
+paths.
 
 Artifacts of phases 7 and 8 go to build/chip_smoke/ (git-ignored). The
 card's name and power limit print as the first line, the kernels JSON
@@ -168,7 +221,10 @@ from convolutional_diffusion_tpu_torch.scores.common import (
 from convolutional_diffusion_tpu_torch.scores.els import _value_kw as els_value_kw
 
 CIFAR10_SCALES = [3, 3, 3, 3, 5, 5, 5, 7, 7, 7, 7, 9, 9, 11, 11, 13, 15, 17, 17, 17]
-FULL_N = 50000
+FULL_N = 50000  # the published bank depth (the JAX bench's 50k CIFAR10 bank)
+# bank images of the RGB machines: cut from FULL_N so that the script, grown
+# by phases variants and wide, stays within its time limit; printed as reduced
+RGB_N = 25000
 SEEDS = 8
 TARGET_BLOCK = 65536
 MODULE_BATCH = 256  # the JAX bench's ELS module batch size
@@ -180,6 +236,13 @@ DEFAULT_TOL = 4e-3  # the 'default' tier's own (tests/test_flash_score.py:407)
 # 'default' and 'high' tiers (6.7e-4 to 3.7e-3); the gap on the same machine
 # prints beside it
 DEVICES_DEFAULT_TOL = 2.5e-3
+# the same for the small 16-channel 'default' machines: on the CPU alone,
+# changing only the last bits of their split dots (the card's step-by-step
+# sum against the exact sum, `exact_split_dot`) moves the 10-step machine's
+# output by 1.13e-2 (RGB: 9.1e-4), and its gap to the 'high' tier is
+# 1.12e-1; the hold sits between the card's reading (1.21e-2 on an H100)
+# and the tier gap, and both witnesses print beside it in each run
+DEVICES_WIDE_DEFAULT_TOL = 2.5e-2
 # artifacts of the pipeline and CLI phases (git-ignored build/ of the checkout)
 SCRATCH = Path(__file__).resolve().parent / "build" / "chip_smoke"
 PEAK_FP32 = 67e12  # H100 SXM, fp32 outside the tensor cores (published)
@@ -205,6 +268,17 @@ REPLACES = {
     # unmasked), so it has no entry in the kernels line
     **{name + fs.PRUNE: _TPU + "122" for name in ("flash_score", "flash_score_bf16x3")},
 }
+# the variants 'mxu', 'inbank' at 'highest'/'high' and the bf16 exponential
+# after fp32 dots, by the branch of `_kernel_body` that is theirs: the bf16 exponential after fp32 dots, 'mxu', 'mxu1'
+# ('flash_score/bf16_exp/mxu1'), 'inbank' at 'highest'/'high'
+NEW_VARIANT_LINE = (("/bf16_exp", "215"), ("/mxu1", "225"), ("/mxu", "292"),
+                    ("/inbank", "240"))
+# launch keys no module path reaches (the JAX package reaches them only
+# through keywords or an environment override): checked and timed here,
+# listed in the kernels line with their path launches (0), and not held to
+# the rule that every listed variant ran on the paths
+KEYWORD_ONLY = ("/bf16_exp", "flash_score/inbank", "flash_score_bf16x3/inbank",
+                FAST + "/mxu/prune")
 PRUNE_T = (0.05, 0.5, 0.95)  # t of phase prune; times at the first
 STRESS_AT_BT = (0.99, 0.08)  # the stress problem's low-noise step
 # a clustered build may hold one bank plus this much (k-means sample and
@@ -223,13 +297,31 @@ def value_kw(precision: str, k: int, c: int = 3) -> dict:
     return els_value_kw(precision, k * k * c, center_index(k, c).start, c)
 
 
+def module_strategy(precision: str, k: int, c: int = 3) -> str:
+    """The value strategy of an ELS module sweep over one TARGET_BLOCK chunk
+    at k: 'inbank' where the ELS rule takes it, else what 'auto' takes
+    ('vpu' for c <= 8, 'mxu' above)."""
+    return value_kw(precision, k, c).get(
+        "v_strategy", "vpu" if c <= fs.MAX_CHANNELS else "mxu")
+
+
 def launch_key(precision: str, k: int, per_seed: bool = False,
-               prune: bool = False) -> str:
+               prune: bool = False, c: int = 3) -> str:
     """The launch-count key of a module sweep at k (kernel, strategy,
     per-seed or prune suffix)."""
-    strategy = value_kw(precision, k).get("v_strategy", "vpu")
-    return (fs.KERNEL_OF[precision] + fs.STRATEGY_SUFFIX[strategy]
-            + (fs.PER_SEED if per_seed else fs.PRUNE if prune else ""))
+    return fs.launch_key(precision, module_strategy(precision, k, c),
+                         per_seed=per_seed, prune=prune)
+
+
+def replaces(name: str) -> str:
+    """The TPU kernel branch (file:line) that launch-count key `name` ports."""
+    if name in REPLACES:
+        return REPLACES[name]
+    return _TPU + next(line for part, line in NEW_VARIANT_LINE if part in name)
+
+
+def keyword_only(name: str) -> bool:
+    return any(part in name for part in KEYWORD_ONLY)
 
 
 def kernel_record(name: str, rec: dict, launches: int) -> dict:
@@ -240,7 +332,7 @@ def kernel_record(name: str, rec: dict, launches: int) -> dict:
         "name": _build.KERNELS[kernel][1] + sep + variant,  # the C symbol
         "route": "cuda",
         "source": source(kernel),
-        "replaces": REPLACES[name],
+        "replaces": replaces(name),
         "launches": launches,
         "max_abs_err": rec["max_abs_err"],
         "ms": rec["ms"],
@@ -301,7 +393,7 @@ def plain_time(precision: str, fn) -> float:
 
 
 def bound(M: int, P: int, d: int, c: int, precision: str, S: int = 1,
-          strategy: str = "vpu"):
+          strategy: str = "vpu", fast=None):
     """Least time on the card: the larger of the operations over their
     peaks and the bytes over the memory rate (each input read once, each
     output written once). Three units run side by side, and the busiest
@@ -311,23 +403,32 @@ def bound(M: int, P: int, d: int, c: int, precision: str, S: int = 1,
     'highest': 2 M P d for the fp32 dots plus (6 + 2c) per pair for logit,
     max, exp2 and the sums at the fp32 peak. 'high': the three bf16
     products, 3 * 2 M P d, at the bf16 tensor-core peak, and the per-pair
-    work at the fp32 peak. 'default': as 'high', plus the ln 2 multiply per
-    pair; 'mxu1' and 'inbank' move s1 and s2 to the tensor cores (the
-    product e @ [V | 1], 2 M P (c + 1)) and read no values ('inbank').
+    work at the fp32 peak. The bf16 exponential (`fast`, default:
+    precision == 'default') adds the ln 2 multiply per pair. The value
+    sums: 'vpu' 2 c per pair on the fp32 pipe; 'mxu' the product e @ V,
+    2 M P c, on the fp32 pipe after the fp32 exp2 and on the bf16 tensor
+    cores with the bf16 exponential; 'mxu1' the product e @ [V | 1],
+    2 M P (c + 1), on the tensor cores, s1 included; 'inbank' 2 M P c on
+    the fp32 pipe after fp32 dots, e @ [K | 1] on the tensor cores after
+    split dots, 2 M P (c + 1) with the bf16 exponential and three split
+    products, 3 x 2 M P (c + 1), without; 'inbank' reads no values.
     Per-seed weights (K5, S seeds) change only the weight bytes, S * P
     instead of P."""
-    elem = (6 + 2 * c) * M * P
-    t_sfu = M * P / SFU_RATE * 1e3
+    fast = precision == "default" if fast is None else fast
+    elem = (6 + (1 if fast else 0)) * M * P  # logit, max, sums; ln 2 multiply
+    tc = 0 if precision == "highest" else 3 * 2 * M * P * d
     if precision == "highest":
-        t_ops = max((2 * M * P * d + elem) / PEAK_FP32 * 1e3, t_sfu)
-    else:
-        tc = 3 * 2 * M * P * d
-        if precision == "default":
-            elem += M * P
-            if strategy != "vpu":
-                elem -= (1 + 2 * c) * M * P
-                tc += 2 * M * P * (c + 1)
-        t_ops = max(tc / PEAK_BF16 * 1e3, elem / PEAK_FP32 * 1e3, t_sfu)
+        elem += 2 * M * P * d
+    if strategy == "vpu" or (strategy == "mxu" and not fast) or (
+            strategy == "inbank" and precision == "highest"):
+        elem += 2 * c * M * P
+    elif strategy == "mxu":
+        tc += 2 * M * P * c
+    else:  # 'mxu1', 'inbank' after split dots: s1 rides the product
+        elem -= M * P
+        tc += (1 if fast else 3) * 2 * M * P * (c + 1)
+    t_sfu = M * P / SFU_RATE * 1e3
+    t_ops = max(tc / PEAK_BF16 * 1e3, elem / PEAK_FP32 * 1e3, t_sfu)
     values = 0 if strategy == "inbank" else P * c
     nbytes = 4 * (M * d + M + P * d + P + S * P + values + 2 * M * (2 + c))
     t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -401,18 +502,24 @@ def exact_split_dot(qh64, ql64, kh, kl) -> torch.Tensor:
     return (qh64 @ kh64.T + qh64 @ kl.double().T + ql64 @ kh64.T).float()
 
 
+def plain_with(name, fn, *args, **kw):
+    """`fs.flash_score_update_plain` with its dot function `fs.<name>`
+    replaced by `fn` for the call."""
+    step = getattr(fs, name)
+    setattr(fs, name, fn)
+    try:
+        return fs.flash_score_update_plain(*args, **kw)
+    finally:
+        setattr(fs, name, step)
+
+
 def plain_exact(*args, **kw):
     """`fs.flash_score_update_plain` over the exact split sum: the TPU
     kernel's dot as the JAX package states it, independent of how the
     tensor cores accumulate. The plain version proper (`fs._split_dot`)
     repeats the card's step-by-step rounding; this one stands apart from
     it."""
-    step = fs._split_dot
-    fs._split_dot = exact_split_dot
-    try:
-        return fs.flash_score_update_plain(*args, **kw)
-    finally:
-        fs._split_dot = step
+    return plain_with("_split_dot", exact_split_dot, *args, **kw)
 
 
 EXACT_WORST = {}  # launch key -> worst rel of the kernel vs plain_exact
@@ -789,10 +896,9 @@ def check_masked(tag, key, k, t, what, args, state, mask, kw, rec):
     return got
 
 
-def time_masked(tag, key, k, what, args, M, P, d, mask, kw, rec):
+def time_masked(tag, key, k, what, args, M, P, d, mask, kw, rec, c=3):
     """ms per launch with the mask and without, the plain version's with
     the mask, and the bound of the unskipped work; into `rec`."""
-    c = 3
     skip = mask.float().mean().item()
     ms = cuda_ms(lambda: fs.flash_score_update(*args, empty_state(M, c), prune_mask=mask,
                                                **kw), 5)
@@ -903,27 +1009,412 @@ def phase_prune_stress(recs, M=8192, P=65536):
     return stress
 
 
-def expected_launches(precision, n_bank, per_seed=False, pruned=()):
-    """Launch counts of a 20-step CIFAR10 machine over n_bank images: one
-    sweep per bank chunk per step, under the key of the variant the ELS
-    rule takes at that step's k (with a prune mask at the k's in
-    `pruned`)."""
+# Phase variants (the lines tagged [variants]): the matrix value sums 'mxu'
+# on the 16-channel path, 'inbank' at 'highest'/'high', and the exponential
+# apart from the tier.
+WIDE_C = 16  # channels of the wide path (phase wide)
+# bank images of the wide 'highest' machine (the 'high' and 'default' ones
+# take half): cut from FULL_N (depth), printed as reduced
+WIDE_N = 10000
+WIDE_T = (0.05, 0.5, 0.95)
+# from this d the plain versions run on a row subset: the split dots' sum
+# step by step, K1's in its own order (both cost seconds a call there)
+SUBSET_FROM_D = 200
+
+
+def launched(fn, key):
+    """fn() must launch exactly one kernel, under `key`; returns its result."""
+    before = dict(fs.flash_score_update.launches)
+    out = fn()
+    torch.cuda.synchronize()
+    ran = {k_: n - before[k_] for k_, n in fs.flash_score_update.launches.items()
+           if n != before[k_]}
+    if ran != {key: 1}:
+        fail(f"expected one {key} launch, got {ran}")
+    return out
+
+
+def row_subset(M: int, rps: int | None = None):
+    """Every eighth 64-row query block (every eighth seed's rows with
+    per-seed weights): a plain split-dot sweep at large d costs seconds a
+    call, and rows are independent, so the kernel's rows are held against
+    the plain version's over these rows."""
+    if rps is not None:
+        return torch.arange(0, M, device="cuda").view(-1, rps)[::8].reshape(-1)
+    return torch.arange(0, M, device="cuda").view(-1, 64)[::8].reshape(-1)
+
+
+def plain_in_order(*args, **kw):
+    """`fs.flash_score_update_plain` with K1's fp32 summation order
+    (`fs.fp32_logits_in_order`): K1's plain version at large d, where the
+    logit scale turns the difference between two fp32 orders of the same
+    dot into more than the gate (the BLAS order's distance is printed
+    beside it)."""
+    return plain_with("_fp32_logits", fs.fp32_logits_in_order, *args, **kw)
+
+
+def plain_on(rows, args, state, kw, rps=None, plain=None):
+    """The plain version (`plain`, default fs.flash_score_update_plain) on
+    query rows `rows` only (1-D weights, or whole seeds with per-seed
+    weights)."""
+    plain = plain or fs.flash_score_update_plain
+    if rows is None:
+        return plain(*args, state, **kw)
+    q, qn, *rest = args
+    st = tuple(x[rows] for x in state)
+    if rps is not None:
+        w = rest[3]
+        seeds = torch.unique(rows // rps)
+        rest = list(rest)
+        rest[3] = w[seeds].contiguous()
+    return plain(q[rows], qn[rows], *rest, st, **kw)
+
+
+def pick(state, rows):
+    return state if rows is None else tuple(x[rows] for x in state)
+
+
+def exact_fp32_logits(q, k, dotscale, bias):
+    """(q @ k^T) * dotscale + bias summed exactly (float64), rounded once
+    to float32."""
+    return fs._add_bias((q.double() @ k.double().T) * dotscale, bias.double()).float()
+
+
+def plain_exact_highest(*args, **kw):
+    """The plain version with the bf16 exponential after fp32 dots taken
+    exactly (`exact_fp32_logits` in place of K1's summation order): the
+    exact-sum witness at 'highest' (x = logit - m is rounded to bf16, so
+    the dot's last bits matter as at 'default')."""
+    return plain_with("fp32_logits_in_order", exact_fp32_logits, *args, **kw)
+
+
+def variant_case(tag, key, k, t, args, M, c, kw, rec, chain=True, rows=None,
+                 exact=False, rps=None):
+    """One variant's gates at (k, t): one call against the plain version
+    (on `rows` where given; K1's in its own summation order there, the
+    BLAS order's distance printed), a two-call chain and a carried state
+    with sentinel rows (chain), the bf16 exponential also against the exact
+    sum at the tier's 4e-3 (exact). Returns the kernel's one-call state."""
+    got = launched(lambda: fs.flash_score_update(*args, empty_state(M, c), **kw), key)
+    in_order = (rows is not None and kw["precision"] == "highest"
+                and not kw.get("fast_exp"))
+    want = plain_on(rows, args, empty_state(M, c), kw, rps,
+                    plain_in_order if in_order else None)
+    cases = {"one call" + ("" if rows is None else f", {rows.numel()} rows")
+             + (", K1's summation order" if in_order else ""): (pick(got, rows), want)}
+    if in_order:
+        blas = plain_on(rows, args, empty_state(M, c), kw, rps)
+        e_lse, e_mean, _ = compare(pick(got, rows), blas)
+        print(f"[{tag}] {key} k={k} t={t} vs the plain version in the BLAS order "
+              f"(information): lse rel {e_lse:.2e}, mean rel {e_mean:.2e}", flush=True)
+    if chain:
+        q, qn, p, pn, vals, w = args[:6]
+        P = p.shape[0]
+        h = P // 2 + 37  # not a tile multiple
+        v = (lambda a, b: None) if vals is None else (lambda a, b: vals[a:b])
+        wv = (lambda a, b: w[..., a:b].contiguous())
+        outs = []
+        for fn in (fs.flash_score_update, fs.flash_score_update_plain):
+            half = fn(q, qn, p[:h], pn[:h], v(0, h), wv(0, h), *args[6:8],
+                      empty_state(M, c), **kw)
+            outs.append(fn(q, qn, p[h:], pn[h:], v(h, P), wv(h, P), *args[6:8], half,
+                           **kw))
+        cases["two calls, kernel vs plain"] = tuple(outs)
+        st = tuple(x.clone() for x in got)
+        st[0][::7], st[1][::7], st[2][::7] = fs.NEG_INF, 0.0, 0.0
+        cases["sentinel rows in state"] = (fs.flash_score_update(*args, st, **kw),
+                                           fs.flash_score_update_plain(*args, st, **kw))
+    check_cases(tag, key, k, t, cases, rec)
+    if exact:
+        if kw["precision"] == "highest":
+            want_x = plain_exact_highest(*args, empty_state(M, c), **kw)
+        else:
+            want_x = plain_exact(*args, empty_state(M, c), **kw)
+        e_lse, e_mean, _ = compare(got, want_x)
+        EXACT_WORST[key] = max(EXACT_WORST.get(key, 0.0), e_lse, e_mean)
+        print(f"[{tag}] {key} k={k} t={t} vs the exact dot sum (float64): lse rel "
+              f"{e_lse:.2e}, mean rel {e_mean:.2e} (tol {DEFAULT_TOL:g})", flush=True)
+        if not (e_lse <= DEFAULT_TOL and e_mean <= DEFAULT_TOL):
+            fail(f"{key} is past the tier's {DEFAULT_TOL:g} from the exact sum at k={k}")
+    return got
+
+
+def variant_time(tag, key, k, args, M, P, d, c, kw, rec, rows=None, S=1, rps=None):
+    """ms per launch (CUDA events, 5 after a warm-up), the plain version's
+    ms (over `rows` where given, scaled to M rows: information) and the
+    bound of the function's work; into `rec`."""
+    ms = cuda_ms(lambda: fs.flash_score_update(*args, empty_state(M, c), **kw), 5)
+    fast = kw.get("fast_exp")
+    fast = kw["precision"] == "default" if fast is None else fast
+    if kw["precision"] == "highest" and not fast:
+        rows = None  # the plain version's own (BLAS) time over all rows
+    plain_ms = plain_time(kw["precision"] if rows is None else "high",
+                          lambda: plain_on(rows, args, empty_state(M, c), kw, rps))
+    if rows is not None:
+        plain_ms *= M / rows.numel()
+    b_ms, b_by = bound(M, P, d, c, fs._route(kw["precision"], fast), S=S,
+                       strategy=kw.get("v_strategy", "mxu" if c > fs.MAX_CHANNELS else "vpu"),
+                       fast=fast)
+    print(f"[{tag}] {key} k={k} d={d} M={M} P={P} c={c}: kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms{'' if rows is None else ' (row subset, scaled)'}, bound "
+          f"{b_ms:.3f} ms ({b_by}), {b_ms / ms:.1%} of bound", flush=True)
+    rec.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, k=k)
+    return ms
+
+
+def chunk_inputs(images, k, t, gen):
+    """One full TARGET_BLOCK chunk of `images` at k with zero-weight rows,
+    and queries from SEEDS noised seeds at t: (args without the state, the
+    chunk's geometry)."""
+    c, M = images.shape[-1], SEEDS * 32 * 32
+    g = bank_geometry(images.shape[0], 32, 32, c, k, TARGET_BLOCK)
+    imgs = images[: g.cs]
+    p, ctr, pn = chunk_patches(imgs, k)
+    w_img = torch.full((g.cs,), 1.0 / (MODULE_BATCH * g.per_img), device="cuda")
+    w_img[-max(1, g.cs // 8):] = 0.0
+    w = w_img.repeat_interleave(g.per_img)
+    beta = cosine_noise_schedule(t)
+    at, bt = torch.sqrt(1.0 - beta), torch.sqrt(beta)
+    x = at.item() * imgs[:SEEDS] + bt.item() * torch.randn(
+        imgs[:SEEDS].shape, generator=gen, device="cuda")
+    xq = extract_patches(pad_image(x, k // 2, "circular"), k).reshape(M, g.d)
+    return (xq, (xq * xq).sum(-1), p, pn, ctr, w, at, bt), g
+
+
+def vkey(kw):
+    """The launch key of flash_score_update keywords `kw` (1-D weights)."""
+    fast = kw.get("fast_exp")
+    fast = kw["precision"] == "default" if fast is None else fast
+    strategy = kw.get("v_strategy", "mxu")
+    return fs.launch_key(fs._route(kw["precision"], fast), strategy, fast)
+
+
+def variant_kw(precision, strategy, k, c, fast=None):
+    kw = dict(precision=precision, v_strategy=strategy)
+    if fast is not None:
+        kw["fast_exp"] = fast
+    if strategy == "inbank":
+        kw["inbank_cols"] = (center_index(k, c).start, c)
+    return kw
+
+
+def no_values(args, kw):
+    """args with values None for 'inbank' (it reads the bank's columns)."""
+    return args if kw.get("v_strategy") != "inbank" else (*args[:4], None, *args[5:])
+
+
+def phase_variants(images_dev, images16_dev, gen):
+    """'mxu', 'inbank' and the bf16-exp variants against their plain versions
+    (see the module docstring, phase kernel / k5 / prune); returns (the
+    JSON numbers by launch key, the wide 'mxu' per-launch ms by kernel and
+    k at M = 8192)."""
+    recs, wide_ms = {}, {}
+    # (1) 'mxu' on the 16-channel path, every tier, k in CHECKED_K, every t;
+    # per-launch times at every k of the schedule (the wide machines' sum)
+    for k in sorted(set(CIFAR10_SCALES)):
+        for t in WIDE_T if k in CHECKED_K else (0.5,):
+            args, g = chunk_inputs(images16_dev, k, t, gen)
+            M, P = args[0].shape[0], args[2].shape[0]
+            for precision in ("highest", "high", "default"):
+                kw = dict(precision=precision)  # 'auto' takes 'mxu' at c = 16
+                key = vkey(kw)
+                rec = recs.setdefault(key, {"max_abs_err": 0.0})
+                rows = row_subset(M) if g.d >= SUBSET_FROM_D else None
+                if k in CHECKED_K:
+                    variant_case("variants", key, k, t, args, M, WIDE_C, kw, rec,
+                                 chain=t == 0.5 and rows is None, rows=rows,
+                                 exact=precision == "default")
+                if t == 0.5:
+                    if k in CHECKED_K:
+                        wide_ms.setdefault(key, {})[k] = variant_time(
+                            "variants", key, k, args, M, P, g.d, WIDE_C, kw, rec, rows)
+                    else:
+                        wide_ms.setdefault(key, {})[k] = cuda_ms(
+                            lambda: fs.flash_score_update(*args, empty_state(M, WIDE_C),
+                                                          **kw), 5)
+                        print(f"[variants] {key} k={k} d={g.d} M={M} P={P} c={WIDE_C}: "
+                              f"kernel {wide_ms[key][k]:.3f} ms", flush=True)
+            del args
+    # (2) 'mxu' at c = 9 and 48 (k = 3), and forced at c = 3 against 'vpu'
+    for c in (9, 48):
+        ds_c = synthetic_dataset(num_samples=80, image_size=32, num_channels=c, seed=c)
+        imgs = torch.from_numpy(ds_c.images).cuda()
+        args, g = chunk_inputs(imgs, 3, 0.5, gen)
+        for precision in ("highest", "high", "default"):
+            kw = dict(precision=precision, v_strategy="mxu")
+            key = vkey(kw)
+            variant_case("variants", key, f"3 c={c}", 0.5, args, args[0].shape[0], c, kw,
+                         recs.setdefault(key, {"max_abs_err": 0.0}))
+        del args, imgs
+    args, g = chunk_inputs(images_dev, 3, 0.5, gen)
+    M, P = args[0].shape[0], args[2].shape[0]
+    for precision in ("highest", "high", "default"):
+        kw = dict(precision=precision, v_strategy="mxu")
+        key = vkey(kw)
+        got = variant_case("variants", key, "3 c=3", 0.5, args, M, 3, kw,
+                           recs.setdefault(key, {"max_abs_err": 0.0}))
+        vpu = fs.flash_score_update(*args, empty_state(M, 3), precision=precision,
+                                    v_strategy="vpu")
+        tol = DEFAULT_TOL if precision == "default" else TOL
+        check_cases("variants", key + " vs 'vpu'", 3, 0.5, {"forced 'mxu' at c=3": (got, vpu)},
+                    {"max_abs_err": 0.0}, tol=tol)
+    # (3) 'inbank' at 'highest' and 'high' (c = 3, k = 3, 5); (4) the bf16
+    # exponential after fp32 dots in every strategy (k = 3, 9); (5) 'high'
+    # with the bf16 exponential and 'default' without
+    cases = [(variant_kw(prec, "inbank", k, 3), k, False)
+             for prec in ("highest", "high") for k in (3, 5)]
+    cases += [(variant_kw("highest", strategy, k, 3, fast=True), k, True)
+              for strategy in ("vpu", "mxu1", "inbank", "mxu") for k in (3, 9)]
+    cases += [(variant_kw(prec, strategy, 3, 3, fast=prec == "high"), 3, prec == "high")
+              for prec in ("high", "default") for strategy in ("vpu", "inbank")]
+    for i, (kw, k, bf16_exp) in enumerate(cases):
+        key = vkey(kw)
+        # the routed cases (5) run variants of earlier slices, whose numbers
+        # come from phase kernel: their own are printed only
+        rec = recs.setdefault(key, {"max_abs_err": 0.0}) if i < 12 else {"max_abs_err": 0.0}
+        for t in WIDE_T:
+            args, g = chunk_inputs(images_dev, k, t, gen)
+            args = no_values(args, kw)
+            rows = row_subset(M) if g.d >= SUBSET_FROM_D else None
+            variant_case("variants", key, k, t, args, M, 3, kw, rec,
+                         chain=t == 0.5 and rows is None, rows=rows, exact=bf16_exp)
+            if t == 0.5:
+                variant_time("variants", key, k, args, M, args[2].shape[0], g.d, 3, kw,
+                             rec, rows=rows)
+    # (6) K5: per-seed weights (8 seeds of 1024 rows, label-filtered) in each
+    # new variant; one K5 launch against 8 one-seed 1-D launches (1e-6)
+    k5 = [(dict(precision=prec), WIDE_C, k) for prec in ("highest", "high", "default")
+          for k in (3, 9)]
+    k5 += [(kw, 3, k) for kw, k, _ in cases[:4] + cases[4:12:2]]
+    for kw, c, k in k5:
+        imgs = images16_dev if c == WIDE_C else images_dev
+        args, g = chunk_inputs(imgs, k, 0.5, gen)
+        args = no_values(args, kw)
+        rps = 32 * 32
+        labels = torch.arange(g.cs, device="cuda") % 10
+        w = per_seed_weights(labels, [s % 10 for s in range(SEEDS - 1)] + [10], g)
+        args = (*args[:5], w, *args[6:])
+        key = vkey(kw) + fs.PER_SEED
+        rec = recs.setdefault(key, {"max_abs_err": 0.0})
+        kw5 = dict(kw, rows_per_seed=rps)
+        rows = row_subset(M, rps) if g.d >= SUBSET_FROM_D else None
+        got = variant_case("variants", key, k, 0.5, args, M, c, kw5, rec, chain=rows is None,
+                           rows=rows, rps=rps)
+        diff = 0.0
+        for s_ in range(SEEDS - 1):
+            r = slice(s_ * rps, (s_ + 1) * rps)
+            one = fs.flash_score_update(args[0][r], args[1][r], *args[2:5],
+                                        w[s_].contiguous(), *args[6:8],
+                                        empty_state(rps, c), **kw)
+            diff = max(diff, rel(got[2][r], one[2]), rel(got[1][r], one[1]))
+        print(f"[variants] {key} k={k}: one K5 launch vs one-seed 1-D launches, max "
+              f"rel difference {diff:.2e} (gate 1e-6)", flush=True)
+        if diff > 1e-6:
+            fail(f"{key} differs from the one-seed launches at k={k}")
+        dead = slice((SEEDS - 1) * rps, SEEDS * rps)
+        if not ((got[0][dead] <= fs.NEG_INF / 2).all() and (got[1][dead] == 0).all()):
+            fail(f"{key}: the all-excluded seed's rows are not empty")
+        variant_time("variants", key, k, args, M, args[2].shape[0], g.d, c, kw5, rec,
+                     rows=rows, S=SEEDS, rps=rps)
+    # (7) K6: 'mxu' masked at 'highest' and 'high' on a clustered 16-channel
+    # chunk (sound masks, k = 3) and on the stress problem at d = 144
+    for precision in ("highest", "high"):
+        kw = dict(precision=precision)
+        key = vkey(kw) + fs.PRUNE
+        rec = recs.setdefault(key, {"max_abs_err": 0.0})
+        g = bank_geometry(images16_dev.shape[0], 32, 32, WIDE_C, 3, TARGET_BLOCK)
+        cb = build_clustered_bank(images16_dev[: g.cs], 3, TARGET_BLOCK)
+        p, ctr, pn = cb.bank[0], cb.centers[0], cb.pn[0]
+        w_img = torch.full((g.cs,), 1.0 / (MODULE_BATCH * g.per_img), device="cuda")
+        w = tels._row_weights(cb, w_img, 0, g.per_img)
+        for t in WIDE_T:
+            base, _ = chunk_inputs(images16_dev, 3, t, gen)
+            xq, qn, at, bt = base[0], base[1], base[6], base[7]
+            mask = tels.sweep_masks(cb, w_img, xq, qn, at, bt, per_img=g.per_img)[0]
+            args = (xq, qn, p, pn, ctr, w, at, bt)
+            check_masked("variants", key, 3, t,
+                         f"sound mask ({mask.float().mean().item():.2%} skipped)", args,
+                         empty_state(M, WIDE_C), mask, kw, rec)
+            if t == 0.5:
+                time_masked("variants", key, 3, "sound mask", args, M, p.shape[0], g.d,
+                            mask, kw, rec, c=WIDE_C)
+        del cb, p, ctr, pn
+    phase_prune_stress_wide(recs)
+    return recs, wide_ms
+
+
+def phase_prune_stress_wide(recs, M=8192, P=65536, d=9 * WIDE_C):
+    """The clustered stress problem of phase prune at d = 144, c = 16:
+    'mxu' masked at 'highest' and 'high', more than half skipped, against
+    the plain version (1e-3) and the unmasked kernel (1e-5)."""
+    rng = np.random.RandomState(1)
+    means = rng.normal(0, 2.0, (8, d))
+    bank = means[np.repeat(np.arange(8), P // 8)] + rng.normal(0, 0.2, (P, d))
+    q = means[np.repeat(rng.randint(0, 8, M // 256), 256)] + rng.normal(0, 0.1, (M, d))
+    bank, q = (torch.from_numpy(a.astype(np.float32)).cuda() for a in (bank, q))
+    qn, pn = (q * q).sum(-1), (bank * bank).sum(-1)
+    w = torch.full((P,), 1.0 / P, device="cuda")
+    at, bt = STRESS_AT_BT
+    stats = pr.block_stats(bank[None], torch.ones((1, P), dtype=torch.bool, device="cuda"))
+    mask = pr.prune_masks(q, qn, at, bt, stats, *pr.logw_block_stats(w[None]))
+    skip = mask.float().mean().item()
+    print(f"[variants] stress problem M={M} P={P} d={d} c={WIDE_C}: {skip:.2%} skipped "
+          "(must be above 50%)", flush=True)
+    if not skip > 0.5:
+        fail(f"the wide stress problem's mask skips only {skip:.2%}")
+    vals = bank[:, 4 * WIDE_C : 5 * WIDE_C].contiguous()  # the k = 3 center columns
+    for precision in ("highest", "high"):
+        kw = dict(precision=precision)
+        key = vkey(kw) + fs.PRUNE
+        rec = {"max_abs_err": 0.0}
+        args = (q, qn, bank, pn, vals, w, at, bt)
+        check_masked("variants", key, "stress", f"(a_t {at}, b_t {bt})", "stress mask",
+                     args, empty_state(M, WIDE_C), mask, kw, rec)
+        time_masked("variants", key, "stress", "stress mask", args, M, P, d, mask, kw, rec,
+                    c=WIDE_C)
+        recs[key]["max_abs_err"] = max(recs[key]["max_abs_err"], rec["max_abs_err"])
+
+
+def phase_wide(ds16, n_wide, x16, wide_ms, full_n):
+    """Phase wide, the slice's path: 20-step ELS machines at 'highest',
+    'high' and 'default' on the 16-channel bank (every sweep 'mxu'), each
+    'high' / 'default' at n_wide[precision] images. Returns (launches by
+    key, walls)."""
+    launches, walls = {}, {}
+    for precision in ("highest", "high", "default"):
+        key = fs.launch_key(precision, "mxu")
+        ran, walls[precision], out = phase_machine(
+            f"wide_{precision}", LocalEquivScoreModule, precision, ds16, n_wide[precision],
+            x16, wide_ms[key], full_n=full_n)
+        if set(ran) != {key}:
+            fail(f"wide {precision}: launches {ran}, expected {key} only")
+        for k_, n in ran.items():
+            launches[k_] = launches.get(k_, 0) + n
+        del out
+    return launches, walls
+
+
+def expected_launches(precision, n_bank, per_seed=False, pruned=(), c=3):
+    """Launch counts of a 20-step CIFAR10 machine over n_bank images of c
+    channels: one sweep per bank chunk per step, under the key of the
+    variant the ELS rule takes at that step's k (with a prune mask at the
+    k's in `pruned`)."""
     want = {}
     for i in range(len(CIFAR10_SCALES) - 1, 0, -1):
         k = CIFAR10_SCALES[i]
-        key = launch_key(precision, k, per_seed, prune=k in pruned)
-        nblk = bank_geometry(n_bank, 32, 32, 3, k, TARGET_BLOCK).nblk
+        key = launch_key(precision, k, per_seed, prune=k in pruned, c=c)
+        nblk = bank_geometry(n_bank, 32, 32, c, k, TARGET_BLOCK).nblk
         want[key] = want.get(key, 0) + nblk
     return want
 
 
-def cached_ks(n_bank: int, prune: bool) -> set:
+def cached_ks(n_bank: int, prune: bool, c: int = 3) -> set:
     """The k's an ELS module caches under its default ledger over a 20-step
     CIFAR10 machine: first come, first served in step order, each bank's
     `bank_cache_nbytes` (a k that misses once misses again)."""
     used, ks = 0, set()
     for k in CIFAR10_SCALES[:0:-1]:
-        nbytes = bank_cache_nbytes(n_bank, 32, 32, 3, k, TARGET_BLOCK, prune)
+        nbytes = bank_cache_nbytes(n_bank, 32, 32, c, k, TARGET_BLOCK, prune)
         if k not in ks and used + nbytes <= tels.DEFAULT_BANK_BUDGET:
             used += nbytes
             ks.add(k)
@@ -931,7 +1422,7 @@ def cached_ks(n_bank: int, prune: bool) -> set:
 
 
 def phase_machine(tag, cls, precision, ds, n_bank, x, ms_by_k, prune=False,
-                  before=None, after=None):
+                  before=None, after=None, full_n=FULL_N):
     """One 20-step machine call at full width from seeds x; the tier's
     kernel must carry every sweep (one launch per bank chunk per step, in
     the variant of the step's k; with `prune`, masked at the cached k's),
@@ -939,19 +1430,20 @@ def phase_machine(tag, cls, precision, ds, n_bank, x, ms_by_k, prune=False,
     before the machine call, and returns the device peak it saw;
     `after(module)` runs before the module is dropped. Returns (launches by
     key, wall, output)."""
-    if n_bank < FULL_N:
-        print(f"[{tag}] reduced: {n_bank} of {FULL_N} bank images (depth cut; "
-              "widths, scales and seeds as published)", flush=True)
+    c = x.shape[-1]
+    if n_bank < full_n:
+        print(f"[{tag}] reduced: {n_bank} of {full_n} bank images (depth cut; "
+              "widths, channels, scales and seeds as published)", flush=True)
     mod = cls((ds.images[:n_bank], ds.labels[:n_bank]), batch_size=MODULE_BATCH,
               target_block=TARGET_BLOCK, precision=precision, device="cuda",
               **({"prune": True} if prune else {}))
-    machine = ScheduledScoreMachine(mod, in_channels=3, imsize=32,
+    machine = ScheduledScoreMachine(mod, in_channels=c, imsize=32,
                                     scales=CIFAR10_SCALES)
     steps = range(len(CIFAR10_SCALES) - 1, 0, -1)
     pruned = cached_ks(n_bank, True) if prune else set()
-    expected = expected_launches(precision, n_bank, pruned=pruned)
+    expected = expected_launches(precision, n_bank, pruned=pruned, c=c)
     kernel_s = sum(
-        bank_geometry(n_bank, 32, 32, 3, CIFAR10_SCALES[i], TARGET_BLOCK).nblk
+        bank_geometry(n_bank, 32, 32, c, CIFAR10_SCALES[i], TARGET_BLOCK).nblk
         * ms_by_k[CIFAR10_SCALES[i]] for i in steps) / 1e3
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -980,7 +1472,7 @@ def phase_machine(tag, cls, precision, ds, n_bank, x, ms_by_k, prune=False,
     if ran != expected:
         fail(f"{tag}: launches {ran}, expected {expected}")
     if out.shape != x.shape or not torch.isfinite(out).all():
-        fail(f"{tag}: output is not a finite [8, 32, 32, 3] tensor")
+        fail(f"{tag}: output is not a finite [8, 32, 32, {c}] tensor")
     if after is not None:
         after(mod)
     del mod, machine
@@ -1295,16 +1787,21 @@ def phase_devices(seed):
             fail(f"card and CPU disagree on the small {what} machine")
 
 
-def prototype_set(seed, n=64, protos=4, size=16, noise=0.01):
+def prototype_set(seed, n=64, protos=4, size=16, noise=0.01, channels=3):
     """n images in `protos` runs of one flat colour each (distinct corners
-    of the colour cube at +-0.8) plus small noise, labelled by colour: the
-    clustered bank's stats blocks hold one colour each, so the masks skip
-    at the last, low-noise steps (on the synthetic textures they do not)."""
+    of the colour cube at +-0.8; with more channels, random corners) plus
+    small noise, labelled by colour: the clustered bank's stats blocks hold
+    one colour each, so the masks skip at the last, low-noise steps (on the
+    synthetic textures they do not)."""
     rs = np.random.RandomState(seed)
-    corners = np.array(list(itertools.product([-0.8, 0.8], repeat=3)), np.float32)
-    colour = corners[rs.permutation(8)[:protos]].reshape(protos, 1, 1, 3)
+    if channels == 3:
+        corners = np.array(list(itertools.product([-0.8, 0.8], repeat=3)), np.float32)
+        colour = corners[rs.permutation(8)[:protos]]
+    else:
+        colour = rs.choice([-0.8, 0.8], size=(protos, channels)).astype(np.float32)
+    colour = colour.reshape(protos, 1, 1, channels)
     idx = np.arange(n) * protos // n
-    imgs = colour[idx] + noise * rs.normal(size=(n, size, size, 3))
+    imgs = colour[idx] + noise * rs.normal(size=(n, size, size, channels))
     return imgs.astype(np.float32), idx.astype(np.int32)
 
 
@@ -1362,9 +1859,89 @@ def phase_devices_prune(seed):
     return launches
 
 
+def phase_devices_wide(seed):
+    """Small 16-channel machines on cuda and on cpu (plain versions), every
+    sweep 'mxu': ELS at each tier, bbELS at 'high', ELS with a 2-seed label
+    vector at each tier (per-seed 'mxu', K5), at 1e-3; ELS prune=True at 'highest' and
+    'high' over 16-channel prototype images, with a skip fraction above 0
+    on both devices. The 'default' machines are held at
+    DEVICES_WIDE_DEFAULT_TOL, with their sensitivity to the dots' last bits
+    and the tier gap printed. Returns the card's launches."""
+    small = synthetic_dataset(num_samples=64, image_size=16, num_channels=WIDE_C,
+                              seed=seed + 2)
+    x = np.random.RandomState(seed).normal(size=(2, 16, 16, WIDE_C)).astype(np.float32)
+    vec = np.unique(small.labels)[:2].astype(np.int64)  # two labels present
+    els_scales = [3, 3, 3, 3, 5, 5, 5, 7, 7, 9]
+    cases = [(f"ELS {p!r}", LocalEquivScoreModule, p, None) for p in ("highest", "high",
+                                                                       "default")]
+    cases.append(("bbELS 'high'", LocalEquivBordersScoreModule, "high", None))
+    cases += [(f"conditional ELS {p!r}", LocalEquivScoreModule, p, vec)
+              for p in ("highest", "high", "default")]
+    launches = {}
+
+    def run(cls, precision, label, dev):
+        mod = cls((small.images, small.labels), batch_size=16, precision=precision,
+                  device=dev)
+        return ScheduledScoreMachine(mod, in_channels=WIDE_C, imsize=16,
+                                     scales=els_scales)(x, label=label).cpu()
+
+    for what, cls, precision, label in cases:
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            before = dict(fs.flash_score_update.launches)
+            outs[dev] = run(cls, precision, label, dev)
+            for key, n in fs.flash_score_update.launches.items():
+                launches[key] = launches.get(key, 0) + n - before[key]
+        e = rel(outs["cuda"], outs["cpu"])
+        tol = DEVICES_WIDE_DEFAULT_TOL if precision == "default" else TOL
+        print(f"[devices] {what} 10-step machine, N=64 16x16x{WIDE_C}, b=2"
+              f"{'' if label is None else f', labels {label.tolist()}'}: cuda vs cpu rel "
+              f"{e:.2e} (tol {TOL:g})", flush=True)
+        if precision == "default":
+            step = fs._split_dot
+            fs._split_dot = exact_split_dot
+            try:
+                sens = rel(run(cls, precision, label, "cpu"), outs["cpu"])
+            finally:
+                fs._split_dot = step
+            gap = rel(run(cls, "high", label, "cpu"), outs["cpu"])
+            print(f"[devices] {what}, 16 channels: the CPU machine over the exact split "
+                  f"sum (its sensitivity to the dots' last bits, information) rel "
+                  f"{sens:.2e}; the tier gap to 'high' on the CPU rel {gap:.2e}; held at "
+                  f"{DEVICES_WIDE_DEFAULT_TOL:g}", flush=True)
+        if not e <= tol:
+            fail(f"card and CPU disagree on the small 16-channel {what} machine")
+    imgs, labels = prototype_set(seed, channels=WIDE_C)
+    for precision in ("highest", "high"):
+        outs, fracs = {}, {}
+        for dev in ("cuda", "cpu"):
+            mod = LocalEquivScoreModule((imgs, labels), batch_size=16, precision=precision,
+                                        device=dev, prune=True)
+            before = dict(fs.flash_score_update.launches)
+            with MaskSpy() as masks:
+                outs[dev] = ScheduledScoreMachine(mod, in_channels=WIDE_C, imsize=16,
+                                                  scales=els_scales)(x).cpu()
+            for key, n in fs.flash_score_update.launches.items():
+                launches[key] = launches.get(key, 0) + n - before[key]
+            fracs[dev] = np.mean([f for _, _, f in masks.calls])
+        e = rel(outs["cuda"], outs["cpu"])
+        print(f"[devices] ELS {precision!r} prune=True 10-step machine, prototype images "
+              f"N=64 16x16x{WIDE_C}, b=2: cuda vs cpu rel {e:.2e} (tol {TOL:g}); mean skip "
+              f"fraction cuda {fracs['cuda']:.2%}, cpu {fracs['cpu']:.2%}", flush=True)
+        if not e <= TOL:
+            fail(f"card and CPU disagree on the small pruned 16-channel {precision!r} machine")
+        if not (fracs["cuda"] > 0 and fracs["cpu"] > 0):
+            fail(f"the small pruned 16-channel {precision!r} machine's masks skip nothing")
+    return {k_: n for k_, n in launches.items() if n}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--n", type=int, default=FULL_N, help="bank images (depth)")
+    ap.add_argument("--n", type=int, default=RGB_N,
+                    help="bank images of the RGB machines (depth)")
+    ap.add_argument("--n-wide", type=int, default=WIDE_N,
+                    help="bank images of the 16-channel ELS 'highest' machine "
+                         "(the 'high' and 'default' ones take half)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -1391,10 +1968,17 @@ def main(argv=None) -> int:
                   f"{rec['ms']:.3f} ms at k={rec['k']}", flush=True)
         else:
             recs[key] = rec
-    del images_dev
+    n_wide = {"highest": args.n_wide, "high": args.n_wide // 2,
+              "default": args.n_wide // 2}
+    ds16 = synthetic_dataset(num_samples=max(n_wide.values()), image_size=32,
+                             num_channels=WIDE_C, seed=args.seed + WIDE_C)
+    images16_dev = torch.from_numpy(ds16.images[:256]).cuda()
+    variant_recs, wide_ms = phase_variants(images_dev, images16_dev, gen)
+    recs.update(variant_recs)
+    del images_dev, images16_dev
     torch.cuda.empty_cache()
-    print("[exact] worst rel of each variant against the exact split sum, over the "
-          "kernel, mxu1 and k5 cases: " + ", ".join(
+    print("[exact] worst rel of each variant against the exact dot sum, over the "
+          "kernel, mxu1, k5 and variants cases: " + ", ".join(
               f"{key} {e:.2e}" for key, e in EXACT_WORST.items()), flush=True)
     print(f"[time] {time.perf_counter() - t_start:.1f} s so far", flush=True)
     path = {}  # launches by key on the paths (machines, pipeline, CLI)
@@ -1425,6 +2009,11 @@ def main(argv=None) -> int:
         print(f"[{fast}] the tier's cost in accuracy (information): output vs {high}'s "
               f"from the same seeds, rel {rel(outs[fast], outs[high]):.2e}; wall "
               f"{walls[fast] / walls[high]:.3f}x", flush=True)
+    x16 = torch.randn((SEEDS, 32, 32, WIDE_C), generator=gen, device="cuda")
+    ran, wide_walls = phase_wide(ds16, n_wide, x16, wide_ms, FULL_N)
+    add(ran)
+    del ds16
+    print(f"[time] {time.perf_counter() - t_start:.1f} s so far", flush=True)
     add(phase_mxu1_path(ds, args.n, gen))
     got, mod = phase_cond(ds, args.n, walls["main"])
     add(got)
@@ -1436,12 +2025,17 @@ def main(argv=None) -> int:
     print(f"[time] {time.perf_counter() - t_start:.1f} s so far", flush=True)
     phase_devices(args.seed)
     add(phase_devices_prune(args.seed))
+    add(phase_devices_wide(args.seed))
     print(f"[time] {time.perf_counter() - t_start:.1f} s in all", flush=True)
-    never = [key for key in recs if not path.get(key)]
+    never = [key for key in recs if not path.get(key) and not keyword_only(key)]
     if never:
         fail(f"kernel variants never launched on the paths: {never} ({path})")
+    for key in recs:
+        if keyword_only(key):
+            print(f"[variants] {key}: reached by no module path (keyword only, as in "
+                  f"the JAX package); {path.get(key, 0)} path launches", flush=True)
     print(json.dumps({"kernels": [
-        kernel_record(name, rec, path[name]) for name, rec in recs.items()
+        kernel_record(name, rec, path.get(name, 0)) for name, rec in recs.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -46,17 +46,19 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 # (q, bias, bank, values, dotscale, m_in, s1_in, s2_in, m_out, s1_out,
-#  s2_out, M, rows_per_seed, P, d, c, mask, mask_stride, device, stream):
-# the flash-score kernels' C interface; bias is [M / rows_per_seed, P]
-# (1-D weights: rows_per_seed = M); mask is null or the int32 skip mask
-# [ceil(M / PRUNE_ROWS), mask_stride] of 1-D weights (K6)
+#  s2_out, M, rows_per_seed, P, d, c, mask, mask_stride, strategy, col0,
+#  fast, device, stream): the flash-score kernels' C interface; bias is
+# [M / rows_per_seed, P] (1-D weights: rows_per_seed = M); mask is null or
+# the int32 skip mask [ceil(M / PRUNE_ROWS), mask_stride] of 1-D weights
+# (K6); strategy is the value strategy's code (`flash_score.STRATEGY_CODE`),
+# col0 the first center column of 'inbank' (-1 otherwise), fast 1 for the
+# bf16 exponential
 _FLASH_ARGS = [
     _P, _P, _P, _P, ctypes.c_float, _P, _P, _P, _P, _P, _P,
     ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-    ctypes.c_int, _P, ctypes.c_longlong, ctypes.c_int, _P,
+    ctypes.c_int, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, _P,
 ]
-# the 'default' kernel adds (strategy, col0) after mask_stride
-_FAST_ARGS = _FLASH_ARGS[:18] + [ctypes.c_int, ctypes.c_int] + _FLASH_ARGS[18:]
 
 # name -> (source, C symbol, argtypes)
 KERNELS = {
@@ -64,7 +66,7 @@ KERNELS = {
     "flash_score_bf16x3": (
         "flash_score_bf16x3.cu", "flash_score_bf16x3", _FLASH_ARGS,
     ),
-    "flash_score_fast": ("flash_score_fast.cu", "flash_score_fast", _FAST_ARGS),
+    "flash_score_fast": ("flash_score_fast.cu", "flash_score_fast", _FLASH_ARGS),
     # (A, B, C, D, n): the tensor-core rounding probe of `ops.k2_numerics`
     "mma_probe": ("mma_probe.cu", "mma_probe", [_P, _P, _P, _P, ctypes.c_int]),
 }

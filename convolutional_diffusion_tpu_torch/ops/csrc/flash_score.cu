@@ -1,11 +1,15 @@
-// Fused flash-score sweep, fp32 ('highest' tier, per-channel value sums),
-// hand-written for Hopper (sm_90a).
+// Fused flash-score sweep after fp32 dots ('highest' tier), hand-written
+// for Hopper (sm_90a).
 //
 // Replaces the TPU kernel convolutional_diffusion_tpu/ops/flash_score.py
 // `_kernel` / `_kernel_body` (the one `pl.pallas_call` of that package) in
-// its precision='highest', v_strategy='vpu' variant, with 1-D weights
-// (variant K1) or per-seed weights (variant K5: the JAX wrapper's vmap of
-// the kernel over seeds, `flash_score_update` with 2-D w and
+// its precision='highest' variants: v_strategy='vpu' with the fp32 exp2
+// (variant K1), the matrix value sums 'mxu' (e @ V, any c; what 'auto'
+// takes at c > 8) and 'inbank' (e @ the bank tile's center columns, no
+// values operand), both K4, and the bf16 exponential after fp32 dots
+// (fast_exp=True at 'highest', K3) in 'vpu', 'mxu1', 'inbank' and 'mxu';
+// each with 1-D weights or per-seed weights (variant K5: the JAX wrapper's
+// vmap of the kernel over seeds, `flash_score_update` with 2-D w and
 // rows_per_seed), and with 1-D weights the prune skip bit (variant K6:
 // `_kernel`'s `prune` branch, one skip flag per query block and bank block).
 //
@@ -62,11 +66,30 @@
 // move, every exp2 is 0), so the plain version masks logits instead. A block
 // with every tile skipped writes its carried state through unchanged. All
 // threads of a block read the same flags: no divergence.
+//
+// Wide value sums (the WIDE instantiations: 'mxu', 'inbank', 'vpu' past 8
+// channels, and every strategy with the bf16 exponential): s2 [BQ, c] lives
+// in dynamic shared memory and each bank tile's exponentials go through
+// shared memory into a small fp32 product e @ V (value_sums.cuh ValueTile),
+// so any c runs without an instantiation per c and without holding a
+// c-wide state in registers. The product rule follows the JAX kernel's
+// dtypes: fp32 products with the fp32 exp2 (every strategy); with the bf16
+// exponential e = bf16(expf(bf16(bf16(x) * bf16(ln 2)))) of x = logit - m,
+// 'vpu' rounds each product e * bf16(v) to bf16, 'mxu'/'mxu1' take the
+// exact products e * bf16(v), and 'inbank' e * v with v in fp32 (HIGHEST
+// promotes the bf16 e). 'mxu1' is 'mxu' here: s1 is the fp32 row sum either
+// way. m is re-based once per 128-row bank tile, which with the bf16
+// exponential is part of the function (x is rounded against the tile's m);
+// the plain version re-bases at the same rows. 'inbank' reads the center
+// columns col0 .. col0 + c of each bank row from device memory (the rows
+// the tile just staged, so from L2) through a row stride of d. The
+// per-row 'vpu' instantiations (c <= 8, fp32 exp2) are the code they were.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "prune_tiles.cuh"
+#include "value_sums.cuh"
 
 namespace {
 
@@ -82,7 +105,12 @@ constexpr int QL = BQ * BK / NT;  // query elements each thread stages
 constexpr int KL = BP * BK / NT;  // bank elements each thread stages
 constexpr float NEG_INF = -1e30f;
 
-template <int C, bool PRUNE>
+using ValueTile = cdt_vals::ValueTile<BQ, BP, NT>;
+
+// WIDE: the wide value sums (s2 in shared memory, runtime c, `rule`; C is
+// 1 and unused); FAST: the bf16 exponential (WIDE only). Otherwise the
+// per-row 'vpu' sums of C channels with the fp32 exp2.
+template <int C, bool WIDE, bool FAST, bool PRUNE>
 __global__ void __launch_bounds__(NT) flash_score_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ bias,
     const float* __restrict__ bank, const float* __restrict__ values,
@@ -90,13 +118,17 @@ __global__ void __launch_bounds__(NT) flash_score_f32_kernel(
     const float* __restrict__ s1_in, const float* __restrict__ s2_in,
     float* __restrict__ m_out, float* __restrict__ s1_out,
     float* __restrict__ s2_out, int64_t rps, int64_t P, int d,
-    const int* __restrict__ mask, int64_t mask_stride) {
-  constexpr int VL = (BP * C + NT - 1) / NT;  // value elements each thread stages
+    const int* __restrict__ mask, int64_t mask_stride, int c_wide,
+    int64_t vstride, int rule) {
+  static_assert(WIDE || !FAST, "the bf16 exponential runs in the wide mode");
+  constexpr int VL = WIDE ? 1 : (BP * C + NT - 1) / NT;  // value elements each thread stages
 
   __shared__ __align__(16) float As[BK][AS];
   __shared__ __align__(16) float Bs[BK][BS];
   __shared__ float bias_s[BP];
-  __shared__ float v_s[C][BP];
+  __shared__ float v_s[WIDE ? 1 : C][BP];
+  extern __shared__ float4 dyn_smem[];  // WIDE: ValueTile
+  const ValueTile vt(reinterpret_cast<float*>(dyn_smem));
 
   const int tid = threadIdx.x;
   const int tx = tid & 15;
@@ -118,10 +150,13 @@ __global__ void __launch_bounds__(NT) flash_score_f32_kernel(
     const bool live = r < row_end;
     m[i] = live ? m_in[r] : NEG_INF;
     s1[i] = (live && tx == 0) ? s1_in[r] : 0.f;
+    if constexpr (!WIDE) {
 #pragma unroll
-    for (int c = 0; c < C; ++c)
-      s2[i][c] = (live && tx == 0) ? s2_in[r * C + c] : 0.f;
+      for (int c = 0; c < C; ++c)
+        s2[i][c] = (live && tx == 0) ? s2_in[r * C + c] : 0.f;
+    }
   }
+  if constexpr (WIDE) vt.load_state(s2_in, row0, row_end, c_wide, tid);
 
   const int nk = (d + BK - 1) / BK;
   // the live bank tiles (all of them without a mask), K6
@@ -149,10 +184,12 @@ __global__ void __launch_bounds__(NT) flash_score_f32_kernel(
     }
     if (kt == 0) {
       rb = (tid < BP && p0 + tid < P) ? bias[p0 + tid] : NEG_INF;
+      if constexpr (!WIDE) {
 #pragma unroll
-      for (int j = 0; j < VL; ++j) {
-        const int e = tid + j * NT;
-        rv[j] = (e < BP * C && p0 + e / C < P) ? values[p0 * C + e] : 0.f;
+        for (int j = 0; j < VL; ++j) {
+          const int e = tid + j * NT;
+          rv[j] = (e < BP * C && p0 + e / C < P) ? values[p0 * C + e] : 0.f;
+        }
       }
     }
   };
@@ -170,10 +207,12 @@ __global__ void __launch_bounds__(NT) flash_score_f32_kernel(
     }
     if (kt == 0) {
       if (tid < BP) bias_s[tid] = rb;
+      if constexpr (!WIDE) {
 #pragma unroll
-      for (int j = 0; j < VL; ++j) {
-        const int e = tid + j * NT;
-        if (e < BP * C) v_s[e % C][e / C] = rv[j];
+        for (int j = 0; j < VL; ++j) {
+          const int e = tid + j * NT;
+          if (e < BP * C) v_s[e % C][e / C] = rv[j];
+        }
       }
     }
   };
@@ -241,15 +280,28 @@ __global__ void __launch_bounds__(NT) flash_score_f32_kernel(
 #pragma unroll
         for (int j = 0; j < TN; ++j) {
           const int col = (j < 4) ? tx * 4 + j : 64 + tx * 4 + (j - 4);
-          const float e = exp2f(lg[j] - m_safe);
+          const float e =
+              FAST ? cdt_vals::fast_exp(lg[j] - m_safe) : exp2f(lg[j] - m_safe);
           t1 += e;
+          if constexpr (WIDE) {
+            vt.e[(ty * TM + i) * ValueTile::ES + col] = e;
+          } else {
 #pragma unroll
-          for (int c = 0; c < C; ++c) t2[c] = fmaf(e, v_s[c][col], t2[c]);
+            for (int c = 0; c < C; ++c) t2[c] = fmaf(e, v_s[c][col], t2[c]);
+          }
         }
         s1[i] = s1[i] * scale + t1;
+        if constexpr (WIDE) {
+          if (tx == 0) vt.scale[ty * TM + i] = scale;
+        } else {
 #pragma unroll
-        for (int c = 0; c < C; ++c) s2[i][c] = s2[i][c] * scale + t2[c];
+          for (int c = 0; c < C; ++c) s2[i][c] = s2[i][c] * scale + t2[c];
+        }
         m[i] = m_new;
+      }
+      if constexpr (WIDE) {  // s2 <- s2 * scale + e @ V of this tile
+        __syncthreads();
+        vt.accumulate(values, vstride, pt * BP, P, c_wide, rule, tid);
       }
     }
 
@@ -266,34 +318,50 @@ __global__ void __launch_bounds__(NT) flash_score_f32_kernel(
 #pragma unroll
     for (int o = 8; o > 0; o >>= 1) {
       s1[i] += __shfl_xor_sync(0xffffffffu, s1[i], o);
+      if constexpr (!WIDE) {
 #pragma unroll
-      for (int c = 0; c < C; ++c)
-        s2[i][c] += __shfl_xor_sync(0xffffffffu, s2[i][c], o);
+        for (int c = 0; c < C; ++c)
+          s2[i][c] += __shfl_xor_sync(0xffffffffu, s2[i][c], o);
+      }
     }
     const int64_t r = row0 + ty * TM + i;
     if (tx == 0 && r < row_end) {
       m_out[r] = m[i];
       s1_out[r] = s1[i];
+      if constexpr (!WIDE) {
 #pragma unroll
-      for (int c = 0; c < C; ++c) s2_out[r * C + c] = s2[i][c];
+        for (int c = 0; c < C; ++c) s2_out[r * C + c] = s2[i][c];
+      }
     }
   }
+  // the loop's last __syncthreads ordered every update of the shared s2
+  if constexpr (WIDE) vt.store_state(s2_out, row0, row_end, c_wide, tid);
 }
 
-template <int C>
-void launch(const void* q, const void* bias, const void* bank,
-            const void* values, float dotscale, const void* m_in,
-            const void* s1_in, const void* s2_in, void* m_out, void* s1_out,
-            void* s2_out, int64_t M, int64_t rps, int64_t P, int d,
-            const int* mask, int64_t mask_stride, cudaStream_t stream) {
+template <int C, bool WIDE, bool FAST>
+int launch(const void* q, const void* bias, const void* bank,
+           const void* values, float dotscale, const void* m_in,
+           const void* s1_in, const void* s2_in, void* m_out, void* s1_out,
+           void* s2_out, int64_t M, int64_t rps, int64_t P, int d,
+           const int* mask, int64_t mask_stride, int c, int64_t vstride,
+           int rule, cudaStream_t stream) {
   const dim3 grid((unsigned)((rps + BQ - 1) / BQ), (unsigned)(M / rps));
-  auto kernel = mask != nullptr ? flash_score_f32_kernel<C, true>
-                                : flash_score_f32_kernel<C, false>;
-  kernel<<<grid, NT, 0, stream>>>(
+  auto kernel = mask != nullptr ? flash_score_f32_kernel<C, WIDE, FAST, true>
+                                : flash_score_f32_kernel<C, WIDE, FAST, false>;
+  size_t smem = 0;
+  if constexpr (WIDE) {
+    smem = ValueTile::bytes(c);
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<grid, NT, smem, stream>>>(
       (const float*)q, (const float*)bias, (const float*)bank,
       (const float*)values, dotscale, (const float*)m_in,
       (const float*)s1_in, (const float*)s2_in, (float*)m_out,
-      (float*)s1_out, (float*)s2_out, rps, P, d, mask, mask_stride);
+      (float*)s1_out, (float*)s2_out, rps, P, d, mask, mask_stride, c,
+      vstride, rule);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -302,7 +370,9 @@ void launch(const void* q, const void* bias, const void* bank,
 // synchronise; returns cudaGetLastError() after the launch (0 = launched).
 // bias is [M / rows_per_seed, P]; rows_per_seed = M for 1-D weights. mask is
 // null or, with 1-D weights only, the int32 skip mask
-// [ceil(M / PRUNE_ROWS), mask_stride] (K6, see the top).
+// [ceil(M / PRUNE_ROWS), mask_stride] (K6, see the top). strategy: 0 'vpu',
+// 1 'mxu1' (bf16 exponential only), 2 'inbank' (values may be null; V =
+// bank[:, col0 : col0 + c]), 3 'mxu'; fast 1 for the bf16 exponential.
 extern "C" int flash_score_f32(const void* q, const void* bias,
                                const void* bank, const void* values,
                                float dotscale, const void* m_in,
@@ -310,35 +380,47 @@ extern "C" int flash_score_f32(const void* q, const void* bias,
                                void* m_out, void* s1_out, void* s2_out,
                                long long M, long long rows_per_seed,
                                long long P, int d, int c, const void* mask,
-                               long long mask_stride, int device,
-                               void* stream) {
+                               long long mask_stride, int strategy, int col0,
+                               int fast, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (M <= 0) return (int)cudaSuccess;
   if (rows_per_seed <= 0 || M % rows_per_seed != 0 ||
-      M / rows_per_seed > 65535 ||
+      M / rows_per_seed > 65535 || c < 1 || strategy < 0 || strategy > 3 ||
+      (strategy == 1 && !fast) ||
+      (strategy == 2 && (col0 < 0 || col0 + c > d)) ||
       (mask != nullptr &&
        (rows_per_seed != M || mask_stride < (P + PRUNE_BLOCK - 1) / PRUNE_BLOCK)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (c) {
-#define CDT_CASE(CC)                                                        \
-  case CC:                                                                  \
-    launch<CC>(q, bias, bank, values, dotscale, m_in, s1_in, s2_in, m_out, \
-               s1_out, s2_out, M, rows_per_seed, P, d, (const int*)mask,   \
-               mask_stride, s);                                             \
-    break;
-    CDT_CASE(1)
-    CDT_CASE(2)
-    CDT_CASE(3)
-    CDT_CASE(4)
-    CDT_CASE(5)
-    CDT_CASE(6)
-    CDT_CASE(7)
-    CDT_CASE(8)
+  if (!fast && strategy == 0 && c <= 8) {  // per-row 'vpu' sums
+    switch (c) {
+#define CDT_CASE(CC)                                                         \
+  case CC:                                                                   \
+    return launch<CC, false, false>(q, bias, bank, values, dotscale, m_in,   \
+                                    s1_in, s2_in, m_out, s1_out, s2_out, M,  \
+                                    rows_per_seed, P, d, (const int*)mask,   \
+                                    mask_stride, c, c, 0, s);
+      CDT_CASE(1)
+      CDT_CASE(2)
+      CDT_CASE(3)
+      CDT_CASE(4)
+      CDT_CASE(5)
+      CDT_CASE(6)
+      CDT_CASE(7)
+      CDT_CASE(8)
 #undef CDT_CASE
-    default:
-      return (int)cudaErrorInvalidValue;
+    }
   }
-  return (int)cudaGetLastError();
+  // the wide value sums: V is the values [P, c] or the bank's center columns
+  const bool inbank = strategy == 2;
+  const void* vals = inbank ? (const void*)((const float*)bank + col0) : values;
+  const int64_t vstride = inbank ? d : c;
+  const int rule = !fast ? cdt_vals::V_FP32
+                   : strategy == 0 ? cdt_vals::V_BF16_PRODUCT
+                   : inbank ? cdt_vals::V_FP32 : cdt_vals::V_BF16;
+  auto wide = fast ? launch<1, true, true> : launch<1, true, false>;
+  return wide(q, bias, bank, vals, dotscale, m_in, s1_in, s2_in, m_out, s1_out,
+              s2_out, M, rows_per_seed, P, d, (const int*)mask, mask_stride, c,
+              vstride, rule, s);
 }

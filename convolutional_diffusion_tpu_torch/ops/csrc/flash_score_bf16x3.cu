@@ -72,7 +72,10 @@
 // Plain C entry point (bound with ctypes). Launches on `stream` and does not
 // synchronise; returns cudaGetLastError() after the launch (0 = launched).
 // bias is [M / rows_per_seed, P]; rows_per_seed = M for 1-D weights. mask is
-// null or the K6 skip mask of 1-D weights (flash_score_split.cuh).
+// null or the K6 skip mask of 1-D weights. strategy: 0 'vpu', 2 'inbank'
+// (values may be null; V = bank[:, col0 : col0 + c]), 3 'mxu'; fast must be
+// 0 (the bf16 exponential after split dots is flash_score_fast's).
+// flash_score_split.cuh `sweep` routes them.
 extern "C" int flash_score_bf16x3(const void* q, const void* bias,
                                   const void* bank, const void* values,
                                   float dotscale, const void* m_in,
@@ -80,10 +83,12 @@ extern "C" int flash_score_bf16x3(const void* q, const void* bias,
                                   void* m_out, void* s1_out, void* s2_out,
                                   long long M, long long rows_per_seed,
                                   long long P, int d, int c, const void* mask,
-                                  long long mask_stride, int device,
+                                  long long mask_stride, int strategy,
+                                  int col0, int fast, int device,
                                   void* stream) {
-  return cdt_split::launch_checked<cdt_split::HIGH>(
-      q, bias, bank, values, dotscale, m_in, s1_in, s2_in, m_out, s1_out,
-      s2_out, M, rows_per_seed, P, d, c, mask, mask_stride, -1, device,
-      stream);
+  if (fast != 0) return (int)cudaErrorInvalidValue;
+  return cdt_split::sweep<false>(q, bias, bank, values, dotscale, m_in, s1_in,
+                                 s2_in, m_out, s1_out, s2_out, M,
+                                 rows_per_seed, P, d, c, mask, mask_stride,
+                                 strategy, col0, device, stream);
 }

@@ -40,11 +40,12 @@
 #include "flash_score_split.cuh"
 
 // Plain C entry point (bound with ctypes). strategy: 0 'vpu', 1 'mxu1',
-// 2 'inbank' (values may be null; V = bank[:, col0 : col0 + c]). Launches on
-// `stream` and does not synchronise; returns cudaGetLastError() after the
-// launch (0 = launched). bias is [M / rows_per_seed, P]; rows_per_seed = M
-// for 1-D weights. mask is null or the K6 skip mask of 1-D weights
-// (flash_score_split.cuh).
+// 2 'inbank' (values may be null; V = bank[:, col0 : col0 + c]), 3 'mxu';
+// fast must be 1. Launches on `stream` and does not synchronise; returns
+// cudaGetLastError() after the launch (0 = launched). bias is
+// [M / rows_per_seed, P]; rows_per_seed = M for 1-D weights. mask is null or
+// the K6 skip mask of 1-D weights. flash_score_split.cuh `sweep` routes
+// them.
 extern "C" int flash_score_fast(const void* q, const void* bias,
                                 const void* bank, const void* values,
                                 float dotscale, const void* m_in,
@@ -53,21 +54,10 @@ extern "C" int flash_score_fast(const void* q, const void* bias,
                                 long long M, long long rows_per_seed,
                                 long long P, int d, int c, const void* mask,
                                 long long mask_stride, int strategy,
-                                int col0, int device, void* stream) {
-  using namespace cdt_split;
-  if (strategy == 0)
-    return launch_checked<FAST_VPU>(q, bias, bank, values, dotscale, m_in,
-                                    s1_in, s2_in, m_out, s1_out, s2_out, M,
-                                    rows_per_seed, P, d, c, mask, mask_stride,
-                                    -1, device, stream);
-  if (strategy == 1 || strategy == 2) {
-    if (strategy == 2 && (col0 < 0 || col0 + c > d))
-      return (int)cudaErrorInvalidValue;
-    return launch_checked<FAST_MMA>(q, bias, bank, values, dotscale, m_in,
-                                    s1_in, s2_in, m_out, s1_out, s2_out, M,
-                                    rows_per_seed, P, d, c, mask, mask_stride,
-                                    strategy == 2 ? col0 : -1, device,
-                                    stream);
-  }
-  return (int)cudaErrorInvalidValue;
+                                int col0, int fast, int device, void* stream) {
+  if (fast != 1) return (int)cudaErrorInvalidValue;
+  return cdt_split::sweep<true>(q, bias, bank, values, dotscale, m_in, s1_in,
+                                s2_in, m_out, s1_out, s2_out, M, rows_per_seed,
+                                P, d, c, mask, mask_stride, strategy, col0,
+                                device, stream);
 }

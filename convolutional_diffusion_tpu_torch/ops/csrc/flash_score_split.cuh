@@ -1,9 +1,10 @@
 // The bf16x3 split-dot flash-score sweep shared by the 'high' kernel
-// (flash_score_bf16x3.cu, variant K2) and the 'default' kernel
-// (flash_score_fast.cu, variants K3 and K4 'inbank'): staging, hi/lo split,
-// tensor-core products, the exact hi.hi sum and the online softmax are one
-// template; the tiers differ only in the exponential and the value sums of
-// the epilogue (template parameter MODE).
+// (flash_score_bf16x3.cu, variant K2, and 'inbank' / 'mxu', K4) and the
+// 'default' kernel (flash_score_fast.cu, variants K3 and K4): staging,
+// hi/lo split, tensor-core products, the exact hi.hi sum and the online
+// softmax are one template; the tiers differ only in the exponential and
+// the value sums of the epilogue (template parameter MODE). `sweep` at the
+// bottom routes a value strategy and c to a mode for both entry points.
 //
 // Design (see flash_score_bf16x3.cu for the numerics of the dot): one
 // thread block owns BQ = 64 query rows of one seed and loops over the whole
@@ -46,6 +47,30 @@
 //            col0 + c: their bf16 values are the hi parts the dot already
 //            stages, kept aside as their stage is stored, so nothing extra
 //            is read from device memory.
+// The modes above hold c <= 8 channels per row in registers (template
+// parameter C). The wide modes take any c (C is 1 and unused), with s2 in
+// dynamic shared memory (value_sums.cuh):
+//  SIMT_HIGH, SIMT_FAST  the fp32 exp2 or the bf16 exponential, e of each
+//            tile through shared memory into ValueTile's product on the
+//            fp32 pipe: 'mxu' after the fp32 exp2 is a true fp32 e @ V
+//            (JAX clamps HIGH to HIGHEST there; never TF32, never one bf16
+//            pass), and 'vpu' past 8 channels keeps its own rounding;
+//  MMAV_SPLIT, MMAV_FAST  the tensor-core value sums of a runtime number
+//            of channels: the logit tile's accumulator registers become
+//            the A fragments (as FAST_MMA), held for the tile, and each
+//            pass of CG channels stages V [BP rows x CG] as bf16 in shared
+//            memory (the bank's columns col0 .. col0 + c through a row
+//            stride of d for 'inbank', so no values operand) and runs one
+//            m16n8k16 product per n8 tile and k16 step. MMAV_FAST ('mxu',
+//            and 'mxu1'/'inbank' past 8 channels, bf16 exponential) takes
+//            bf16(e) @ bf16(V), exact products summed in fp32. MMAV_SPLIT
+//            ('inbank' with the fp32 exp2) takes JAX's split product
+//            eh.vh + eh.vl + el.vh, three products per step. Each warp
+//            column adds its partial sums into its own slab of the state
+//            [2][BQ][c rounded up to 8], in the accumulator layout (each
+//            thread updates only its own entries, so the slabs need no
+//            synchronisation); the slabs are added at exit. s1 is the fp32
+//            row sum of e in every wide mode.
 
 #pragma once
 
@@ -54,8 +79,12 @@
 #include <stdint.h>
 
 #include "prune_tiles.cuh"
+#include "value_sums.cuh"
 
 namespace cdt_split {
+
+using cdt_vals::bf16r;
+using cdt_vals::fast_exp;
 
 #ifndef SPLIT_TILE
 #error "SPLIT_TILE (bank rows per tile) comes from ops/_build.py's nvcc flags"
@@ -76,9 +105,34 @@ constexpr int KP = BP * PAIRS / NT;  // bank pairs each thread stages (8)
 constexpr int VSTR = BP + 8;  // bf16 row stride of the value tile (68 words:
                               // the B-fragment reads are conflict-free)
 constexpr float NEG_INF = -1e30f;
-constexpr float LN2_BF16 = 0.69140625f;  // ln 2 rounded to bf16
+constexpr int CG = 32;  // channels per pass of the wide tensor-core sums (4 n8 tiles)
 
-enum Mode { HIGH = 0, FAST_VPU = 1, FAST_MMA = 2 };
+enum Mode {
+  HIGH = 0, FAST_VPU = 1, FAST_MMA = 2,  // c <= 8 per row
+  SIMT_HIGH = 3, SIMT_FAST = 4, MMAV_SPLIT = 5, MMAV_FAST = 6,  // any c
+};
+
+using ValueTile = cdt_vals::ValueTile<BQ, BP, NT>;
+
+// Shared-memory carve-up of the MMAV modes for c channels (cp = c rounded
+// up to 8): the state slabs [2][BQ][cp] (one per warp column), then the
+// staged values' hi parts [CG][VSTR] and, with SPLIT, their lo parts.
+template <bool SPLIT>
+struct MmaTile {
+  float* sv;
+  __nv_bfloat16* vh;
+  __nv_bfloat16* vl;
+
+  static constexpr size_t bytes(int c) {
+    return sizeof(float) * 2 * BQ * (size_t)((c + 7) / 8 * 8) +
+           sizeof(__nv_bfloat16) * CG * VSTR * (SPLIT ? 2 : 1);
+  }
+
+  __device__ __forceinline__ MmaTile(void* smem, int cp)
+      : sv(reinterpret_cast<float*>(smem)),
+        vh(reinterpret_cast<__nv_bfloat16*>(sv + 2 * BQ * cp)),
+        vl(vh + CG * VSTR) {}
+};
 
 // (a, b) -> bf16 pairs hi = (bf16(a), bf16(b)), lo = (bf16(a - hi.a),
 // bf16(b - hi.b)); the lower-indexed feature in the low 16 bits, as the mma
@@ -111,22 +165,14 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// x rounded to bf16 (to nearest even), as a float
-__device__ __forceinline__ float bf16r(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// the 'default' tier's exponential of x = logit - m <= 0 (see the top)
-__device__ __forceinline__ float fast_exp(float x) {
-  return bf16r(expf(bf16r(bf16r(x) * LN2_BF16)));
-}
-
 // two floats that are bf16 values already -> one bf16 pair (a low)
 __device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
+// The wide modes take `values` with row stride vstride (the bank's center
+// columns for 'inbank'), c_wide channels and, SIMT, the product rule.
 template <int C, int MODE, bool PRUNE>
 __global__ void __launch_bounds__(NT, 1) split_sweep_kernel(
     const float* __restrict__ q, const float* __restrict__ bias,
@@ -135,12 +181,23 @@ __global__ void __launch_bounds__(NT, 1) split_sweep_kernel(
     const float* __restrict__ s1_in, const float* __restrict__ s2_in,
     float* __restrict__ m_out, float* __restrict__ s1_out,
     float* __restrict__ s2_out, int64_t rps, int64_t P, int d, int col0,
-    const int* __restrict__ mask, int64_t mask_stride) {
+    const int* __restrict__ mask, int64_t mask_stride, int c_wide,
+    int64_t vstride, int rule) {
+  constexpr bool WIDE = MODE >= SIMT_HIGH;
+  constexpr bool SIMT = MODE == SIMT_HIGH || MODE == SIMT_FAST;
+  constexpr bool SPLIT = MODE == MMAV_SPLIT;  // the split value product
+  constexpr bool BF16_EXP = MODE == FAST_VPU || MODE == FAST_MMA ||
+                            MODE == SIMT_FAST || MODE == MMAV_FAST;
   constexpr int VL = (BP * C + NT - 1) / NT;  // value elements each thread stages
   constexpr int NV = (C + 8) / 8;  // n8 tiles of [V | 1] (FAST_MMA)
   constexpr int VR = MODE == FAST_MMA ? NV * 8 : C;  // rows of the bf16 value tile
   constexpr int PW = MODE == FAST_MMA ? NV * 8 : C + 1;  // exit partials per row
   const bool inbank = MODE == FAST_MMA && col0 >= 0;
+  // the wide modes' state in dynamic shared memory (cp: c_wide rounded up to 8)
+  extern __shared__ float4 dyn_smem[];
+  const int cp = (c_wide + 7) / 8 * 8;
+  const ValueTile vt(reinterpret_cast<float*>(dyn_smem));
+  const MmaTile<SPLIT> mt(dyn_smem, cp);
 
   __shared__ __align__(16) uint32_t Qh[BQ][SW];
   __shared__ __align__(16) uint32_t Ql[BQ][SW];
@@ -148,7 +205,7 @@ __global__ void __launch_bounds__(NT, 1) split_sweep_kernel(
   __shared__ __align__(16) uint32_t Kl[BP][SW];
   __shared__ float bias_s[BP];
   __shared__ float v_s[MODE == HIGH ? C : 1][BP];  // fp32 values (HIGH)
-  __shared__ __align__(16) __nv_bfloat16 vb_s[MODE == HIGH ? 1 : VR][VSTR];
+  __shared__ __align__(16) __nv_bfloat16 vb_s[MODE == FAST_VPU || MODE == FAST_MMA ? VR : 1][VSTR];
   __shared__ float rmax_s[2][BQ];       // per-tile row max of each column warp
   __shared__ float part_s[BQ][PW];      // column warp 1's partial sums at exit
 
@@ -181,9 +238,20 @@ __global__ void __launch_bounds__(NT, 1) split_sweep_kernel(
     const bool live = r < row_end;
     m[i] = live ? m_in[r] : NEG_INF;
     s1[i] = (live && owner) ? s1_in[r] : 0.f;
+    if constexpr (!WIDE) {
 #pragma unroll
-    for (int c = 0; c < C; ++c)
-      s2[i][c] = (live && owner) ? s2_in[r * C + c] : 0.f;
+      for (int c = 0; c < C; ++c)
+        s2[i][c] = (live && owner) ? s2_in[r * C + c] : 0.f;
+    }
+  }
+  if constexpr (SIMT) vt.load_state(s2_in, row0, row_end, c_wide, tid);
+  if constexpr (WIDE && !SIMT) {  // slab 0 from the carried state, slab 1 zero
+    for (int i = tid; i < 2 * BQ * cp; i += NT) {
+      const int64_t r = row0 + (i / cp) % BQ;
+      const int ch = i % cp;
+      mt.sv[i] = (i < BQ * cp && ch < c_wide && r < row_end)
+                     ? s2_in[r * c_wide + ch] : 0.f;
+    }
   }
   if constexpr (MODE == FAST_MMA) {
 #pragma unroll
@@ -234,7 +302,7 @@ __global__ void __launch_bounds__(NT, 1) split_sweep_kernel(
     }
     if (kt == 0) {
       rb = (tid < BP && p0 + tid < P) ? bias[p0 + tid] : NEG_INF;
-      if (!inbank) {
+      if (!WIDE && !inbank) {
 #pragma unroll
         for (int j = 0; j < VL; ++j) {
           const int e = tid + j * NT;
@@ -269,7 +337,7 @@ __global__ void __launch_bounds__(NT, 1) split_sweep_kernel(
     }
     if (kt == 0) {
       if (tid < BP) bias_s[tid] = rb;
-      if (!inbank) {
+      if (!WIDE && !inbank) {
 #pragma unroll
         for (int j = 0; j < VL; ++j) {
           const int e = tid + j * NT;
@@ -372,15 +440,103 @@ __global__ void __launch_bounds__(NT, 1) split_sweep_kernel(
         scale[i] = (m[i] <= NEG_INF * 0.5f) ? 0.f : exp2f(m[i] - m_safe[i]);
         if constexpr (MODE != FAST_MMA) {
           s1[i] *= scale[i];
+          if constexpr (!WIDE) {
 #pragma unroll
-          for (int c = 0; c < C; ++c) s2[i][c] *= scale[i];
+            for (int c = 0; c < C; ++c) s2[i][c] *= scale[i];
+          }
         }
         m[i] = m_new;
         t1[i] = 0.f;
 #pragma unroll
         for (int c = 0; c < C; ++c) t2[i][c] = 0.f;
       }
-      if constexpr (MODE != FAST_MMA) {
+      if constexpr (WIDE) {
+        // e of the tile: its fp32 row sums, and e to shared memory (SIMT)
+        // or the A fragments of the value product (MMAV; tiles 2s, 2s+1 are
+        // k16 step s, as in FAST_MMA; hi and, SPLIT, lo parts)
+        uint32_t ah[NTILE / 2][4], al[NTILE / 2][4];
+#pragma unroll
+        for (int s = 0; s < NTILE / 2; ++s) {
+          float ex[2][4];
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int j = 2 * s + h;
+              const int col = wc * 64 + j * 8 + 2 * t4 + (e & 1);
+              const float lg =
+                  fmaf(acc_hh[j][e] + acc_x[j][e], dotscale, bias_s[col]);
+              const float x = lg - m_safe[e >> 1];
+              ex[h][e] = BF16_EXP ? fast_exp(x) : exp2f(x);
+              t1[e >> 1] += ex[h][e];
+              if constexpr (SIMT) vt.e[lr[e >> 1] * ValueTile::ES + col] = ex[h][e];
+              acc_hh[j][e] = 0.f;
+              acc_x[j][e] = 0.f;
+            }
+          if constexpr (!SIMT) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              if constexpr (SPLIT) {
+                split_pair(ex[h][0], ex[h][1], ah[s][2 * h], al[s][2 * h]);
+                split_pair(ex[h][2], ex[h][3], ah[s][2 * h + 1], al[s][2 * h + 1]);
+              } else {
+                ah[s][2 * h] = pack_bf16(ex[h][0], ex[h][1]);
+                ah[s][2 * h + 1] = pack_bf16(ex[h][2], ex[h][3]);
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) s1[i] += t1[i];
+        if constexpr (SIMT) {
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            if (wc == 0 && t4 == 0) vt.scale[lr[i]] = scale[i];
+          __syncthreads();
+          vt.accumulate(values, vstride, pt * BP, P, c_wide, rule, tid);
+        } else {
+          for (int g0 = 0; g0 < c_wide; g0 += CG) {
+            if (g0 > 0) __syncthreads();  // the last pass's B reads are done
+            for (int i = tid; i < BP * CG; i += NT) {
+              const int64_t p = pt * BP + i / CG;
+              const int ch = g0 + i % CG;
+              const float x = (p < P && ch < c_wide) ? values[p * vstride + ch] : 0.f;
+              const __nv_bfloat16 hi = __float2bfloat16_rn(x);
+              mt.vh[(i % CG) * VSTR + i / CG] = hi;
+              if constexpr (SPLIT)
+                mt.vl[(i % CG) * VSTR + i / CG] =
+                    __float2bfloat16_rn(x - __bfloat162float(hi));
+            }
+            __syncthreads();
+            const int n_nv = min(CG, cp - g0) / 8;
+            for (int nv = 0; nv < n_nv; ++nv) {
+              float tv[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+              for (int s = 0; s < NTILE / 2; ++s) {
+                // B fragments: bank rows r0, r0+1 (b0) and r0+8, r0+9 (b1)
+                // of value column n = g of n8 tile nv
+                const int r0 = wc * 64 + s * 16 + 2 * t4;
+                const int vo = (nv * 8 + g) * VSTR + r0;
+                const uint32_t bh0 = *reinterpret_cast<const uint32_t*>(&mt.vh[vo]);
+                const uint32_t bh1 = *reinterpret_cast<const uint32_t*>(&mt.vh[vo + 8]);
+                mma_bf16(tv, ah[s], bh0, bh1);
+                if constexpr (SPLIT) {
+                  const uint32_t bl0 = *reinterpret_cast<const uint32_t*>(&mt.vl[vo]);
+                  const uint32_t bl1 = *reinterpret_cast<const uint32_t*>(&mt.vl[vo + 8]);
+                  mma_bf16(tv, ah[s], bl0, bl1);
+                  mma_bf16(tv, al[s], bh0, bh1);
+                }
+              }
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                float& sv = mt.sv[(wc * BQ + lr[e >> 1]) * cp + g0 + nv * 8 +
+                                  2 * t4 + (e & 1)];
+                sv = fmaf(sv, scale[e >> 1], tv[e]);
+              }
+            }
+          }
+        }
+      } else if constexpr (MODE != FAST_MMA) {
 #pragma unroll
         for (int j = 0; j < NTILE; ++j)
 #pragma unroll
@@ -502,14 +658,18 @@ __global__ void __launch_bounds__(NT, 1) split_sweep_kernel(
 #pragma unroll
       for (int o = 1; o <= 2; o <<= 1) {
         s1[i] += __shfl_xor_sync(0xffffffffu, s1[i], o);
+        if constexpr (!WIDE) {
 #pragma unroll
-        for (int c = 0; c < C; ++c)
-          s2[i][c] += __shfl_xor_sync(0xffffffffu, s2[i][c], o);
+          for (int c = 0; c < C; ++c)
+            s2[i][c] += __shfl_xor_sync(0xffffffffu, s2[i][c], o);
+        }
       }
       if (wc == 1 && t4 == 0) {
         part_s[lr[i]][0] = s1[i];
+        if constexpr (!WIDE) {
 #pragma unroll
-        for (int c = 0; c < C; ++c) part_s[lr[i]][1 + c] = s2[i][c];
+          for (int c = 0; c < C; ++c) part_s[lr[i]][1 + c] = s2[i][c];
+        }
       }
     }
     __syncthreads();
@@ -520,74 +680,149 @@ __global__ void __launch_bounds__(NT, 1) split_sweep_kernel(
         if (r < row_end) {
           m_out[r] = m[i];
           s1_out[r] = s1[i] + part_s[lr[i]][0];
+          if constexpr (!WIDE) {
 #pragma unroll
-          for (int c = 0; c < C; ++c)
-            s2_out[r * C + c] = s2[i][c] + part_s[lr[i]][1 + c];
+            for (int c = 0; c < C; ++c)
+              s2_out[r * C + c] = s2[i][c] + part_s[lr[i]][1 + c];
+          }
         }
+      }
+    }
+    // the wide state in shared memory, final since the loop's last
+    // __syncthreads
+    if constexpr (SIMT) vt.store_state(s2_out, row0, row_end, c_wide, tid);
+    if constexpr (WIDE && !SIMT) {
+      for (int i = tid; i < BQ * c_wide; i += NT) {
+        const int64_t r = row0 + i / c_wide;
+        const int ch = i % c_wide;
+        if (r < row_end)
+          s2_out[r * c_wide + ch] = mt.sv[(i / c_wide) * cp + ch] +
+                                    mt.sv[(BQ + i / c_wide) * cp + ch];
       }
     }
   }
 }
 
 template <int C, int MODE>
-void launch(const void* q, const void* bias, const void* bank,
-            const void* values, float dotscale, const void* m_in,
-            const void* s1_in, const void* s2_in, void* m_out, void* s1_out,
-            void* s2_out, int64_t M, int64_t rps, int64_t P, int d, int col0,
-            const int* mask, int64_t mask_stride, cudaStream_t stream) {
+int launch(const void* q, const void* bias, const void* bank,
+           const void* values, float dotscale, const void* m_in,
+           const void* s1_in, const void* s2_in, void* m_out, void* s1_out,
+           void* s2_out, int64_t M, int64_t rps, int64_t P, int d, int col0,
+           const int* mask, int64_t mask_stride, int c, int64_t vstride,
+           int rule, cudaStream_t stream) {
   const dim3 grid((unsigned)((rps + BQ - 1) / BQ), (unsigned)(M / rps));
   auto kernel = mask != nullptr ? split_sweep_kernel<C, MODE, true>
                                 : split_sweep_kernel<C, MODE, false>;
-  kernel<<<grid, NT, 0, stream>>>(
+  size_t smem = 0;
+  if constexpr (MODE == SIMT_HIGH || MODE == SIMT_FAST)
+    smem = ValueTile::bytes(c);
+  else if constexpr (MODE == MMAV_SPLIT || MODE == MMAV_FAST)
+    smem = MmaTile<MODE == MMAV_SPLIT>::bytes(c);
+  if (smem > 0) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<grid, NT, smem, stream>>>(
       (const float*)q, (const float*)bias, (const float*)bank,
       (const float*)values, dotscale, (const float*)m_in,
       (const float*)s1_in, (const float*)s2_in, (float*)m_out,
-      (float*)s1_out, (float*)s2_out, rps, P, d, col0, mask, mask_stride);
+      (float*)s1_out, (float*)s2_out, rps, P, d, col0, mask, mask_stride, c,
+      vstride, rule);
+  return (int)cudaGetLastError();
 }
 
-// The checks and the channel switch of the C entry points: launches
-// launch<c, MODE> on `stream` without synchronising; returns
-// cudaGetLastError() after the launch (0 = launched). bias is
-// [M / rows_per_seed, P]; rows_per_seed = M for 1-D weights. mask is null
-// or, with 1-D weights only, the int32 skip mask
-// [ceil(M / PRUNE_ROWS), mask_stride] (K6).
-template <int MODE>
-int launch_checked(const void* q, const void* bias, const void* bank,
-                   const void* values, float dotscale, const void* m_in,
-                   const void* s1_in, const void* s2_in, void* m_out,
-                   void* s1_out, void* s2_out, long long M,
-                   long long rows_per_seed, long long P, int d, int c,
-                   const void* mask, long long mask_stride, int col0,
-                   int device, void* stream) {
+// The checks and the routing of the C entry points (BF16_EXP: the 'default'
+// kernel's bf16 exponential, else the 'high' kernel's fp32 exp2): launches
+// on `stream` without synchronising; returns cudaGetLastError() after the
+// launch (0 = launched). bias is [M / rows_per_seed, P]; rows_per_seed = M
+// for 1-D weights. mask is null or, with 1-D weights only, the int32 skip
+// mask [ceil(M / PRUNE_ROWS), mask_stride] (K6). strategy: 0 'vpu', 1
+// 'mxu1' (bf16 exponential only), 2 'inbank' (values may be null; V =
+// bank[:, col0 : col0 + c]), 3 'mxu'. Up to 8 channels, 'vpu' (and with the
+// bf16 exponential 'mxu1' and 'inbank') keep their per-row sums; the rest
+// take the wide modes (see the top).
+template <bool BF16_EXP>
+int sweep(const void* q, const void* bias, const void* bank,
+          const void* values, float dotscale, const void* m_in,
+          const void* s1_in, const void* s2_in, void* m_out, void* s1_out,
+          void* s2_out, long long M, long long rows_per_seed, long long P,
+          int d, int c, const void* mask, long long mask_stride, int strategy,
+          int col0, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (M <= 0) return (int)cudaSuccess;
   if (rows_per_seed <= 0 || M % rows_per_seed != 0 ||
-      M / rows_per_seed > 65535 ||
+      M / rows_per_seed > 65535 || c < 1 || strategy < 0 || strategy > 3 ||
+      (strategy == 1 && !BF16_EXP) ||
+      (strategy == 2 && (col0 < 0 || col0 + c > d)) ||
       (mask != nullptr &&
        (rows_per_seed != M || mask_stride < (P + PRUNE_BLOCK - 1) / PRUNE_BLOCK)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (c) {
-#define CDT_CASE(CC)                                                      \
-  case CC:                                                                \
-    launch<CC, MODE>(q, bias, bank, values, dotscale, m_in, s1_in, s2_in, \
-                     m_out, s1_out, s2_out, M, rows_per_seed, P, d, col0, \
-                     (const int*)mask, mask_stride, s);                   \
-    break;
-    CDT_CASE(1)
-    CDT_CASE(2)
-    CDT_CASE(3)
-    CDT_CASE(4)
-    CDT_CASE(5)
-    CDT_CASE(6)
-    CDT_CASE(7)
-    CDT_CASE(8)
+  const int* mk = (const int*)mask;
+  const bool inbank = strategy == 2;
+  if (c <= 8 && strategy == 0) {  // per-row 'vpu' sums
+    switch (c) {
+#define CDT_CASE(CC)                                                         \
+  case CC:                                                                   \
+    return launch<CC, BF16_EXP ? FAST_VPU : HIGH>(                           \
+        q, bias, bank, values, dotscale, m_in, s1_in, s2_in, m_out, s1_out,  \
+        s2_out, M, rows_per_seed, P, d, -1, mk, mask_stride, c, c, 0, s);
+      CDT_CASE(1)
+      CDT_CASE(2)
+      CDT_CASE(3)
+      CDT_CASE(4)
+      CDT_CASE(5)
+      CDT_CASE(6)
+      CDT_CASE(7)
+      CDT_CASE(8)
 #undef CDT_CASE
-    default:
-      return (int)cudaErrorInvalidValue;
+    }
   }
-  return (int)cudaGetLastError();
+  if constexpr (BF16_EXP) {
+    if (c <= 8 && (strategy == 1 || inbank)) {  // e @ [V | 1] per row
+      switch (c) {
+#define CDT_CASE(CC)                                                        \
+  case CC:                                                                  \
+    return launch<CC, FAST_MMA>(q, bias, bank, values, dotscale, m_in,      \
+                                s1_in, s2_in, m_out, s1_out, s2_out, M,     \
+                                rows_per_seed, P, d, inbank ? col0 : -1, mk, \
+                                mask_stride, c, c, 0, s);
+        CDT_CASE(1)
+        CDT_CASE(2)
+        CDT_CASE(3)
+        CDT_CASE(4)
+        CDT_CASE(5)
+        CDT_CASE(6)
+        CDT_CASE(7)
+        CDT_CASE(8)
+#undef CDT_CASE
+      }
+    }
+  }
+  // the wide modes: V is the values [P, c] or the bank's center columns
+  const void* vals = inbank ? (const void*)((const float*)bank + col0) : values;
+  const int64_t vstride = inbank ? d : c;
+  if constexpr (BF16_EXP) {
+    if (strategy == 0)  // 'vpu' past 8 channels: bf16(e * bf16(v))
+      return launch<1, SIMT_FAST>(
+          q, bias, bank, vals, dotscale, m_in, s1_in, s2_in, m_out, s1_out,
+          s2_out, M, rows_per_seed, P, d, -1, mk, mask_stride, c, vstride,
+          cdt_vals::V_BF16_PRODUCT, s);
+    return launch<1, MMAV_FAST>(  // bf16(e) @ bf16(V)
+        q, bias, bank, vals, dotscale, m_in, s1_in, s2_in, m_out, s1_out,
+        s2_out, M, rows_per_seed, P, d, -1, mk, mask_stride, c, vstride, 0, s);
+  } else {
+    if (inbank)  // the split product eh.vh + eh.vl + el.vh
+      return launch<1, MMAV_SPLIT>(
+          q, bias, bank, vals, dotscale, m_in, s1_in, s2_in, m_out, s1_out,
+          s2_out, M, rows_per_seed, P, d, -1, mk, mask_stride, c, vstride, 0, s);
+    return launch<1, SIMT_HIGH>(  // 'mxu', and 'vpu' past 8 channels: fp32
+        q, bias, bank, vals, dotscale, m_in, s1_in, s2_in, m_out, s1_out,
+        s2_out, M, rows_per_seed, P, d, -1, mk, mask_stride, c, vstride,
+        cdt_vals::V_FP32, s);
+  }
 }
 
 }  // namespace cdt_split

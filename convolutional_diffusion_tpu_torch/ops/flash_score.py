@@ -16,21 +16,38 @@ finite -1e30 sentinel for empty rows (`state_to_kernel` /
 `state_from_kernel`, the counterparts of `state_to_pallas` /
 `state_from_pallas`), the per-patch bias row that folds
 -a_t^2 ||p||^2 / (2 beta^2) and log2 w together in base-2 log space, and the
-shift of m by the per-query ||q||^2 / (2 beta^2) on entry and exit. The
-tensor's device picks the sweep: on CUDA a hand-written kernel, on the CPU
-`sweep_plain`, the same function in plain PyTorch. The precision picks the
-kernel: 'highest' runs the fp32 kernel (`csrc/flash_score.cu`, variant K1),
-'high' the bf16x3 tensor-core kernel (`csrc/flash_score_bf16x3.cu`, variant
-K2), 'default' the bf16-exp kernel (`csrc/flash_score_fast.cu`, variants K3
-and K4 'inbank'). Nothing falls back from one device, or one tier, to
-another.
+shift of m by the per-query ||q||^2 / (2 beta^2) on entry and exit.
 
-Value strategies, as in the JAX wrapper: 'vpu' sums the c <= 8 value
-channels per row; at 'default', 'mxu1' computes s2 and s1 as one bf16
-product e @ [V | 1] (a ones column gives s1), and 'inbank' the same product
-against the bank's own center columns `inbank_cols = (start, c)`, with no
-values operand. 'auto' picks 'mxu1' for a 'default' sweep over P >= 2^18
-bank rows in one call and 'vpu' otherwise (c <= 8).
+The tensor's device picks the sweep: on CUDA a hand-written kernel, on the
+CPU `sweep_plain`, the same function in plain PyTorch. The dots and the
+exponential pick the kernel (`_route`): fp32 dots run the fp32 kernel
+(`csrc/flash_score.cu`, variant K1, with either exponential); the bf16x3
+split dots with an fp32 exp2 the tensor-core kernel
+(`csrc/flash_score_bf16x3.cu`, variant K2); the split dots with the bf16
+exponential the bf16-exp kernel (`csrc/flash_score_fast.cu`, variants K3
+and K4). The tier gives the dots ('highest' fp32, 'high' and 'default' the
+split) and `fast_exp` the exponential (default: precision == 'default').
+So 'high' with `fast_exp=True` computes the 'default' tier's function and
+'default' with `fast_exp=False` the 'high' tier's, as in the JAX kernel
+body, and each runs on that tier's kernel. Nothing falls back from one
+device, or one kernel, to another.
+
+Value strategies, as in the JAX wrapper: 'vpu' sums the value channels per
+row; 'mxu' takes s2 as the matrix product e @ V, for any c; with the bf16
+exponential, 'mxu1' takes s2 and s1 as one bf16 product e @ [V | 1]; and
+'inbank' takes the product against the bank's own center columns
+`inbank_cols = (start, c)`, with no values operand, at every tier. 'auto'
+picks 'mxu1' for a bf16-exp sweep over P >= 2^18 bank rows in one call
+(c + 1 <= 128), else 'vpu' for c <= 8 and 'mxu' above.
+
+The value sums follow the JAX kernel's dtypes. With the fp32 exp2 every
+product e * v is fp32: e @ V is true fp32 at 'high' too, where JAX clamps
+HIGH to HIGHEST; 'inbank' after split dots takes the split product
+eh.kh + eh.kl + el.kh; s1 is the fp32 row sum. With the bf16 exponential
+(e a bf16 value), 'vpu' rounds each product e * bf16(v) to bf16, 'mxu' and
+'mxu1' take the exact products e * bf16(v), and 'inbank' e * bf16(k) after
+split dots but e * k in fp32 after fp32 dots (HIGHEST promotes the bf16 e).
+Where m is re-based is part of that function: every FAST_TILE bank rows.
 
 Per-seed weights (variant K5): `w` may be [S, P], one weight row per seed,
 with `rows_per_seed` query rows per seed (M = S * rows_per_seed, seed-major),
@@ -45,12 +62,10 @@ it. The kernels walk only the live bank tiles; the plain version sets the
 skipped cells' logits to -1e30, which leaves the state as skipping does.
 
 Launch counts: each launch adds one to `flash_score_update.launches` under
-the kernel's name, then '/inbank' or '/mxu1' for those strategies, then
-'/per_seed' for 2-D weights or '/prune' with a mask, so a run shows which
-variant every chunk took.
-
-Not ported yet: the 'mxu' strategy (c > 8, K4), 'inbank' at 'highest' and
-'high', `fast_exp` apart from the tier; each raises.
+`launch_key`: the kernel's name, then '/bf16_exp' for the fp32 kernel with
+the bf16 exponential, then '/mxu1', '/inbank' or '/mxu' for those
+strategies, then '/per_seed' for 2-D weights or '/prune' with a mask, so a
+run shows which variant every chunk took.
 """
 
 from __future__ import annotations
@@ -67,19 +82,23 @@ NEG_INF = float(-1e30)  # finite -inf stand-in: keeps exp2()/rescale exact at fp
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 LN2_BF16 = 0.69140625  # ln 2 rounded to bf16: the 'default' tier's exp2 factor
-MAX_CHANNELS = 8  # value channels the kernel accumulates per row
+MAX_CHANNELS = 8  # value channels the kernels' 'vpu' sums hold per row
+# value channels of the kernels' matrix value sums ('mxu', and 'vpu' or
+# 'inbank' past MAX_CHANNELS): their state lives in shared memory
+WIDE_MAX_CHANNELS = 256
 PLAIN_BLOCK = 8192  # bank rows per step of the plain version
-FAST_TILE = _build.SPLIT_TILE  # bank rows per online-softmax step of the 'default' kernel
-MXU1_MIN_P = 1 << 18  # 'auto' takes 'mxu1' for 'default' sweeps this long
-# precision tier -> the kernel that runs it on the card (ops._build.KERNELS)
+FAST_TILE = _build.SPLIT_TILE  # bank rows per online-softmax step of the bf16-exp kernels
+MXU1_MIN_P = 1 << 18  # 'auto' takes 'mxu1' for bf16-exp sweeps this long
+# precision tier -> the kernel that runs its dots on the card (ops._build.KERNELS)
 KERNEL_OF = {"highest": "flash_score", "high": "flash_score_bf16x3",
              "default": "flash_score_fast"}
-# value strategy -> its code in the 'default' kernel's C interface and the
-# suffix of its launch count
-STRATEGY_CODE = {"vpu": 0, "mxu1": 1, "inbank": 2}
-STRATEGY_SUFFIX = {"vpu": "", "mxu1": "/mxu1", "inbank": "/inbank"}
-# suffix of a kernel's launch count with per-seed weights (variant K5), and
-# with a prune mask (variant K6)
+# value strategy -> its code in the kernels' C interface and the suffix of
+# its launch count
+STRATEGY_CODE = {"vpu": 0, "mxu1": 1, "inbank": 2, "mxu": 3}
+STRATEGY_SUFFIX = {"vpu": "", "mxu1": "/mxu1", "inbank": "/inbank", "mxu": "/mxu"}
+# suffix of the fp32 kernel's launch count with the bf16 exponential, with
+# per-seed weights (variant K5), and with a prune mask (variant K6)
+BF16_EXP = "/bf16_exp"
 PER_SEED = "/per_seed"
 PRUNE = "/prune"
 PRUNE_ROWS = _build.PRUNE_ROWS  # query rows per prune-mask cell
@@ -95,39 +114,44 @@ def _check_precision(precision: str) -> None:
         )
 
 
-def _strategy(precision, v_strategy, fast_exp, values, inbank_cols, d, P):
+def _route(precision: str, fast: bool) -> str:
+    """The tier whose kernel computes (precision's dots, fast exponential):
+    the split dots take 'default' with the bf16 exponential and 'high'
+    without (the JAX kernel body computes the same function for both
+    enums; its one difference, 'mxu' at DEFAULT with an fp32 exp, runs in
+    fp32 in interpret mode, the reference this port follows)."""
+    if precision == "highest":
+        return precision
+    return "default" if fast else "high"
+
+
+def launch_key(precision: str, strategy: str = "vpu", fast_exp: bool | None = None,
+               per_seed: bool = False, prune: bool = False) -> str:
+    """The launch-count key of a sweep at `precision` (after `_route`) in
+    value strategy `strategy`."""
+    fast = precision == "default" if fast_exp is None else fast_exp
+    return (KERNEL_OF[precision] + (BF16_EXP if precision == "highest" and fast else "")
+            + STRATEGY_SUFFIX[strategy]
+            + (PER_SEED if per_seed else PRUNE if prune else ""))
+
+
+def _strategy(fast, v_strategy, values, inbank_cols, d, P):
     """The value strategy that runs and the value channels c, by the JAX
-    wrapper's rules (`flash_score.py:380-386, 556-576`)."""
-    fast = precision == "default"
-    if fast_exp is not None and bool(fast_exp) != fast:
-        raise NotImplementedError(
-            "fast_exp apart from precision='default' is not ported yet "
-            "(ROADMAP.md section 2, K3): the bf16 exp runs exactly at 'default'"
-        )
+    wrapper's rules (`flash_score.py:380-386, 556-576`); `fast` is the
+    bf16 exponential."""
     if v_strategy == "inbank":
         if inbank_cols is None:
             raise ValueError("v_strategy='inbank' requires inbank_cols=(start, c)")
         col0, c = inbank_cols
         if not (0 <= col0 and col0 + c <= d):
             raise ValueError(f"inbank_cols {inbank_cols} out of range for d={d}")
-        if not fast:
-            raise NotImplementedError(
-                f"v_strategy='inbank' at precision={precision!r} (flash-score "
-                "variant K4) is not ported yet (ROADMAP.md section 2); it is "
-                "ported at 'default'"
-            )
         return "inbank", c
     c = values.shape[1] if values is not None and values.ndim == 2 else -1
     if v_strategy == "auto":
-        if fast and P >= MXU1_MIN_P:
+        if fast and c + 1 <= 128 and P >= MXU1_MIN_P:
             v_strategy = "mxu1"
         else:
             v_strategy = "vpu" if c <= MAX_CHANNELS else "mxu"
-    if v_strategy == "mxu":
-        raise NotImplementedError(
-            f"v_strategy='mxu' (e @ V for c > {MAX_CHANNELS} value channels, "
-            "flash-score variant K4) is not ported yet (ROADMAP.md section 2)"
-        )
     if v_strategy == "mxu1":
         if not fast:
             raise ValueError(
@@ -136,7 +160,7 @@ def _strategy(precision, v_strategy, fast_exp, values, inbank_cols, d, P):
             )
         if c % 128 == 0:
             raise ValueError(f"no spare lane for s1 (c={c}, cp={c})")
-    elif v_strategy != "vpu":
+    elif v_strategy not in ("vpu", "mxu"):
         raise ValueError(
             "v_strategy must be 'auto', 'vpu', 'mxu1', 'inbank' or 'mxu', "
             f"got {v_strategy!r}"
@@ -219,6 +243,30 @@ def _split_dot(qh64, ql64, kh, kl) -> torch.Tensor:
     return acc_hh.add_(acc_x).float()
 
 
+def _fp32_logits(q, k, dotscale: float, bias) -> torch.Tensor:
+    """The logits after fp32 dots: (q @ k^T) * dotscale + bias, the dot
+    summed in the BLAS library's order."""
+    return _add_bias((q @ k.T) * dotscale, bias)
+
+
+def fp32_logits_in_order(q, k, dotscale: float, bias) -> torch.Tensor:
+    """The logits as the fp32 kernel (K1) forms them: each dot a chain of
+    fp32 fused multiply-adds over the features in order, then one fused
+    multiply-add with dotscale and the bias. Each step is taken in float64
+    (the product of two float32 values is exact there) and rounded to
+    float32, which differs from the fused operation only where the float64
+    sum itself rounds a float32 tie. The logit scale 1/(2 beta^2) makes the
+    posterior sensitive to the dot's last bits: at d = 4624 and t = 0.05,
+    BLAS's order and K1's differ by ~3e-3 on the posterior mean. d steps
+    over [M, n]: the plain version's dots with the bf16 exponential, and a
+    yardstick for the kernel at large d."""
+    acc = torch.zeros(q.shape[0], k.shape[0], dtype=torch.float32, device=q.device)
+    q64, kT64 = q.double(), k.double().T
+    for f in range(q.shape[1]):
+        acc = torch.addmm(acc.double(), q64[:, f : f + 1], kT64[f : f + 1]).float()
+    return _add_bias(acc.double() * dotscale, bias.double()).float()
+
+
 def _add_bias(x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """x [M, n] + bias: a [n] row for every row of x, or [S, n] with row s
     for the s-th of S equal blocks of rows (one rounding either way)."""
@@ -228,25 +276,38 @@ def _add_bias(x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     return (x.view(S, -1, n) + bias[:, None, :]).view(x.shape)
 
 
-def _default_tiles(logits, v, m, s1, s2, strategy: str) -> State:
-    """One block of the 'default' sweep (logits [M, n], values v [n, c]),
-    re-basing m every FAST_TILE bank rows as the kernel does: the bf16
+# how a bf16 exponential meets the values (`_fast_tiles`, the kernels' rule)
+BF16_PRODUCT = "bf16(e * bf16(v))"  # 'vpu'
+BF16_VALUES = "e * bf16(v)"  # 'mxu', 'mxu1', 'inbank' after split dots
+FP32_VALUES = "e * v"  # 'inbank' after fp32 dots
+
+
+def _fast_rule(strategy: str, split: bool) -> str:
+    if strategy == "vpu":
+        return BF16_PRODUCT
+    return FP32_VALUES if strategy == "inbank" and not split else BF16_VALUES
+
+
+def _fast_tiles(logits, v, m, s1, s2, rule: str) -> State:
+    """One block of a bf16-exp sweep (logits [M, n], values v [n, c]),
+    re-basing m every FAST_TILE bank rows as the kernels do: the bf16
     rounding of x = logits - m depends on the m it is taken against. The
-    tiles are folded in closed form, s * 2^(m_before - m_after) + t per
-    tile, which differs from the kernel's sequential fold only in fp32
-    rounding."""
+    value products follow `rule`. The tiles are folded in closed form,
+    s * 2^(m_before - m_after) + t per tile, which differs from the
+    kernels' sequential fold only in fp32 rounding."""
     M, n = logits.shape
     nt = -(-n // FAST_TILE)
     pad = nt * FAST_TILE - n
     lg = F.pad(logits, (0, pad), value=NEG_INF).view(M, nt, FAST_TILE)
-    v = F.pad(_bf16(v), (0, 0, 0, pad)).view(nt, FAST_TILE, -1)
+    v = F.pad(v if rule == FP32_VALUES else _bf16(v), (0, 0, 0, pad)).view(
+        nt, FAST_TILE, -1)
     # m before the first tile and after each one
     m_run = torch.cummax(torch.cat([m[:, None], lg.amax(dim=2)], dim=1), dim=1).values
     empty = m_run <= NEG_INF * 0.5
     m_safe = torch.where(empty, 0.0, m_run)
     x = _bf16(lg - m_safe[:, 1:, None])
     e = _bf16(torch.exp(_bf16(x * LN2_BF16).double()).float())
-    if strategy == "vpu":
+    if rule == BF16_PRODUCT:
         t2 = torch.stack([_bf16(e * v[None, :, :, ch]).sum(dim=2)
                           for ch in range(v.shape[2])], dim=2)
     else:
@@ -257,9 +318,18 @@ def _default_tiles(logits, v, m, s1, s2, strategy: str) -> State:
     return m_run[:, -1], s1, s2
 
 
+def _split_product(e: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """eh.vh + eh.vl + el.vh of the bf16x3 splits of e [M, n] and v [n, c],
+    summed exactly (float64) and rounded once to float32: 'inbank' after
+    split dots with the fp32 exp2 (JAX `_kernel_body`'s manual split)."""
+    eh, el = (t.double() for t in _split_bf16(e))
+    vh, vl = (t.double() for t in _split_bf16(v))
+    return (eh @ vh + eh @ vl + el @ vh).float()
+
+
 def sweep_plain(q, bias, bank, values, dotscale: float, m, s1, s2,
                 precision: str = "highest", strategy: str = "vpu",
-                col0: int = -1, prune_mask=None) -> State:
+                col0: int = -1, prune_mask=None, fast_exp: bool | None = None) -> State:
     """Plain PyTorch version of the kernels: the same base-2 online softmax
     over the same bias row, PLAIN_BLOCK bank rows at a time, on any device.
     `bias` is [P], or [S, P] with row s for the s-th of S equal blocks of
@@ -267,58 +337,70 @@ def sweep_plain(q, bias, bank, values, dotscale: float, m, s1, s2,
     the bank's columns col0 .. col0 + c (`values` is not read). A prune mask
     (K6, `prune_grid` shape) sets the logits of its skipped cells to NEG_INF:
     there m does not move and every exponential is 0, at every tier, so the
-    state is what the kernels' skipping leaves.
+    state is what the kernels' skipping leaves. `fast_exp` (default:
+    precision == 'default') takes the bf16 exponential; `flash_score_update`
+    passes precision and fast_exp after `_route`.
 
     'highest' takes true fp32 dots (`fp32.true_fp32`: TF32 off for the
-    call).
+    call), summed in the BLAS library's order (`_fp32_logits`); with the
+    bf16 exponential in the fp32 kernel's own order
+    (`fp32_logits_in_order`), since the bf16 rounding of x = logit - m
+    turns a last-bit difference of a logit into a visible one, as at
+    'default' below.
 
-    'high' takes the TPU kernel's bf16x3 split, qh.kh + qh.kl + ql.kh, and
-    repeats the CUDA kernel's arithmetic: the split dot summed step for
-    step as the kernel sums it (`_split_dot`), and the logit
-    dot * dotscale + bias rounded once, as the kernel's fused multiply-add.
-    The logit scale 1/(2 beta^2) makes the posterior sensitive to the
-    dot's last bits: two fp32 summation orders of the same split differ by
-    up to ~0.5% on the posterior mean at the sharpest softmax (k = 17,
-    t = 0.05), so the kernel sums the hi.hi part exactly (TwoSum), and
-    this version repeats the kernel's sum.
+    'high' and 'default' take the TPU kernel's bf16x3 split,
+    qh.kh + qh.kl + ql.kh, and repeat the CUDA kernel's arithmetic: the
+    split dot summed step for step as the kernel sums it (`_split_dot`),
+    and the logit dot * dotscale + bias rounded once, as the kernel's fused
+    multiply-add. The logit scale 1/(2 beta^2) makes the posterior
+    sensitive to the dot's last bits: two fp32 summation orders of the same
+    split differ by up to ~0.5% on the posterior mean at the sharpest
+    softmax (k = 17, t = 0.05), so the kernel sums the hi.hi part exactly
+    (TwoSum), and this version repeats the kernel's sum.
 
-    'default' takes the 'high' logits, re-bases m every FAST_TILE bank rows
-    as its kernel does (`_default_tiles`), and rounds where the kernel does
-    (bf16 round to nearest even; x = logits - m_safe):
+    With the fp32 exp2, e = exp2(logits - m_safe) and s2 += e @ V in fp32,
+    or the split product of e and V (`_split_product`) for 'inbank' after
+    split dots; s1 is the fp32 row sum.
+
+    With the bf16 exponential it re-bases m every FAST_TILE bank rows as
+    its kernels do (`_fast_tiles`), and rounds where they do (bf16 round
+    to nearest even; x = logits - m_safe):
       e  = bf16(exp(bf16(bf16(x) * bf16(ln 2))))
       s1 = sum_f32 e
       s2 = sum_f32 bf16(e * bf16(V))      'vpu'
-      s2 = sum_f32 e * bf16(V)            'mxu1', 'inbank' (exact products)
+      s2 = sum_f32 e * bf16(V)            'mxu', 'mxu1', 'inbank' after split dots
+      s2 = sum_f32 e * V                  'inbank' after fp32 dots
     with the rescale exp2(m_old - m_safe) in fp32 as before. Why these
     points: JAX lowers `jnp.exp2` of a bf16 array to exp(bf16(ln 2) * x),
     with the factor 0.69140625 and the product in bf16, so the TPU kernel
     computes 2^(0.9975 x), not 2^x; a true exp2 differs from it by ~2.5e-3
     on the posterior mean. And the Pallas kernel's dtypes make e a bf16
     array and 'vpu's e * v a bf16 product, which this version and the CUDA
-    kernel keep; XLA's CPU backend drops some of those roundings, so the
+    kernels keep; XLA's CPU backend drops some of those roundings, so the
     JAX kernel in interpret mode agrees with this version only to ~1.4e-3
-    on s2, while the CUDA kernel and this version share every rounding
+    on s2, while the CUDA kernels and this version share every rounding
     point. The exp is taken in float64 and rounded to fp32 before its bf16
-    rounding (the kernel's fp32 `expf` is within 2 ulp of that). Where m
-    is re-based is part of the function at this tier: x is rounded against
-    the m current at its tile, so a sweep re-based every 8192 rows, or two
-    chained calls against one, differ from it by ~1e-3 on the posterior
-    mean."""
-    high = precision != "highest"
-    fast = precision == "default"
+    rounding (the kernels' fp32 `expf` is within 2 ulp of that). Where m
+    is re-based is part of the function with this exponential: x is
+    rounded against the m current at its tile, so a sweep re-based every
+    8192 rows, or two chained calls against one, differ from it by ~1e-3
+    on the posterior mean."""
+    split = precision != "highest"
+    fast = precision == "default" if fast_exp is None else bool(fast_exp)
     with true_fp32():
         zero = torch.zeros((), dtype=torch.float32, device=q.device)
-        if high:
+        if split:
             qh, ql = _split_bf16(q)
             qh64, ql64 = qh.double(), ql.double()
         for p0 in range(0, bank.shape[0], PLAIN_BLOCK):
             p1 = p0 + PLAIN_BLOCK
-            if high:
+            if split:
                 dots = _split_dot(qh64, ql64, *_split_bf16(bank[p0:p1]))
                 logits = _add_bias(dots.double() * dotscale,
                                    bias[..., p0:p1].double()).float()
             else:
-                logits = _add_bias((q @ bank[p0:p1].T) * dotscale, bias[..., p0:p1])
+                logits = (fp32_logits_in_order if fast else _fp32_logits)(
+                    q, bank[p0:p1], dotscale, bias[..., p0:p1])
             if prune_mask is not None:
                 logits = logits.masked_fill(
                     _mask_cells(prune_mask, q.shape[0], p0, p0 + logits.shape[1]),
@@ -326,37 +408,41 @@ def sweep_plain(q, bias, bank, values, dotscale: float, m, s1, s2,
             v = (bank[p0:p1, col0 : col0 + s2.shape[1]] if strategy == "inbank"
                  else values[p0:p1])
             if fast:
-                m, s1, s2 = _default_tiles(logits, v, m, s1, s2, strategy)
+                m, s1, s2 = _fast_tiles(logits, v, m, s1, s2, _fast_rule(strategy, split))
                 continue
             m_new = torch.maximum(m, logits.amax(dim=1))
             m_safe = torch.where(m_new <= NEG_INF * 0.5, zero, m_new)
             scale = torch.where(m <= NEG_INF * 0.5, zero, torch.exp2(m - m_safe))
             e = torch.exp2(logits - m_safe[:, None])
             s1 = s1 * scale + e.sum(dim=1)
-            s2 = s2 * scale[:, None] + e @ v
+            t2 = _split_product(e, v) if split and strategy == "inbank" else e @ v
+            s2 = s2 * scale[:, None] + t2
             m = m_new
     return m, s1, s2
 
 
 def sweep_kernel(q, bias, bank, values, dotscale: float, m, s1, s2,
                  precision: str = "highest", strategy: str = "vpu",
-                 col0: int = -1, prune_mask=None) -> State:
-    """Launch the tier's CUDA kernel on the current stream; returns new
-    tensors. `bias` is [P], or [S, P] for S equal blocks of query rows
+                 col0: int = -1, prune_mask=None, fast_exp: bool | None = None) -> State:
+    """Launch the CUDA kernel of `precision` (after `_route`; at 'highest'
+    with the bf16 exponential if fast_exp) on the current stream; returns
+    new tensors. `bias` is [P], or [S, P] for S equal blocks of query rows
     (K5: the kernel's grid gains a seed axis). With strategy 'inbank'
     `values` is None and the kernel takes the bank's columns col0 ..
     col0 + c. A prune mask (1-D bias only) makes each block walk only its
-    live bank tiles (K6). Each launch adds one to its count in
-    `flash_score_update.launches` (see the module docstring)."""
+    live bank tiles (K6). 'vpu' keeps c <= MAX_CHANNELS sums per row; the
+    matrix value sums ('mxu', and 'vpu' or 'inbank' past MAX_CHANNELS)
+    take any c up to WIDE_MAX_CHANNELS. Each launch adds one to its count
+    in `flash_score_update.launches` (see the module docstring)."""
     name = KERNEL_OF[precision]
+    fast = precision == "default" if fast_exp is None else bool(fast_exp)
     M, d = q.shape
     P = bank.shape[0]
     c = s2.shape[1]
     rows_per_seed = M // bias.shape[0] if bias.ndim == 2 else M
-    if not 1 <= c <= MAX_CHANNELS:
-        raise NotImplementedError(
-            f"the kernels accumulate 1..{MAX_CHANNELS} value channels, "
-            f"got {c} (the matrix value path is flash-score variant K4)"
+    if not 1 <= c <= WIDE_MAX_CHANNELS:
+        raise ValueError(
+            f"the kernels take 1..{WIDE_MAX_CHANNELS} value channels, got {c}"
         )
     tensors = (q, bias, bank, m, s1, s2) + (() if values is None else (values,))
     for t in tensors:
@@ -375,7 +461,6 @@ def sweep_kernel(q, bias, bank, values, dotscale: float, m, s1, s2,
         return m_out, s1_out, s2_out
     fn = _build.load(name)
     dev = q.device
-    fast = (STRATEGY_CODE[strategy], col0) if precision == "default" else ()
     err = fn(
         q.data_ptr(), bias.data_ptr(), bank.data_ptr(),
         None if values is None else values.data_ptr(),
@@ -383,14 +468,15 @@ def sweep_kernel(q, bias, bank, values, dotscale: float, m, s1, s2,
         m_out.data_ptr(), s1_out.data_ptr(), s2_out.data_ptr(),
         M, rows_per_seed, P, d, c,
         None if prune_mask is None else prune_mask.data_ptr(),
-        0 if prune_mask is None else prune_mask.shape[1], *fast,
+        0 if prune_mask is None else prune_mask.shape[1],
+        STRATEGY_CODE[strategy], col0, int(fast),
         dev.index if dev.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    key = name + STRATEGY_SUFFIX[strategy] + (
-        PER_SEED if bias.ndim == 2 else PRUNE if prune_mask is not None else "")
+    key = launch_key(precision, strategy, fast, per_seed=bias.ndim == 2,
+                     prune=prune_mask is not None)
     flash_score_update.launches[key] += 1
     return m_out, s1_out, s2_out
 
@@ -402,8 +488,8 @@ def _update(sweep, q, qn, bank, pn, values, w, at, bt, state, precision,
     m0, s10, s20 = state
     M, d = q.shape
     P = bank.shape[0]
-    strategy, c = _strategy(precision, v_strategy, fast_exp, values,
-                            inbank_cols, d, P)
+    fast = precision == "default" if fast_exp is None else bool(fast_exp)
+    strategy, c = _strategy(fast, v_strategy, values, inbank_cols, d, P)
     if prune_mask is not None:
         if w.ndim == 2:  # the JAX wrapper's refusal (`flash_score.py:390-397`)
             raise ValueError(
@@ -455,8 +541,8 @@ def _update(sweep, q, qn, bank, pn, values, w, at, bt, state, precision,
     m_k = torch.where(m0 <= NEG_INF * 0.5, m0, (m0 + qn_s) * LOG2E)
     dotscale = float(2.0 * at * inv2bt2 * LOG2E)
     m, s1, s2 = sweep(q, bias, bank, values, dotscale, m_k, s10, s20,
-                      precision=precision, strategy=strategy, col0=col0,
-                      prune_mask=prune_mask)
+                      precision=_route(precision, fast), strategy=strategy,
+                      col0=col0, prune_mask=prune_mask, fast_exp=fast)
     m = torch.where(m <= NEG_INF * 0.5, m, m * LN2 - qn_s)
     return m, s1, s2
 
@@ -483,9 +569,11 @@ def flash_score_update(
     NEG_INF sentinel convention. With 2-D weights [S, P], the query rows are
     S seed-major blocks of `rows_per_seed` rows and block s uses weight row
     s. With a prune mask (1-D weights) the masked cells are skipped (K6).
-    CUDA tensors run the tier's hand-written kernel, K1 at 'highest', K2
-    at 'high', K3/K4 at 'default' (each launch counted, see the module
-    docstring); CPU tensors run `sweep_plain`; any other device raises."""
+    CUDA tensors run the hand-written kernel of the dots and the
+    exponential (`_route`: K1 after fp32 dots, K2 after split dots with
+    the fp32 exp2, K3/K4 after split dots with the bf16 exponential; each
+    launch counted, see the module docstring); CPU tensors run
+    `sweep_plain`; any other device raises."""
     if q.is_cuda:
         sweep = sweep_kernel
     elif q.device.type == "cpu":
@@ -497,10 +585,11 @@ def flash_score_update(
 
 
 flash_score_update.launches = {
-    name + STRATEGY_SUFFIX[strategy] + variant: 0
-    for prec, name in KERNEL_OF.items()
-    for strategy in (STRATEGY_SUFFIX if prec == "default" else ("vpu",))
-    for variant in ("", PER_SEED, PRUNE)
+    launch_key(prec, strategy, fast, per_seed, prune): 0
+    for prec in KERNEL_OF
+    for fast in ((False, True) if prec == "highest" else (prec == "default",))
+    for strategy in STRATEGY_SUFFIX if fast or strategy != "mxu1"
+    for per_seed, prune in ((False, False), (True, False), (False, True))
 }
 
 

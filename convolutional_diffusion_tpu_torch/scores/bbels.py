@@ -15,7 +15,8 @@ windows whose position has the same class pair:
     holds it, else streamed chunk by chunk; on the card kernel K1 at
     'highest', K2 at 'high', K3/K4 at 'default', with the ELS module's
     value-strategy rule: 'inbank' at 'default' where d padded to 128 is
-    at most 128);
+    at most 128, else 'auto', which takes the matrix value sums 'mxu'
+    past 8 channels);
   - (border row r, center): the windows at row r, any interior column;
   - (center, border col): symmetric;
   - (border, border): the single window at that exact position of each

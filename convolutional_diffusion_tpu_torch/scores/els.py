@@ -19,8 +19,11 @@ Value strategy: the JAX package's rule, kept because the strategies round
 differently. At 'default' a sweep whose d padded to 128 is at most
 `_inbank_max_dp('default')` = 128 (RGB k <= 5, grayscale k <= 11) takes
 'inbank': the centers are the bank's own columns, so the chunk's centers
-are not read; every other sweep takes 'auto' ('vpu', or 'mxu1' over
-P >= 2^18 bank rows in one call).
+are not read; every other sweep takes 'auto': 'vpu' for c <= 8 channels,
+'mxu' (the matrix value sums e @ V) above, or 'mxu1' at 'default' over
+P >= 2^18 bank rows in one call. So a bank of more than 8 channels (e.g.
+`data.synthetic_dataset(num_channels=16)`) sweeps in 'mxu' at every tier:
+its d = k * k * c padded to 128 is past the 'inbank' ceiling at every k.
 
 Exact block pruning (`prune=True`, kernel variant K6, `ops.prune`): the
 cached banks are clustered (`bank.ClusteredBank`, each row's weight taken

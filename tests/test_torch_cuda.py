@@ -1,7 +1,8 @@
-"""The hand-written flash-score kernels, K1 ('highest'), K2 ('high') and
-K3/K4 ('default', value strategies 'vpu', 'mxu1', 'inbank'), with 1-D and
-per-seed (K5) weights and with prune masks (K6), against their plain
-PyTorch version, on the card.
+"""The hand-written flash-score kernels, K1 (fp32 dots), K2 ('high') and
+K3/K4 ('default'), in every value strategy ('vpu', 'mxu', 'inbank', and
+with the bf16 exponential 'mxu1') and with either exponential after fp32
+dots, with 1-D and per-seed (K5) weights and with prune masks (K6),
+against their plain PyTorch version, on the card.
 Marked `cuda`; skips (from inside each test) where no CUDA device
 is present. On the card:
 `python -m pytest tests/test_torch_cuda.py -m cuda`.
@@ -115,15 +116,21 @@ def test_kernel_chaining_and_excluded_chunk(precision):
 
 @pytest.mark.cuda
 def test_kernel_rejects_what_it_does_not_take():
+    """Non-contiguous inputs and more value channels than the wide sums
+    hold raise before a launch; 9 channels in 'vpu' run (the wide sums)."""
     dev = _need_cuda()
     q, qn, bank, pn, values, w = _case(16, 12, 32, 3, seed=2, dev=dev)
     with pytest.raises(ValueError, match="contiguous"):
         tfs.flash_score_update(q.t().contiguous().t(), qn, bank, pn, values, w,
                                0.8, 0.6, _empty(16, 3, dev))
-    with pytest.raises(NotImplementedError, match="K4"):
-        big = torch.zeros(32, 9, device=dev)
-        tfs.flash_score_update(q, qn, bank, pn, big, w, 0.8, 0.6,
-                               (*_empty(16, 3, dev)[:2], torch.zeros(16, 9, device=dev)))
+    c = tfs.WIDE_MAX_CHANNELS + 1
+    with pytest.raises(ValueError, match="value channels"):
+        tfs.flash_score_update(q, qn, bank, pn, torch.zeros(32, c, device=dev), w, 0.8,
+                               0.6, _empty(16, c, dev), v_strategy="mxu")
+    big = torch.randn(32, 9, device=dev)
+    args = (q, qn, bank, pn, big, w, 0.8, 0.6, _empty(16, 9, dev))
+    _assert_close(tfs.flash_score_update(*args, v_strategy="vpu"),
+                  tfs.flash_score_update_plain(*args, v_strategy="vpu"))
 
 
 @pytest.mark.cuda
@@ -333,3 +340,131 @@ def test_pruned_module_card_vs_cpu(precision):
         outs.append(mod(0.02, x, k=3).cpu())
     assert tfs.flash_score_update.launches[key] == before + 1
     assert _rel(*outs) <= 1e-3
+
+
+# The variants of the matrix value sums and the exponential apart from the
+# tier: (precision, fast_exp, strategy), every combination the JAX wrapper
+# takes ('high' + bf16 exp runs the 'default' kernel, 'default' + fp32 exp2
+# the 'high' kernel).
+VARIANTS = [
+    (precision, fast, strategy)
+    for precision in ("highest", "high", "default")
+    for fast in (False, True)
+    for strategy in ("vpu", "mxu", "inbank", "mxu1")
+    if fast or strategy != "mxu1"
+]
+
+
+def _variant_kw(precision, fast, strategy, values, d, c):
+    """(keywords, values, launch key) of a variant; 'inbank' reads the
+    bank's columns from the middle of d and no values."""
+    kw = dict(precision=precision, fast_exp=fast)
+    if strategy == "inbank":
+        kw.update(v_strategy="inbank", inbank_cols=((d - c) // 2, c))
+        values = None
+    else:
+        kw.update(v_strategy=strategy)
+    key = tfs.launch_key(tfs._route(precision, fast), strategy, fast)
+    return kw, values, key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [3, 9, 16, 48])
+@pytest.mark.parametrize("precision,fast,strategy", VARIANTS,
+                         ids=lambda v: str(v).lower())
+def test_variant_kernel_matches_plain(precision, fast, strategy, c):
+    """Each (tier, exponential, value strategy) launches its kernel under
+    its key, and only that, and matches the plain version, at c = 3 (the
+    per-row sums where they apply), 9, 16 and 48 (the wide sums, s2 in
+    shared memory; 48 takes two passes of the tensor-core value sums)."""
+    dev = _need_cuda()
+    M, d, P = 1000, 9 * c, 2048 + 700
+    q, qn, bank, pn, values, w = _case(M, d, P, c, seed=c + len(strategy), dev=dev)
+    kw, values, key = _variant_kw(precision, fast, strategy, values, d, c)
+    args = (q, qn, bank, pn, values, w, 0.8, 0.6, _empty(M, c, dev))
+    before = dict(tfs.flash_score_update.launches)
+    got = tfs.flash_score_update(*args, **kw)
+    torch.cuda.synchronize()
+    assert tfs.flash_score_update.launches == {**before, key: before[key] + 1}
+    _assert_close(got, tfs.flash_score_update_plain(*args, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision,fast,strategy", [
+    ("highest", False, "mxu"), ("high", False, "mxu"), ("default", True, "mxu"),
+    ("highest", False, "inbank"), ("high", False, "inbank"), ("highest", True, "mxu"),
+    ("highest", True, "inbank")], ids=lambda v: str(v).lower())
+def test_variant_per_seed_chained_and_excluded(precision, fast, strategy):
+    """K5 with the new variants at c = 16: per-seed weights at rows_per_seed
+    784 with an all-excluded seed, against the plain version and against
+    one-seed 1-D launches (1e-6); two chained 1-D calls against the plain
+    chain; an all-excluded chunk leaves s1 and s2 bit-identical."""
+    dev = _need_cuda()
+    S, rps, c = 4, 784, 16
+    d, P, M = 9 * c, 700, S * rps
+    q, qn, bank, pn, values, _ = _case(M, d, P, c, seed=11, dev=dev)
+    kw, values, key = _variant_kw(precision, fast, strategy, values, d, c)
+    w = torch.rand(S, P, generator=torch.Generator().manual_seed(11)).to(dev)
+    w[w < 0.3] = 0.0
+    w[2] = 0.0
+    before = dict(tfs.flash_score_update.launches)
+    args = (q, qn, bank, pn, values, w, 0.7, 0.5, _empty(M, c, dev))
+    got = tfs.flash_score_update(*args, rows_per_seed=rps, **kw)
+    torch.cuda.synchronize()
+    pkey = key + tfs.PER_SEED
+    assert tfs.flash_score_update.launches == {**before, pkey: before[pkey] + 1}
+    live = got[1] > 0
+    want = tfs.flash_score_update_plain(*args, rows_per_seed=rps, **kw)
+    assert torch.equal(live, want[1] > 0)
+    _assert_close(tuple(x[live] for x in got), tuple(x[live] for x in want))
+    for s in (0, 3):
+        r = slice(s * rps, (s + 1) * rps)
+        one = tfs.flash_score_update(q[r], qn[r], bank, pn, values, w[s].contiguous(),
+                                     0.7, 0.5, _empty(rps, c, dev), **kw)
+        for a, b in zip(one, got):
+            assert _rel(a, b[r]) <= 1e-6
+    v = (lambda a, b: None) if values is None else (lambda a, b: values[a:b])
+    w1 = w[0].contiguous()
+    outs = []
+    for fn in (tfs.flash_score_update, tfs.flash_score_update_plain):
+        half = fn(q, qn, bank[:300], pn[:300], v(0, 300), w1[:300], 0.7, 0.7,
+                  _empty(M, c, dev), **kw)
+        outs.append(fn(q, qn, bank[300:], pn[300:], v(300, P), w1[300:], 0.7, 0.7,
+                       half, **kw))
+    _assert_close(*outs)
+    same = tfs.flash_score_update(q, qn, bank, pn, values, torch.zeros_like(w1),
+                                  0.7, 0.7, outs[0], **kw)
+    assert torch.equal(same[1], outs[0][1]) and torch.equal(same[2], outs[0][2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision,fast,strategy", [
+    ("highest", False, "mxu"), ("high", False, "mxu"), ("highest", False, "inbank"),
+    ("high", False, "inbank"), ("highest", True, "mxu"), ("default", True, "mxu")],
+    ids=lambda v: str(v).lower())
+def test_variant_prune_kernel_matches_plain(precision, fast, strategy):
+    """K6 with the new variants at c = 16: a forced mask against the plain
+    version with the same mask (launches under the '/prune' key only); an
+    all-skipped query block keeps its carried state bit for bit; an
+    all-zero mask equals no mask bit for bit."""
+    dev = _need_cuda()
+    M, c, P = 1000, 16, 4096 + 700
+    d = 9 * c
+    q, qn, bank, pn, values, w = _case(M, d, P, c, seed=13, dev=dev)
+    kw, values, key = _variant_kw(precision, fast, strategy, values, d, c)
+    state = tfs.flash_score_update_plain(q, qn, bank[:500], pn[:500],
+                                         None if values is None else values[:500],
+                                         w[:500], 0.8, 0.6, _empty(M, c, dev), **kw)
+    mask = _forced_mask(M, P, dev)
+    args = (q, qn, bank, pn, values, w, 0.8, 0.6, state)
+    before = dict(tfs.flash_score_update.launches)
+    got = tfs.flash_score_update(*args, prune_mask=mask, **kw)
+    torch.cuda.synchronize()
+    pkey = key + tfs.PRUNE
+    assert tfs.flash_score_update.launches == {**before, pkey: before[pkey] + 1}
+    _assert_close(got, tfs.flash_score_update_plain(*args, prune_mask=mask, **kw))
+    r = slice(0, 64)
+    assert torch.equal(got[1][r], state[1][r]) and torch.equal(got[2][r], state[2][r])
+    zero = tfs.flash_score_update(*args, prune_mask=torch.zeros_like(mask), **kw)
+    for a, b in zip(zero, tfs.flash_score_update(*args, **kw)):
+        assert torch.equal(a, b)

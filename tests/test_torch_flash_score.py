@@ -171,30 +171,31 @@ def test_state_conversions_roundtrip():
 
 @pytest.mark.parametrize("precision,variant", [("high", "K2"), ("default", "K3")])
 def test_unported_tiers_raise(precision, variant):
-    """'high' (K2) and 'default' (K3) are ported and run, in the wrapper and
-    in its plain version; what is still unported raises NotImplementedError
-    naming its variant: the 'mxu' value strategy (c > 8, K4), 'inbank' at
-    'highest' and 'high' (K4), and fast_exp apart from 'default'. Per-seed
-    weights (K5) run with rows_per_seed and raise the JAX wrapper's
-    ValueError without it; a shape mismatch raises."""
+    """'high' (K2) and 'default' (K3) run, in the wrapper and in its plain
+    version, and so do the variants that once raised NotImplementedError
+    here: the 'mxu' value strategy ('auto' at c > 8, K4), 'inbank' at
+    'highest' and 'high' (K4), and fast_exp apart from the tier (K3); none
+    raises any more. Per-seed weights (K5) run with rows_per_seed and raise
+    the JAX wrapper's ValueError without it; a shape mismatch raises."""
     a = _inputs(8, 12, 16, 3, seed=7)
     t = {k: torch.from_numpy(v) for k, v in a.items()}
     st = tuple(torch.from_numpy(s) for s in _empty(8, 3))
     args = (t["q"], t["qn"], t["bank"], t["pn"], t["values"], t["w"], 0.8, 0.6, st)
-    for fn in (tfs.flash_score_update, tfs.flash_score_update_plain):
-        m, s1, s2 = fn(*args, precision=precision)
+
+    def runs(out, c=3):
+        m, s1, s2 = out
         assert torch.isfinite(m).all() and (s1 > 0).all()
-        assert torch.isfinite(s2).all()
-        wide = torch.zeros(16, 9)
-        with pytest.raises(NotImplementedError, match="'mxu'.*K4"):
-            fn(*args[:4], wide, *args[5:8], (*st[:2], torch.zeros(8, 9)),
-               precision=precision)
+        assert s2.shape == (8, c) and torch.isfinite(s2).all()
+
+    for fn in (tfs.flash_score_update, tfs.flash_score_update_plain):
+        runs(fn(*args, precision=precision))
+        wide = torch.from_numpy(np.random.RandomState(9).normal(size=(16, 9)).astype(np.float32))
+        runs(fn(*args[:4], wide, *args[5:8], (*st[:2], torch.zeros(8, 9)),
+                precision=precision), c=9)
         for tier in ("highest", "high"):
-            with pytest.raises(NotImplementedError, match="'inbank'.*K4"):
-                fn(*args[:4], None, *args[5:], precision=tier,
-                   v_strategy="inbank", inbank_cols=(3, 3))
-        with pytest.raises(NotImplementedError, match="fast_exp.*K3"):
-            fn(*args, precision=precision, fast_exp=precision != "default")
+            runs(fn(*args[:4], None, *args[5:], precision=tier,
+                    v_strategy="inbank", inbank_cols=(3, 3)))
+        runs(fn(*args, precision=precision, fast_exp=precision != "default"))
     precision = "high" if variant == "K2" else "highest"
     w2 = t["w"][None].repeat(2, 1)
     with pytest.raises(ValueError, match="rows_per_seed"):
@@ -275,14 +276,18 @@ def test_high_all_excluded_chunk_leaves_state_unchanged():
 
 
 def test_cpu_path_does_not_count_launches():
-    """One count per kernel variant (the 'default' kernel's by value
-    strategy, each also per seed and with a prune mask); CPU tensors count
-    none."""
+    """One count per kernel variant (each kernel by value strategy, the fp32
+    kernel also with the bf16 exponential; each also per seed and with a
+    prune mask); CPU tensors count none."""
     before = dict(tfs.flash_score_update.launches)
     assert set(before) == {
-        name + variant
-        for name in ("flash_score", "flash_score_bf16x3", "flash_score_fast",
-                     "flash_score_fast/inbank", "flash_score_fast/mxu1")
+        name + strategy + variant
+        for name, strategies in (
+            ("flash_score", ("", "/inbank", "/mxu")),
+            ("flash_score/bf16_exp", ("", "/mxu1", "/inbank", "/mxu")),
+            ("flash_score_bf16x3", ("", "/inbank", "/mxu")),
+            ("flash_score_fast", ("", "/mxu1", "/inbank", "/mxu")))
+        for strategy in strategies
         for variant in ("", "/per_seed", "/prune")
     }
     a = _inputs(8, 12, 16, 3, seed=8)
@@ -294,6 +299,9 @@ def test_cpu_path_does_not_count_launches():
     for strategy in ("vpu", "mxu1"):
         _port(a, 0.8, 0.6, _empty(8, 3), "default", v_strategy=strategy)
     _port(dict(a, values=None), 0.8, 0.6, _empty(8, 3), "default",
+          v_strategy="inbank", inbank_cols=(3, 3))
+    _port(a, 0.8, 0.6, _empty(8, 3), "highest", v_strategy="mxu", fast_exp=True)
+    _port(dict(a, values=None), 0.8, 0.6, _empty(8, 3), "high",
           v_strategy="inbank", inbank_cols=(3, 3))
     assert tfs.flash_score_update.launches == before
 
@@ -483,23 +491,26 @@ def test_default_strategies_share_the_exponential():
 
 
 def test_default_auto_strategy_rule():
-    """'auto' at 'default' takes 'mxu1' from P = 2^18 bank rows in one call
-    and 'vpu' below; the other tiers take 'vpu' (c <= 8) or 'mxu' (c > 8)."""
-    v3, v9 = torch.zeros(1, 3), torch.zeros(1, 9)
+    """'auto' with the bf16 exponential takes 'mxu1' from P = 2^18 bank rows
+    in one call (c + 1 <= 128) and 'vpu' below; without it 'vpu' (c <= 8)
+    or 'mxu' (c > 8). The first argument of `_strategy` is the bf16
+    exponential, not the tier."""
+    v3, v9, v127 = torch.zeros(1, 3), torch.zeros(1, 9), torch.zeros(1, 127)
     big = tfs.MXU1_MIN_P
-    assert tfs._strategy("default", "auto", None, v3, None, 27, big) == ("mxu1", 3)
-    assert tfs._strategy("default", "auto", None, v3, None, 27, big - 1) == ("vpu", 3)
-    assert tfs._strategy("high", "auto", None, v3, None, 27, big) == ("vpu", 3)
-    assert tfs._strategy("default", "inbank", True, None, (12, 3), 27, 10) == (
-        "inbank", 3)
-    with pytest.raises(NotImplementedError, match="'mxu'"):
-        tfs._strategy("highest", "auto", None, v9, None, 27, 10)
+    assert tfs._strategy(True, "auto", v3, None, 27, big) == ("mxu1", 3)
+    assert tfs._strategy(True, "auto", v3, None, 27, big - 1) == ("vpu", 3)
+    assert tfs._strategy(False, "auto", v3, None, 27, big) == ("vpu", 3)
+    assert tfs._strategy(True, "inbank", None, (12, 3), 27, 10) == ("inbank", 3)
+    assert tfs._strategy(False, "auto", v9, None, 27, 10) == ("mxu", 9)
+    assert tfs._strategy(True, "auto", v9, None, 27, big) == ("mxu1", 9)
+    assert tfs._strategy(True, "auto", v127, None, 27, big) == ("mxu1", 127)
+    assert tfs._strategy(True, "auto", torch.zeros(1, 128), None, 27, big) == ("mxu", 128)
     with pytest.raises(ValueError, match="mxu1"):
-        tfs._strategy("high", "mxu1", None, v3, None, 27, 10)
+        tfs._strategy(False, "mxu1", v3, None, 27, 10)
     with pytest.raises(ValueError, match="inbank_cols"):
-        tfs._strategy("default", "inbank", None, None, None, 27, 10)
+        tfs._strategy(True, "inbank", None, None, 27, 10)
     with pytest.raises(ValueError, match="out of range"):
-        tfs._strategy("default", "inbank", None, None, (26, 3), 27, 10)
+        tfs._strategy(True, "inbank", None, (26, 3), 27, 10)
 
 
 def test_default_tile_is_the_kernels_tile():

@@ -82,6 +82,39 @@ def test_trajectory_matches_jax_machine():
     _assert_same_trajectory(ttraj, jtraj, 4)
 
 
+class _EpsBackbone:
+    """An epsilon backbone, 0.1 x, on the CPU."""
+
+    device = torch.device("cpu")
+
+    def __call__(self, t, x, label=None, k=None):
+        return 0.1 * x
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return np.abs(a - b).max() / max(np.abs(a).max(), np.abs(b).max(), 1.0)
+
+
+def test_machine_takes_score_backbone_and_visualize_fn():
+    """An epsilon backbone under score_backbone=False is used as it is, and
+    visualize_fn records (i, imputed x0) at each step, as in the JAX
+    machine; score_backbone=True converts the same output from a score."""
+    x0 = np.random.RandomState(5).normal(size=(2, 8, 8, 3)).astype(np.float32)
+    jrec, trec = [], []
+    jx = jscores.ScheduledScoreMachine(
+        lambda t, x, label=None, k=None: 0.1 * x, imsize=8, score_backbone=False)(
+        jnp.asarray(x0), nsteps=6, visualize_fn=lambda i, v: jrec.append((i, v)))
+    tm = ScheduledScoreMachine(_EpsBackbone(), imsize=8, score_backbone=False)
+    tx = tm(x0, nsteps=6, visualize_fn=lambda i, v: trec.append((i, v.numpy())))
+    assert _rel(tx.numpy(), jx) <= 2e-4
+    assert [i for i, _ in trec] == [i for i, _ in jrec] == [5, 4, 3, 2, 1]
+    for (_, a), (_, b) in zip(trec, jrec):
+        assert _rel(a, b) <= 2e-4
+    as_score = ScheduledScoreMachine(_EpsBackbone(), imsize=8)(x0, nsteps=6)
+    assert _rel(as_score.numpy(), tx.numpy()) > 1e-2
+
+
 @pytest.mark.parametrize("budget", [48 << 30, 0], ids=["bank", "stream"])
 def test_bbels_machine_golden(z, budget):
     mod = LocalEquivBordersScoreModule(
