@@ -8,9 +8,11 @@ Phases, each printing its own lines; any failure exits non-zero:
 1. device   — the card's name and power limit (nvidia-smi), torch's view, and
               the SFU's exp2 rate (16 per clock per SM x SMs x max SM clock).
 2. build    — compiles the three flash-score kernels from the sources in this
-              checkout (one nvcc per source, started together, sm_90a) and
-              prints ptxas registers, shared memory and spills, and the
-              build times.
+              checkout (one nvcc per source, started together, sm_90a; K1's
+              and K2's sources hold their split-bank sweeps, the merge pass
+              and K2's pre-split pass too) and prints ptxas registers,
+              shared memory and spills per kernel, any note of ptxas
+              serialising K2's wgmma products, and the build times.
 3. kernel   — each kernel against its plain PyTorch version on the card at
               the main path's shapes: M = 8192 query rows (8 seeds x 32x32),
               one full CIFAR10 bank chunk, c = 3: K1 ('highest', fp32) and
@@ -32,7 +34,20 @@ Phases, each printing its own lines; any failure exits non-zero:
               the schedule: each kernel's time in the variant the ELS module
               takes there, its plain version's time and its bound, and the
               tensor-core tiers' time at the bbELS center's query count.
-              Tier gaps are printed as information only. Then 'mxu1' once,
+              Tier gaps are printed as information only. K1 and K2 run on
+              the split-bank grid (ops/csrc/split_bank.cuh): each timing line
+              prints the split plan and the grid, and at k in {3, 9, 17}
+              every t a launch from the empty state must return m equal, bit
+              for bit, to the row max of the parent's logits (K1: of
+              `fs.fp32_logits_in_order` over every eighth 64-row block; K2:
+              the 'default' kernel's, whose dot is the parent's split-dot
+              loop; its agreement with `fs._split_dot` prints). Every timed
+              variant, here and in the phases below, is also timed against
+              the library yardstick: PyTorch's memory-efficient attention
+              (`_scaled_dot_product_efficient_attention`) on the same
+              inputs as attention with an additive per-key bias
+              (`sdpa_inputs`), its distance from the plain version printed,
+              never gated, never called by the port. Then 'mxu1' once,
               where 'auto' takes it: k = 9, one call over 5 chunks (P >= 2^18).
 4. k5       — per-seed weights, kernel variant K5, in every kernel (at
               'default' in the ELS module's variant: 'inbank' at k = 3):
@@ -176,6 +191,7 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -185,6 +201,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from convolutional_diffusion_tpu_torch.cli import els as cli_els
 from convolutional_diffusion_tpu_torch.cli.common import build_score_module
@@ -339,7 +356,7 @@ def kernel_record(name: str, rec: dict, launches: int) -> dict:
         "plain_ms": rec["plain_ms"],
         "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"],
-        "library_ms": None,  # no single PyTorch call computes this function
+        "library_ms": rec["library_ms"],  # memory-efficient attention (sdpa_io)
     }
 
 
@@ -382,14 +399,156 @@ def cuda_ms(fn, reps: int, warm: bool = True) -> float:
     return start.elapsed_time(end) / reps
 
 
-def plain_time(precision: str, fn) -> float:
-    """ms per call of a plain version: 3 calls after a warm-up at
-    'highest'; one call at the tensor-core tiers, whose plain versions
-    repeat the kernel's dot step by step in float64 (up to ~2.6 s a call
-    at k = 17) and have no warm-up to do."""
-    if precision == "highest":
-        return cuda_ms(fn, 3)
-    return cuda_ms(fn, 1, warm=False)
+def plain_time(precision: str, fn):
+    """(ms per call, the last call's result) of a plain version: 3 calls
+    after a warm-up at 'highest'; one call at the tensor-core tiers, whose
+    plain versions repeat the kernel's dot step by step in float64 (up to
+    ~2.6 s a call at k = 17) and have no warm-up to do."""
+    out = []
+    timed = lambda: out.append(fn())  # noqa: E731
+    ms = cuda_ms(timed, 3) if precision == "highest" else cuda_ms(timed, 1, warm=False)
+    return ms, out[-1]
+
+
+LN2 = math.log(2.0)
+
+
+def kernel_call(*args, **kw):
+    """One `fs.flash_score_update` call on `args` on the card; returns (its
+    result, the positional and keyword arguments the wrapper handed
+    `fs.sweep_kernel`, the kernel's own result in its convention)."""
+    seen = []
+    inner = fs.sweep_kernel
+
+    def spy(*a, **k_):
+        out = inner(*a, **k_)
+        seen.append((a, k_, out))
+        return out
+
+    fs.sweep_kernel = spy
+    try:
+        got = fs.flash_score_update(*args, **kw)
+    finally:
+        fs.sweep_kernel = inner
+    return (got, *seen[0])
+
+
+def sdpa_inputs(q, bias, bank, values, dotscale: float):
+    """The sweep's kernel inputs (q [M, d], bias [P] or [S, P], bank [P, d],
+    values [P, c], dotscale) as the library yardstick's: the sweep is
+    attention with an additive per-key bias in base 2 (logit = dotscale
+    q.k + bias[p]; m + log2 s1 its log-sum-exp, s2 / s1 the softmax mean
+    of V), so scale = dotscale ln 2 and attn_bias = bias ln 2, broadcast
+    over the query rows (stride 0; per-seed weights are a batch of S with
+    bias [S, 1, 1, P]). q and the bank are zero-padded to d4 (a multiple of
+    4), V to c4, the bias row's storage to a multiple of 16. Returns
+    (Q [S, 1, M / S, d4], K, V, attn_bias, scale)."""
+    M, d = q.shape
+    P, c = values.shape
+    S = bias.shape[0] if bias.ndim == 2 else 1
+    rows = M // S
+    d4, c4, p16 = -(-d // 4) * 4, -(-c // 4) * 4, -(-P // 16) * 16
+    Q = F.pad(q, (0, d4 - d)).view(S, 1, rows, d4)
+    K = F.pad(bank, (0, d4 - d)).view(1, 1, P, d4).expand(S, 1, P, d4)
+    V = F.pad(values, (0, c4 - c)).view(1, 1, P, c4).expand(S, 1, P, c4)
+    store = torch.zeros(S, 1, 1, p16, dtype=q.dtype, device=q.device)
+    store[..., :P] = bias.view(S, 1, 1, P) * LN2
+    return Q, K, V, store[..., :P].expand(S, 1, rows, P), dotscale * LN2
+
+
+def sdpa_state(out, lse, qn_s, c: int):
+    """The yardstick's outputs (out [S, 1, rows, c4], natural-log lse
+    [S, 1, >= rows]) as the wrapper's state of the same sweep: m = lse less
+    the per-row offset qn_s = |q|^2 / (2 b^2) the wrapper moves out of the
+    sweep, s1 = 1, s2 = the mean."""
+    S, _, rows, _ = out.shape
+    M = S * rows
+    return (lse[..., :rows].reshape(M) - qn_s, torch.ones_like(qn_s),
+            out[..., :c].reshape(M, c))
+
+
+def sdpa_io(args, kw, c):
+    """The library yardstick of the sweep `fs.flash_score_update(*args, ...,
+    **kw)`: PyTorch's memory-efficient attention
+    (`torch.ops.aten._scaled_dot_product_efficient_attention`, CUTLASS's
+    3xTF32 on fp32 inputs) on the kernel's own inputs (`sdpa_inputs`;
+    'inbank' takes the bank's center columns as V; the op takes the bias
+    broadcast over the rows, stride 0). Returns (call, to_state): call()
+    runs the op, to_state(its outputs) is `sdpa_state`."""
+    _, (q, bias, bank, values, dotscale, *_), k_, _ = kernel_call(
+        *args, empty_state(args[0].shape[0], c), **kw)
+    if values is None:
+        values = bank[:, k_["col0"]:k_["col0"] + c]
+    Q, K, V, ab, scale = sdpa_inputs(q, bias, bank, values, dotscale)
+    op = torch.ops.aten._scaled_dot_product_efficient_attention
+    qn_s = args[1] * (1.0 / (2.0 * fs._scalar(args[7]) ** 2)).to(q.device)
+    return (lambda: op(Q, K, V, ab, True, 0.0, False, scale=scale),
+            lambda outs: sdpa_state(outs[0], outs[1], qn_s, c))
+
+
+def library_time(tag, key, k, args, kw, c, plain_out, rows=None, ref="the plain version") -> float:
+    """The library yardstick's ms (CUDA events, 5 calls after a warm-up) on
+    the sweep's inputs, and its distance from `ref`'s result `plain_out`
+    (over `rows` where that ran on a subset; rows that admitted no patch
+    left out), printed: the yardstick is timed, never gated, and the port
+    never calls it."""
+    call, to_state = sdpa_io(args, kw, c)
+    ms = cuda_ms(call, 5)
+    got = pick(to_state(call()), rows)
+    keep = plain_out[1] > 0
+    e_lse, e_mean, _ = compare(tuple(x[keep] for x in got), tuple(x[keep] for x in plain_out))
+    print(f"[{tag}] {key} k={k}: library yardstick (memory-efficient attention) "
+          f"{ms:.3f} ms; from {ref} (information) lse rel {e_lse:.2e}, "
+          f"mean rel {e_mean:.2e}", flush=True)
+    return ms
+
+
+def grid_line(name, M, P, kw, c=3, rps=None) -> str:
+    """The split plan and grid a launch of kernel `name` takes."""
+    fast = kw.get("fast_exp")
+    fast = kw["precision"] == "default" if fast is None else fast
+    split_rows, nsplit, grid = fs.split_launch(
+        name, M, rps or M, P, fs._route(kw["precision"], fast), kw.get("v_strategy", "vpu"),
+        c, fast)
+    return (f"{nsplit} splits of {split_rows} bank rows, grid {grid} = "
+            f"{math.prod(grid)} blocks")
+
+
+def check_logits(key, k, t, args, kw):
+    """The logits are the parent's: one `fs.sweep_kernel` launch from the
+    empty state returns m = the row max of its logits. K1's must equal, bit
+    for bit, the row max of `fs.fp32_logits_in_order` (K1's fp32 order, over
+    `row_subset`). K2's must equal the 'default' kernel's, whose dot is the
+    parent's split-dot loop (flash_score_split.cuh) step for step; its
+    distance from the plain `fs._split_dot` is printed beside it (that
+    version takes each tensor-core step as rounded toward zero, which the
+    card does in ~97% of inexact steps, `ops.k2_numerics`)."""
+    _, (q, bias, bank, values, dotscale, *_), _, _ = kernel_call(
+        *args, empty_state(args[0].shape[0], 3), **kw)
+    M = q.shape[0]
+    empty = (torch.full((M,), fs.NEG_INF, device="cuda"), torch.zeros(M, device="cuda"),
+             torch.zeros(M, 3, device="cuda"))
+    m = fs.sweep_kernel(q, bias, bank, values, dotscale, *empty, precision=kw["precision"])[0]
+    r = row_subset(M)
+    if kw["precision"] == "highest":
+        ref = fs.fp32_logits_in_order(q[r], bank, dotscale, bias).amax(1)
+        same = int((m[r] == ref).sum())
+        print(f"[logits] {key} k={k} t={t}: m_out of a launch from the empty state == the "
+              f"row max of fs.fp32_logits_in_order on {same} of {r.numel()} rows", flush=True)
+        if same != r.numel():
+            fail(f"{key}'s logits moved at k={k} t={t}")
+        return
+    parent = fs.sweep_kernel(q, bias, bank, values, dotscale, *empty, precision="default")[0]
+    qh, ql = fs._split_bf16(q[r])
+    ref = fs._add_bias(fs._split_dot(qh.double(), ql.double(), *fs._split_bf16(bank)).double()
+                       * dotscale, bias.double()).float().amax(1)
+    same = int((m == parent).sum())
+    print(f"[logits] {key} k={k} t={t}: m_out of a launch from the empty state == the "
+          f"parent loop's ('default' kernel's) on {same} of {M} rows; == the row max of "
+          f"fs._split_dot (information) on {int((m[r] == ref).sum())} of {r.numel()} rows",
+          flush=True)
+    if same != M:
+        fail(f"{key}'s logits moved at k={k} t={t}")
 
 
 def bound(M: int, P: int, d: int, c: int, precision: str, S: int = 1,
@@ -469,7 +628,8 @@ def phase_build():
     for name, built in _build.build_all(list(TIER_OF)).items():
         regs, spills = [], 0
         for line in built.log.splitlines():
-            if any(t in line for t in ("registers", "spill", "smem", "Compiling entry")):
+            if any(t in line for t in ("registers", "spill", "smem", "Compiling entry",
+                                       "Performance Loss")):
                 print(f"[build] {name}: {line.strip()}", flush=True)
             words = line.split()
             if "registers," in words:
@@ -626,31 +786,40 @@ def phase_kernel(images_dev, n_bank, gen):
                                 fs.flash_score_update(*args, st, **kw),
                                 fs.flash_score_update_plain(*args, st, **kw))
                         check_cases("kernel", key, k, t, cases, rec)
-                    if t != 0.5 or vkw != variants[name][0]:
+                        if name in _build.SPLIT_BQ:
+                            check_logits(key, k, t, args, kw)
+                    if t != 0.5:
                         continue
-                    # timing: the variant the ELS module takes at this k
+                    # timing: each variant; the one the ELS module takes at
+                    # this k also for the machines' kernel time
+                    first = vkw == variants[name][0]
                     ms = cuda_ms(lambda: fs.flash_score_update(*args, empty_state(M, c), **kw), 5)
-                    plain_ms = plain_time(
+                    plain_ms, plain_out = plain_time(
                         prec, lambda: fs.flash_score_update_plain(*args, empty_state(M, c), **kw))
+                    lib_ms = library_time("kernel", key, k, args, kw, c, plain_out)
                     b_ms, b_by = bound(M, P, g.d, c, prec, strategy=strategy)
                     line = (f"[kernel] {key} k={k} d={g.d} M={M} P={P}: kernel {ms:.3f} ms, "
-                            f"plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), "
-                            f"{b_ms / ms:.1%} of bound")
+                            f"plain {plain_ms:.3f} ms, library {lib_ms:.3f} ms, bound "
+                            f"{b_ms:.3f} ms ({b_by}), {b_ms / ms:.1%} of bound")
+                    if name in _build.SPLIT_BQ:
+                        line += f"; {grid_line(name, M, P, kw)}"
                     if prec == "highest":
                         with true_fp32():
                             mm_ms = cuda_ms(lambda: torch.matmul(xq, p.T), 5)
                         line += f", fp32 matmul Q.K^T alone (partial yardstick) {mm_ms:.3f} ms"
-                    else:
+                    elif first:
                         ms_center[name][k] = cuda_ms(
                             lambda: fs.flash_score_update(*cargs, empty_state(mc, c), **kw), 5)
                         line += f"; at the bbELS center's M={mc}: {ms_center[name][k]:.3f} ms"
-                    if prec == "default":
+                    if prec == "default" and first:
                         k2 = ms_by_k["flash_score_bf16x3"][k]
                         line += (f"; K2 on the same inputs (information) {k2:.3f} ms, "
                                  f"{ms / k2:.3f}x")
                     print(line, flush=True)
-                    ms_by_k[name][k] = ms
-                    rec.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, k=k)
+                    if first:
+                        ms_by_k[name][k] = ms
+                    rec.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, k=k,
+                               library_ms=lib_ms)
             if "flash_score" in outs:  # k in CHECKED_K
                 e_lse, e_mean, _ = compare(outs["flash_score_bf16x3"], outs["flash_score"])
                 print(f"[kernel] tier gap k={k} t={t}, K2 'high' vs K1 'highest' "
@@ -696,16 +865,17 @@ def phase_mxu1_kernel(images_dev, n_bank, gen, recs):
     check_cases("mxu1", key, k, t, {f"one call over P={P}": (got, want)}, rec)
     check_exact("mxu1", key, k, t, got, args, empty_state(M, c), dict(precision="default"))
     ms = cuda_ms(lambda: fs.flash_score_update(*args, empty_state(M, c), precision="default"), 5)
-    plain_ms = plain_time(
+    plain_ms, plain_out = plain_time(
         "default", lambda: fs.flash_score_update_plain(*args, empty_state(M, c),
                                                        precision="default"))
+    lib_ms = library_time("mxu1", key, k, args, dict(precision="default"), c, plain_out)
     vpu_ms = cuda_ms(lambda: fs.flash_score_update(
         *args, empty_state(M, c), precision="default", v_strategy="vpu"), 5)
     b_ms, b_by = bound(M, P, g.d, c, "default", strategy="mxu1")
     print(f"[mxu1] {key} k={k} d={g.d} M={M} P={P}: kernel {ms:.3f} ms, plain "
           f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), {b_ms / ms:.1%} of bound; "
           f"'vpu' on the same inputs (information) {vpu_ms:.3f} ms", flush=True)
-    rec.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, k=k)
+    rec.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, k=k, library_ms=lib_ms)
 
 
 def per_seed_weights(labels, lab_of_seed, g):
@@ -816,8 +986,9 @@ def phase_kernel_per_seed(images_dev, labels_dev, n_bank, gen):
                 if diff > 1e-6:
                     fail(f"{key} differs from the one-seed launches at k={k}")
                 ms = cuda_ms(lambda: fs.flash_score_update(*args, empty_state(M, c), **kw), 5)
-                plain_ms = plain_time(
+                plain_ms, plain_out = plain_time(
                     prec, lambda: fs.flash_score_update_plain(*args, empty_state(M, c), **kw))
+                lib_ms = library_time("k5", key, k, args, kw, c, plain_out)
                 one_d_ms = cuda_ms(lambda: fs.flash_score_update(
                     xq, qn, p, pn, vals, w[0].contiguous(), at, bt, empty_state(M, c),
                     **kw1), 5)
@@ -831,12 +1002,15 @@ def phase_kernel_per_seed(images_dev, labels_dev, n_bank, gen):
                 grouped_ms = cuda_ms(grouped, 3)
                 b_ms, b_by = bound(M, P, g.d, c, prec, S=SEEDS,
                                    strategy=vkw.get("v_strategy", "vpu"))
+                grid = f"; {grid_line(fs.KERNEL_OF[prec], M, P, kw, rps=rps)}" if (
+                    fs.KERNEL_OF[prec] in _build.SPLIT_BQ and not vkw) else ""
                 print(f"[k5] {key} k={k} d={g.d} M={M} P={P}: kernel {ms:.3f} ms, "
-                      f"plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), "
-                      f"{b_ms / ms:.1%} of bound; 1-D kernel on the same inputs "
+                      f"plain {plain_ms:.3f} ms, library {lib_ms:.3f} ms, bound {b_ms:.3f} "
+                      f"ms ({b_by}), {b_ms / ms:.1%} of bound; 1-D kernel on the same inputs "
                       f"{one_d_ms:.3f} ms; grouped alternative (information): 8 "
-                      f"launches at M={rps} {grouped_ms:.3f} ms", flush=True)
-                rec.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, k=k)
+                      f"launches at M={rps} {grouped_ms:.3f} ms{grid}", flush=True)
+                rec.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, k=k,
+                           library_ms=lib_ms)
         del p, ctr, pn
     return recs
 
@@ -867,20 +1041,8 @@ def kernel_state_io(*args, **kw):
     """One `fs.flash_score_update` call on the card; returns (its result,
     the state the kernel was given, the state it returned), the last two in
     the kernel's own convention (before the wrapper moves m out of it)."""
-    seen = []
-    inner = fs.sweep_kernel
-
-    def spy(*a, **k):
-        out = inner(*a, **k)
-        seen.append((a[5:8], out))
-        return out
-
-    fs.sweep_kernel = spy
-    try:
-        got = fs.flash_score_update(*args, **kw)
-    finally:
-        fs.sweep_kernel = inner
-    return (got, *seen[0])
+    got, a, _, out = kernel_call(*args, **kw)
+    return got, a[5:8], out
 
 
 def check_masked(tag, key, k, t, what, args, state, mask, kw, rec):
@@ -903,15 +1065,19 @@ def time_masked(tag, key, k, what, args, M, P, d, mask, kw, rec, c=3):
     ms = cuda_ms(lambda: fs.flash_score_update(*args, empty_state(M, c), prune_mask=mask,
                                                **kw), 5)
     ms_full = cuda_ms(lambda: fs.flash_score_update(*args, empty_state(M, c), **kw), 5)
-    plain_ms = plain_time(kw["precision"], lambda: fs.flash_score_update_plain(
+    plain_ms, plain_out = plain_time(kw["precision"], lambda: fs.flash_score_update_plain(
         *args, empty_state(M, c), prune_mask=mask, **kw))
+    # the yardstick computes the unmasked function (a per-key bias cannot
+    # skip per query block), within the 1e-5 masked-vs-unmasked gate here
+    lib_ms = library_time(tag, key, k, args, kw, c, plain_out)
     b_ms, b_by = bound(M, P, d, c, kw["precision"], strategy=kw.get("v_strategy", "vpu"))
     b_ms *= 1.0 - skip
     print(f"[{tag}] {key} k={k} d={d} M={M} P={P} {what}: {skip:.2%} skipped; kernel "
           f"{ms:.3f} ms with the mask, {ms_full:.3f} ms without ({ms / ms_full:.3f}x; "
           f"1 - skip {1.0 - skip:.3f}); plain {plain_ms:.3f} ms; bound of the unskipped "
           f"work {b_ms:.3f} ms ({b_by})", flush=True)
-    rec.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, k=k, skip=skip)
+    rec.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, k=k, skip=skip,
+               library_ms=lib_ms)
 
 
 def phase_prune_kernel(images_dev, n_bank, gen):
@@ -1148,17 +1314,19 @@ def variant_time(tag, key, k, args, M, P, d, c, kw, rec, rows=None, S=1, rps=Non
     fast = kw["precision"] == "default" if fast is None else fast
     if kw["precision"] == "highest" and not fast:
         rows = None  # the plain version's own (BLAS) time over all rows
-    plain_ms = plain_time(kw["precision"] if rows is None else "high",
-                          lambda: plain_on(rows, args, empty_state(M, c), kw, rps))
+    plain_ms, plain_out = plain_time(kw["precision"] if rows is None else "high",
+                                     lambda: plain_on(rows, args, empty_state(M, c), kw, rps))
+    lib_ms = library_time(tag, key, k, args, kw, c, plain_out, rows)
     if rows is not None:
         plain_ms *= M / rows.numel()
     b_ms, b_by = bound(M, P, d, c, fs._route(kw["precision"], fast), S=S,
                        strategy=kw.get("v_strategy", "mxu" if c > fs.MAX_CHANNELS else "vpu"),
                        fast=fast)
     print(f"[{tag}] {key} k={k} d={d} M={M} P={P} c={c}: kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms{'' if rows is None else ' (row subset, scaled)'}, bound "
-          f"{b_ms:.3f} ms ({b_by}), {b_ms / ms:.1%} of bound", flush=True)
-    rec.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, k=k)
+          f"{plain_ms:.3f} ms{'' if rows is None else ' (row subset, scaled)'}, library "
+          f"{lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), {b_ms / ms:.1%} of bound",
+          flush=True)
+    rec.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, k=k, library_ms=lib_ms)
     return ms
 
 
@@ -1228,12 +1396,19 @@ def phase_variants(images_dev, images16_dev, gen):
                     if k in CHECKED_K:
                         wide_ms.setdefault(key, {})[k] = variant_time(
                             "variants", key, k, args, M, P, g.d, WIDE_C, kw, rec, rows)
-                    else:
+                    else:  # no plain run here: the yardstick is held against the kernel
                         wide_ms.setdefault(key, {})[k] = cuda_ms(
                             lambda: fs.flash_score_update(*args, empty_state(M, WIDE_C),
                                                           **kw), 5)
+                        got = fs.flash_score_update(*args, empty_state(M, WIDE_C), **kw)
+                        lib_ms = library_time("variants", key, k, args, kw, WIDE_C, got,
+                                              ref="the kernel")
+                        b_ms, b_by = bound(M, P, g.d, WIDE_C, fs._route(precision, precision == "default"),
+                                           strategy="mxu", fast=precision == "default")
                         print(f"[variants] {key} k={k} d={g.d} M={M} P={P} c={WIDE_C}: "
-                              f"kernel {wide_ms[key][k]:.3f} ms", flush=True)
+                              f"kernel {wide_ms[key][k]:.3f} ms, library {lib_ms:.3f} ms, "
+                              f"bound {b_ms:.3f} ms ({b_by}), {b_ms / wide_ms[key][k]:.1%} of "
+                              f"bound", flush=True)
             del args
     # (2) 'mxu' at c = 9 and 48 (k = 3), and forced at c = 3 against 'vpu'
     for c in (9, 48):

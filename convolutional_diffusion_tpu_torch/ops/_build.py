@@ -35,29 +35,38 @@ SPLIT_TILE = 128
 PRUNE_ROWS = 64
 PRUNE_BLOCK = 2048
 
+# Query rows per thread block of the split-bank sweeps (K1 `flash_score.cu`
+# rows::BQ, K2 `flash_score_split_rows.cuh` BQ; each source static_asserts
+# its own against the -D flag): `flash_score.split_launch` reads them for the
+# grid of a launch.
+SPLIT_BQ = {"flash_score": 128, "flash_score_bf16x3": 64}
+
 # No --use_fast_math: the flash-score dots' fp32 sums and exp2f must stay
 # full fp32.
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
     f"-DSPLIT_TILE={SPLIT_TILE}", f"-DPRUNE_ROWS={PRUNE_ROWS}",
-    f"-DPRUNE_BLOCK={PRUNE_BLOCK}",
+    f"-DPRUNE_BLOCK={PRUNE_BLOCK}", f"-DK1_SPLIT_BQ={SPLIT_BQ['flash_score']}",
+    f"-DK2_SPLIT_BQ={SPLIT_BQ['flash_score_bf16x3']}",
 ]
 
 _P = ctypes.c_void_p
 # (q, bias, bank, values, dotscale, m_in, s1_in, s2_in, m_out, s1_out,
 #  s2_out, M, rows_per_seed, P, d, c, mask, mask_stride, strategy, col0,
-#  fast, device, stream): the flash-score kernels' C interface; bias is
+#  fast, scratch, split_rows, device, stream): the flash-score kernels' C
+# interface; bias is
 # [M / rows_per_seed, P] (1-D weights: rows_per_seed = M); mask is null or
 # the int32 skip mask [ceil(M / PRUNE_ROWS), mask_stride] of 1-D weights
 # (K6); strategy is the value strategy's code (`flash_score.STRATEGY_CODE`),
 # col0 the first center column of 'inbank' (-1 otherwise), fast 1 for the
-# bf16 exponential
+# bf16 exponential; scratch (null or float32 `flash_score.scratch_numel`)
+# and split_rows (`flash_score.split_plan`) are the split-bank grid's
 _FLASH_ARGS = [
     _P, _P, _P, _P, ctypes.c_float, _P, _P, _P, _P, _P, _P,
     ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
     ctypes.c_int, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, _P,
+    ctypes.c_int, _P, ctypes.c_longlong, ctypes.c_int, _P,
 ]
 
 # name -> (source, C symbol, argtypes)
@@ -69,6 +78,9 @@ KERNELS = {
     "flash_score_fast": ("flash_score_fast.cu", "flash_score_fast", _FLASH_ARGS),
     # (A, B, C, D, n): the tensor-core rounding probe of `ops.k2_numerics`
     "mma_probe": ("mma_probe.cu", "mma_probe", [_P, _P, _P, _P, ctypes.c_int]),
+    # (A, B, C, D, n, lbo, sbo, use_c): the same for the warpgroup product
+    "wgmma_probe": ("mma_probe.cu", "wgmma_probe",
+                    [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]),
 }
 
 

@@ -27,24 +27,23 @@
 // operations, at the dense bf16 tensor-core rate (989 TFLOP/s published),
 // against the per-pair elementwise work, (6 + 2c) * M * P at the fp32 rate
 // (67 TFLOP/s): the products are the larger from d_pad = 32 up (k = 3 on
-// RGB, narrowly); the elementwise work only below d_pad ~ 30 (grayscale
-// k = 3). This first version issues warp-level mma.sync (m16n8k16), not
-// wgmma, stages tiles with ordinary loads, not TMA, and pays seven fp32
-// adds per accumulator per k16 step for the exact sum below, so it reaches
-// a fraction of that rate; its design keeps the structure simple and right.
+// RGB, narrowly). The exact hi.hi sum below costs seven fp32 instructions
+// per accumulator per k16 step, which puts a floor of ~6.3 ms under a
+// 65536-row chunk at M = 8192, k = 17 (2.8 ms of tensor-core bound).
 //
-// The kernel is the template of flash_score_split.cuh in its HIGH mode (the
-// 'default' kernel, flash_score_fast.cu, shares it). Design: one thread
-// block owns BQ = 64 query rows and loops over the whole chunk (the TPU
-// grid's sequential bank axis becomes that loop; blocks run
-// independently). 8 warps: warp (wr, wc) owns query rows 16*wr .. +16 and
-// bank columns 64*wc .. +64 of each BP = 128-row bank tile, i.e. eight
-// m16n8 accumulator tiles. d is staged BK = 32 features at a time: the next
-// stage's fp32 global loads are issued into registers before the current
-// stage's mma's, then split into hi/lo bf16 pairs and stored in shared
-// memory (row stride 40 bf16 = 20 words, so the fragment reads are free of
-// bank conflicts). d is zero-padded up to the stage width; zero features add
-// exact zeros.
+// The per-row sums ('vpu', c <= 8) run on the split-bank grid
+// (flash_score_split_rows.cuh): the inputs are split into bf16 hi/lo planes
+// once per launch, staged by cp.async into a ring of shared-memory slots,
+// multiplied by warpgroup wgmma m64n64k16 products pipelined under the
+// exact sum, and one block per (query block, seed, split) writes a partial
+// state that a merge pass folds in split order. The wide modes ('inbank',
+// 'mxu') are flash_score_split.cuh's template, shared with the 'default'
+// kernel: one block of 64 query rows walks the whole chunk, the next
+// stage's fp32 loads issued into registers and split into hi/lo pairs as
+// they are stored, mma.sync m16n8k16 products. Both keep 8 warps per
+// block, warp (wr, wc) owning query rows 16 wr .. +16 and bank columns
+// 64 wc .. +64 of each 128-row tile (the m16n8 accumulator layout), and d
+// zero-padded to the stage width (zero features add exact zeros).
 //
 // The hi.hi sum is exact over the k16 slices the tensor core returns: each
 // k16 hi.hi product starts from a zero accumulator (the tensor core returns
@@ -67,15 +66,19 @@
 // entry and written once at exit. Offsets formed from row indices are
 // 64-bit. Built without fast-math: exp2f and the fp32 sums stay exact fp32.
 
-#include "flash_score_split.cuh"
+#include "flash_score_split_rows.cuh"
 
 // Plain C entry point (bound with ctypes). Launches on `stream` and does not
-// synchronise; returns cudaGetLastError() after the launch (0 = launched).
+// synchronise; returns cudaGetLastError() after the launches (0 = launched).
 // bias is [M / rows_per_seed, P]; rows_per_seed = M for 1-D weights. mask is
 // null or the K6 skip mask of 1-D weights. strategy: 0 'vpu', 2 'inbank'
 // (values may be null; V = bank[:, col0 : col0 + c]), 3 'mxu'; fast must be
-// 0 (the bf16 exponential after split dots is flash_score_fast's).
-// flash_score_split.cuh `sweep` routes them.
+// 0 (the bf16 exponential after split dots is flash_score_fast's). The
+// per-row 'vpu' sums (c <= 8) run on the split-bank grid
+// (flash_score_split_rows.cuh) and take the scratch [nsplit][M][2 + c]
+// float32 partials, nsplit = ceil(P / split_rows) (at least 1), then the bf16
+// planes (ops/flash_score.py `scratch_numel`); the wide modes take
+// flash_score_split.cuh's loop (`sweep`) and neither.
 extern "C" int flash_score_bf16x3(const void* q, const void* bias,
                                   const void* bank, const void* values,
                                   float dotscale, const void* m_in,
@@ -84,11 +87,41 @@ extern "C" int flash_score_bf16x3(const void* q, const void* bias,
                                   long long M, long long rows_per_seed,
                                   long long P, int d, int c, const void* mask,
                                   long long mask_stride, int strategy,
-                                  int col0, int fast, int device,
+                                  int col0, int fast, void* scratch,
+                                  long long split_rows, int device,
                                   void* stream) {
   if (fast != 0) return (int)cudaErrorInvalidValue;
-  return cdt_split::sweep<false>(q, bias, bank, values, dotscale, m_in, s1_in,
-                                 s2_in, m_out, s1_out, s2_out, M,
-                                 rows_per_seed, P, d, c, mask, mask_stride,
-                                 strategy, col0, device, stream);
+  if (strategy != 0 || c > 8)
+    return cdt_split::sweep<false>(q, bias, bank, values, dotscale, m_in, s1_in,
+                                   s2_in, m_out, s1_out, s2_out, M,
+                                   rows_per_seed, P, d, c, mask, mask_stride,
+                                   strategy, col0, device, stream);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (M <= 0) return (int)cudaSuccess;
+  if (rows_per_seed <= 0 || M % rows_per_seed != 0 ||
+      M / rows_per_seed > 65535 || c < 1 || scratch == nullptr ||
+      !cdt_splitbank::valid_split(P, split_rows) ||
+      (mask != nullptr &&
+       (rows_per_seed != M || mask_stride < (P + PRUNE_BLOCK - 1) / PRUNE_BLOCK)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (c) {
+#define CDT_CASE(CC)                                                            \
+  case CC:                                                                      \
+    return cdt_split_rows::launch<CC>(q, bias, bank, values, dotscale, m_in,    \
+                                      s1_in, s2_in, m_out, s1_out, s2_out, M,   \
+                                      rows_per_seed, P, d, (const int*)mask,    \
+                                      mask_stride, scratch, split_rows, s);
+    CDT_CASE(1)
+    CDT_CASE(2)
+    CDT_CASE(3)
+    CDT_CASE(4)
+    CDT_CASE(5)
+    CDT_CASE(6)
+    CDT_CASE(7)
+    CDT_CASE(8)
+#undef CDT_CASE
+  }
+  return (int)cudaErrorInvalidValue;
 }

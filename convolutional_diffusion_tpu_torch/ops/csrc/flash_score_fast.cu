@@ -45,7 +45,10 @@
 // cudaGetLastError() after the launch (0 = launched). bias is
 // [M / rows_per_seed, P]; rows_per_seed = M for 1-D weights. mask is null or
 // the K6 skip mask of 1-D weights. flash_score_split.cuh `sweep` routes
-// them.
+// them. scratch and split_rows are the split-bank grid's (the interface is
+// the three kernels' one); this kernel walks the whole chunk per query
+// block, since its bf16 exponential rounds x against the m of each tile,
+// and takes neither.
 extern "C" int flash_score_fast(const void* q, const void* bias,
                                 const void* bank, const void* values,
                                 float dotscale, const void* m_in,
@@ -54,7 +57,9 @@ extern "C" int flash_score_fast(const void* q, const void* bias,
                                 long long M, long long rows_per_seed,
                                 long long P, int d, int c, const void* mask,
                                 long long mask_stride, int strategy,
-                                int col0, int fast, int device, void* stream) {
+                                int col0, int fast, void* scratch,
+                                long long split_rows, int device,
+                                void* stream) {
   if (fast != 1) return (int)cudaErrorInvalidValue;
   return cdt_split::sweep<true>(q, bias, bank, values, dotscale, m_in, s1_in,
                                 s2_in, m_out, s1_out, s2_out, M, rows_per_seed,

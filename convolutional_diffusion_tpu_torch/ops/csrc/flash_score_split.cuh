@@ -1,6 +1,8 @@
-// The bf16x3 split-dot flash-score sweep shared by the 'high' kernel
-// (flash_score_bf16x3.cu, variant K2, and 'inbank' / 'mxu', K4) and the
-// 'default' kernel (flash_score_fast.cu, variants K3 and K4): staging,
+// The bf16x3 split-dot flash-score sweep of the 'default' kernel
+// (flash_score_fast.cu, variants K3 and K4) and of the 'high' kernel's wide
+// modes (flash_score_bf16x3.cu: 'inbank' / 'mxu', K4; K2's per-row sums run
+// on the split-bank grid, flash_score_split_rows.cuh, which takes its dot
+// arithmetic from here): staging,
 // hi/lo split, tensor-core products, the exact hi.hi sum and the online
 // softmax are one template; the tiers differ only in the exponential and
 // the value sums of the epilogue (template parameter MODE). `sweep` at the
@@ -29,7 +31,6 @@
 // exponential is 0).
 //
 // Epilogue modes:
-//  HIGH      fp32 exp2 of the logit, fp32 per-channel sums of e * v (K2);
 //  FAST_VPU  e = bf16(expf(bf16(bf16(x) * bf16(ln 2)))), x = logit - m:
 //            the JAX lowering of jnp.exp2 on a bf16 array; s1 = sum_f32 e,
 //            s2 = sum_f32 bf16(e * bf16(v)) per channel (K3, 'vpu');
@@ -108,7 +109,7 @@ constexpr float NEG_INF = -1e30f;
 constexpr int CG = 32;  // channels per pass of the wide tensor-core sums (4 n8 tiles)
 
 enum Mode {
-  HIGH = 0, FAST_VPU = 1, FAST_MMA = 2,  // c <= 8 per row
+  FAST_VPU = 1, FAST_MMA = 2,  // c <= 8 per row
   SIMT_HIGH = 3, SIMT_FAST = 4, MMAV_SPLIT = 5, MMAV_FAST = 6,  // any c
 };
 
@@ -204,7 +205,6 @@ __global__ void __launch_bounds__(NT, 1) split_sweep_kernel(
   __shared__ __align__(16) uint32_t Kh[BP][SW];
   __shared__ __align__(16) uint32_t Kl[BP][SW];
   __shared__ float bias_s[BP];
-  __shared__ float v_s[MODE == HIGH ? C : 1][BP];  // fp32 values (HIGH)
   __shared__ __align__(16) __nv_bfloat16 vb_s[MODE == FAST_VPU || MODE == FAST_MMA ? VR : 1][VSTR];
   __shared__ float rmax_s[2][BQ];       // per-tile row max of each column warp
   __shared__ float part_s[BQ][PW];      // column warp 1's partial sums at exit
@@ -225,7 +225,7 @@ __global__ void __launch_bounds__(NT, 1) split_sweep_kernel(
   const int lr[2] = {wr * 16 + g, wr * 16 + g + 8};  // this thread's local rows
 
   // Carried state. m is the same in all 8 threads of a row (4 per column
-  // warp); the sums are per-thread partials under that m. HIGH / FAST_VPU:
+  // warp); the sums are per-thread partials under that m. FAST_VPU:
   // s1, s2 per row, the thread (wc == 0, t4 == 0) starting from the carried
   // values. FAST_MMA: sv in the product's accumulator layout (element e:
   // row lr[e / 2], column 2*t4 + (e % 2) of n8 tile nv; columns < C are s2,
@@ -342,10 +342,7 @@ __global__ void __launch_bounds__(NT, 1) split_sweep_kernel(
         for (int j = 0; j < VL; ++j) {
           const int e = tid + j * NT;
           if (e < BP * C) {
-            if constexpr (MODE == HIGH)
-              v_s[e % C][e / C] = rv[j];
-            else
-              vb_s[e % C][e / C] = __float2bfloat16_rn(rv[j]);
+            vb_s[e % C][e / C] = __float2bfloat16_rn(rv[j]);
           }
         }
       }
@@ -545,19 +542,11 @@ __global__ void __launch_bounds__(NT, 1) split_sweep_kernel(
             const int col = wc * 64 + j * 8 + 2 * t4 + (e & 1);
             const float lg =
                 fmaf(acc_hh[j][e] + acc_x[j][e], dotscale, bias_s[col]);
-            if constexpr (MODE == HIGH) {
-              const float ex = exp2f(lg - m_safe[i]);
-              t1[i] += ex;
+            const float ex = fast_exp(lg - m_safe[i]);
+            t1[i] += ex;
 #pragma unroll
-              for (int c = 0; c < C; ++c)
-                t2[i][c] = fmaf(ex, v_s[c][col], t2[i][c]);
-            } else {
-              const float ex = fast_exp(lg - m_safe[i]);
-              t1[i] += ex;
-#pragma unroll
-              for (int c = 0; c < C; ++c)
-                t2[i][c] += bf16r(ex * __bfloat162float(vb_s[c][col]));
-            }
+            for (int c = 0; c < C; ++c)
+              t2[i][c] += bf16r(ex * __bfloat162float(vb_s[c][col]));
             acc_hh[j][e] = 0.f;
             acc_x[j][e] = 0.f;
           }
@@ -762,25 +751,29 @@ int sweep(const void* q, const void* bias, const void* bank,
   cudaStream_t s = (cudaStream_t)stream;
   const int* mk = (const int*)mask;
   const bool inbank = strategy == 2;
-  if (c <= 8 && strategy == 0) {  // per-row 'vpu' sums
-    switch (c) {
-#define CDT_CASE(CC)                                                         \
-  case CC:                                                                   \
-    return launch<CC, BF16_EXP ? FAST_VPU : HIGH>(                           \
-        q, bias, bank, values, dotscale, m_in, s1_in, s2_in, m_out, s1_out,  \
-        s2_out, M, rows_per_seed, P, d, -1, mk, mask_stride, c, c, 0, s);
-      CDT_CASE(1)
-      CDT_CASE(2)
-      CDT_CASE(3)
-      CDT_CASE(4)
-      CDT_CASE(5)
-      CDT_CASE(6)
-      CDT_CASE(7)
-      CDT_CASE(8)
-#undef CDT_CASE
-    }
+  if constexpr (!BF16_EXP) {  // the 'high' kernel sends its per-row sums elsewhere
+    if (c <= 8 && strategy == 0) return (int)cudaErrorInvalidValue;
   }
   if constexpr (BF16_EXP) {
+    if (c <= 8 && strategy == 0) {  // per-row 'vpu' sums
+      switch (c) {
+#define CDT_CASE(CC)                                                          \
+  case CC:                                                                    \
+    return launch<CC, FAST_VPU>(q, bias, bank, values, dotscale, m_in, s1_in, \
+                                s2_in, m_out, s1_out, s2_out, M,              \
+                                rows_per_seed, P, d, -1, mk, mask_stride, c,  \
+                                c, 0, s);
+        CDT_CASE(1)
+        CDT_CASE(2)
+        CDT_CASE(3)
+        CDT_CASE(4)
+        CDT_CASE(5)
+        CDT_CASE(6)
+        CDT_CASE(7)
+        CDT_CASE(8)
+#undef CDT_CASE
+      }
+    }
     if (c <= 8 && (strategy == 1 || inbank)) {  // e @ [V | 1] per row
       switch (c) {
 #define CDT_CASE(CC)                                                        \

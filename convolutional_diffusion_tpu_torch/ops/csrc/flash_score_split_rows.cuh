@@ -1,0 +1,502 @@
+// K2's per-row sweep ('high': bf16x3 split dot, fp32 exp2, 'vpu' sums of
+// c <= 8 channels; with K5 and K6) on the split-bank grid (split_bank.cuh),
+// a main loop that does no global loads, split arithmetic or transposes,
+// and whose tensor-core products run under its exact fp32 sum. The
+// 'default' kernel and K2's wide modes keep flash_score_split.cuh's loop;
+// this header takes its split and TwoSum from there.
+//
+// 1. Split once per launch. `split_planes_kernel` writes the bf16 hi and lo
+//    parts of the queries [M, d] and of the bank chunk [P, d] as planes
+//    [rows, dp] (dp: d rounded up to the BK-feature stage, zeros past d)
+//    into the wrapper's scratch: the chunk is split once, not once per
+//    query block.
+// 2. Stage asynchronously. Each stage of BK = 32 features (the query
+//    block's and the bank tile's hi and lo rows, 16-byte cp.async, as
+//    64-byte rows in the 64-byte swizzle the warpgroup product reads; the
+//    tile's bias and values with its last stage) goes into a ring of
+//    STAGES shared-memory slots, STAGES - 2 stages ahead, one barrier per
+//    stage. (Unswizzled 8-row x 16-byte core matrices gave the same bits
+//    and ran ~1.3x slower, PERF.md §6.)
+// 3. Fill the card. One block of two warpgroups per (query block of BQ = 64
+//    rows, seed, split): 2048 blocks at M = 8192 over a 65536-row chunk,
+//    512 at the bbELS center's 2048 rows, where the parent ran 128 and 32.
+//    The partial states are merged in split order (merge_splits).
+// 4. Overlap the products with the exact sum. Warpgroup wc owns bank
+//    columns 64 wc .. +64 of each 128-row tile: per k16 step s, three
+//    wgmma.mma_async m64n64k16 (bf16 from shared memory, fp32 in
+//    registers): HH_s = qh.kh from zero (scale-d false) into one of two
+//    fragments, then qh.kl and ql.kh into the cross-term accumulator X.
+//    The exact sum needs X to take the TwoSum error of step s before
+//    step s's cross terms, so the steps are software-pipelined:
+//      issue HH_{s+1};  TwoSum(S, HH_s) -> err_s, while the tensor pipe
+//      runs X_{s-1} and HH_{s+1};  wait for both;  X += err_s;  issue X_s
+//    so the fp32 pipe works while all three products of a step are in
+//    flight. The wait is for every group: when X is read while the later
+//    HH is still in flight, which a wait for the older group alone would
+//    allow, ptxas serialises every product of the loop (its note C7514).
+//    Registers: S, X and the two HH fragments are 4 x 32 per thread, ~240
+//    in all, one block of 8 warps per SM (the exact sum keeps four
+//    accumulators live, which leaves no room for a second block).
+//
+// The dot is the parent's step for step, so the logits are the same bits:
+// per k16 step the hi.hi product from a zero accumulator (the tensor core
+// rounds the exact 16-product sum toward zero to fp32 in ~97% of inexact
+// steps, wgmma as mma.sync, ops/k2_numerics.py), added into the running
+// sum by TwoSum with its error into the cross-term accumulator, then
+// qh.kl and ql.kh accumulated there; the logit is
+// fmaf(S + X, dotscale, bias).
+//
+// The epilogue is the parent's per-row one: the accumulator of warp wr of
+// warpgroup wc holds query rows 16 wr + g, +8 and, for n8 block j, bank
+// columns 64 wc + 8 j + 2 t4, +1 (mma.sync's m16n8 layout); the row max
+// goes over the quad by shuffles and over the two warpgroups through
+// shared memory, with a named barrier for the pair of warps that share
+// the rows.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "flash_score_split.cuh"
+#include "split_bank.cuh"
+
+namespace cdt_split_rows {
+
+using cdt_split::split_pair;
+using cdt_split::two_sum;
+using cdt_splitbank::cp_async;
+
+constexpr int BQ = 64;      // query rows per block: 4 warp rows x 16
+static_assert(BQ == K2_SPLIT_BQ, "ops/_build.py SPLIT_BQ holds this block's rows");
+constexpr int BP = 128;     // bank rows per tile: 2 warpgroups x 64
+constexpr int BK = 32;      // features per stage
+constexpr int KS = BK / 16; // k16 steps per stage
+constexpr int NT = 256;     // 2 warpgroups
+constexpr int NACC = 32;    // m64n64 fp32 accumulator registers per thread
+constexpr int STAGES = 5;   // ring slots
+constexpr int CH = BK / 8;  // 16-byte chunks per row and plane in a stage
+constexpr int SBO = 8 * BK * 2;  // bytes between 8-row groups of a staged plane
+constexpr float NEG_INF = -1e30f;
+static_assert(KS == 2, "the pipeline alternates two HH fragments, one per step of a stage");
+static_assert(BK * 2 == 64, "a staged row is one 64-byte swizzle row");
+
+// dynamic shared memory, bytes: STAGES slots of (Qh, Ql [BQ x BK bf16],
+// Kh, Kl [BP x BK bf16], bias [BP] f32, values [BP][C] f32), then the
+// warpgroups' row maxima [2][BQ] and warpgroup 1's sums at exit
+// [BQ][1 + C], then the K6 tile list
+template <int C>
+struct Smem {
+  static constexpr int Q = BQ * BK * 2, K = BP * BK * 2;
+  static constexpr int STAGE = 2 * Q + 2 * K + 4 * BP + 4 * BP * C;
+  static_assert(STAGE % 128 == 0, "slots stay 128-byte aligned");
+  static constexpr size_t bytes = (size_t)STAGES * STAGE + 4 * (2 * BQ + BQ * (1 + C));
+  static constexpr size_t alloc = bytes + 1024;  // room to align the slots
+};
+
+// d rounded up to the stage width: the planes' row length
+__host__ __device__ __forceinline__ int padded(int d) { return (d + BK - 1) / BK * BK; }
+
+// byte offset of row r, 16-byte chunk ch (features 8 ch ..) in a staged
+// plane: rows of 64 bytes, the chunks of a row permuted by the 64-byte
+// swizzle the warpgroup product reads through (address bits 4-5 XOR bits
+// 7-8), so the 8 rows of a core matrix fall in distinct banks
+__device__ __forceinline__ int swz_offset(int r, int ch) {
+  return r * 64 + ((ch ^ ((r >> 1) & 3)) << 4);
+}
+
+// x [rows, d] -> hi, lo [rows, dp] as bf16 pairs (words [rows, dp / 2]):
+// hi = bf16(x), lo = bf16(x - hi), round to nearest even; zeros past d
+__global__ void split_planes_kernel(const float* __restrict__ x, int64_t rows,
+                                    int d, int dp, uint32_t* __restrict__ hi,
+                                    uint32_t* __restrict__ lo) {
+  const int64_t wpr = dp / 2;
+  const int64_t n = rows * wpr;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    const int64_t r = i / wpr;
+    const int k = 2 * (int)(i % wpr);
+    const float a = k < d ? x[r * d + k] : 0.f;
+    const float b = k + 1 < d ? x[r * d + k + 1] : 0.f;
+    split_pair(a, b, hi[i], lo[i]);
+  }
+}
+
+// shared-memory matrix descriptor of a K-major operand in the 64-byte
+// swizzle (layout type 2; the plane's base 512-byte aligned): 8-row groups
+// SBO apart, the leading byte offset unused; the k16 step's start is
+// 32 bytes into the row, and the swizzle applies to the address formed
+__device__ __forceinline__ uint64_t desc(const void* p) {
+  const uint32_t a = cdt_splitbank::smem_u32(p);
+  return (uint64_t)((a >> 4) & 0x3fff) | ((uint64_t)1 << 16) |
+         ((uint64_t)(SBO >> 4) << 32) | ((uint64_t)2 << 62);
+}
+
+// d = A.B^T (+ d if accumulate): A 64 x 16 and B 64 x 16 bf16, K-major,
+// from shared memory; issued asynchronously (wgmma_commit / wgmma_wait)
+__device__ __forceinline__ void wgmma64(float (&d)[NACC], uint64_t a, uint64_t b,
+                                        int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// orders the registers of d against the asynchronous products: the
+// compiler neither reads them early nor moves them across this point
+__device__ __forceinline__ void pin(float (&d)[NACC]) {
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N of this warpgroup's product groups are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+template <int C, bool PRUNE>
+__global__ void __launch_bounds__(NT, 1) rows_kernel(
+    const uint32_t* __restrict__ qh, const uint32_t* __restrict__ ql,
+    const uint32_t* __restrict__ kh, const uint32_t* __restrict__ kl,
+    const float* __restrict__ bias, const float* __restrict__ values,
+    float dotscale, float* __restrict__ part, int64_t M, int64_t rps,
+    int64_t P, int dp, int64_t split_rows, const int* __restrict__ mask,
+    int64_t mask_stride) {
+  using S = Smem<C>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  // the swizzle's pattern follows address bits: slots start 1024-aligned
+  unsigned char* const smem =
+      smem_raw + ((1024 - (cdt_splitbank::smem_u32(smem_raw) & 1023)) & 1023);
+  float* const rmax_s = reinterpret_cast<float*>(smem + STAGES * S::STAGE);
+  float* const part_s = rmax_s + 2 * BQ;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wr = warp & 3;   // warp of its warpgroup: query rows 16 wr .. 16 wr + 15
+  const int wc = warp >> 2;  // warpgroup: tile columns 64 wc .. 64 wc + 63
+  const int g = lane >> 2;   // rows g and g + 8 of the warp's 16
+  const int t4 = lane & 3;   // columns 2 t4, 2 t4 + 1 of an n8 block
+  const int64_t seed = blockIdx.y;
+  const int64_t row0 = seed * rps + (int64_t)blockIdx.x * BQ;
+  const int64_t seed_end = (seed + 1) * rps;
+  const int64_t row_end = row0 + BQ < seed_end ? row0 + BQ : seed_end;
+  bias += seed * P;
+  const int64_t split = blockIdx.z;
+  const int64_t p_begin = split * split_rows;
+  const int64_t p_end = p_begin + split_rows < P ? p_begin + split_rows : P;
+  // the split's tiles (K6: the ones its mask rows keep, listed after the
+  // block's other shared memory)
+  const auto tiles = cdt_splitbank::split_tiles<BQ, BP, PRUNE>(
+      mask, mask_stride, row0, (M + PRUNE_ROWS - 1) / PRUNE_ROWS, p_begin / BP,
+      (p_end + BP - 1) / BP, reinterpret_cast<int*>(smem + S::bytes));
+  const int nk = dp / BK;  // stages per tile
+  const int64_t nstages = (int64_t)tiles.n * nk;
+  const int64_t wpr = dp / 2;  // words per plane row
+  const int lr[2] = {wr * 16 + g, wr * 16 + g + 8};
+
+  // this split's state, from empty; m is the same in all 8 threads of a row,
+  // s1, s2 per-thread partials under it, summed at exit
+  float m[2] = {NEG_INF, NEG_INF}, s1[2] = {0.f, 0.f}, s2[2][C];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int c = 0; c < C; ++c) s2[i][c] = 0.f;
+
+  auto load = [&](int slot, int64_t pt, int kt) {
+    unsigned char* const sqh = smem + slot * S::STAGE;
+    unsigned char* const skh = sqh + 2 * S::Q;
+    const int64_t w0 = (int64_t)kt * (BK / 2);
+    const int64_t p0 = pt * BP;
+#pragma unroll
+    for (int j = 0; j < 2 * BQ * CH / NT; ++j) {
+      const int e = tid + j * NT;
+      const int lo = e / (BQ * CH);
+      const int r = (e % (BQ * CH)) / CH, ch = e % CH;
+      const int64_t gr = row0 + r;
+      cp_async<16>(sqh + lo * S::Q + swz_offset(r, ch),
+                   (lo ? ql : qh) + gr * wpr + w0 + ch * 4, qh, gr < row_end);
+    }
+#pragma unroll
+    for (int j = 0; j < 2 * BP * CH / NT; ++j) {
+      const int e = tid + j * NT;
+      const int lo = e / (BP * CH);
+      const int r = (e % (BP * CH)) / CH, ch = e % CH;
+      const int64_t p = p0 + r;
+      cp_async<16>(skh + lo * S::K + swz_offset(r, ch),
+                   (lo ? kl : kh) + p * wpr + w0 + ch * 4, kh, p < P);
+    }
+    if (kt == nk - 1) {  // the tile's bias and values, read by its epilogue
+      float* const sbias = reinterpret_cast<float*>(skh + 2 * S::K);
+      float* const sv = sbias + BP;
+      if (tid < BP) cp_async<4>(sbias + tid, bias + p0 + tid, bias, p0 + tid < P);
+      for (int e = tid; e < BP * C; e += NT)
+        cp_async<4>(sv + e, values + p0 * C + e, values, p0 * C + e < P * C);
+    }
+  };
+
+  // producer: stage (tile pi, kt pkt) into slot pslot, one group each
+  // (empty past the last stage, so the group count stays the stage count)
+  int pi = 0, pkt = 0, pslot = 0;
+  auto issue = [&]() {
+    if (pi < tiles.n) {
+      load(pslot, tiles.tile(pi), pkt);
+      if (++pkt == nk) {
+        pkt = 0;
+        ++pi;
+      }
+    }
+    cdt_splitbank::cp_async_commit();
+    pslot = pslot + 1 == STAGES ? 0 : pslot + 1;
+  };
+  // the next stage is in shared memory for every thread and for the async
+  // proxy; then its slot's predecessor two back (read by no product in
+  // flight: the last one waited on was the previous stage's first cross
+  // term) is refilled STAGES - 2 stages ahead
+  auto enter = [&]() {
+    cdt_splitbank::cp_async_wait<STAGES - 3>();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    issue();
+  };
+
+  // the k16 step's operand descriptors in a slot: A (all BQ rows), B (this
+  // warpgroup's 64 bank rows)
+  auto qdesc = [&](const unsigned char* st, int plane, int ks) {
+    return desc(st + plane * S::Q + ks * 32);
+  };
+  auto kdesc = [&](const unsigned char* st, int plane, int ks) {
+    return desc(st + 2 * S::Q + plane * S::K + wc * 8 * SBO + ks * 32);
+  };
+
+  float acc_hh[NACC], acc_x[NACC], hh0[NACC], hh1[NACC];
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) acc_hh[i] = acc_x[i] = hh0[i] = hh1[i] = 0.f;
+
+  // k16 step s, HH_s in h (no product in flight but X_{s-1}): issue
+  // HH_{s+1} (slot nst, step nks) into hn; TwoSum of HH_s into S, its
+  // errors into h, while the tensor pipe runs X_{s-1} and HH_{s+1}; wait
+  // for both; X += errors (X = the errors at a tile's first step); issue X_s
+  auto step = [&](float (&h)[NACC], float (&hn)[NACC], const unsigned char* st, int ks,
+                  const unsigned char* nst, int nks, bool first) {
+    pin(hn);
+    wgmma_fence();
+    wgmma64(hn, qdesc(nst, 0, nks), kdesc(nst, 0, nks), 0);
+    wgmma_commit();
+#pragma unroll
+    for (int i = 0; i < NACC; ++i) {
+      float err;
+      acc_hh[i] = two_sum(acc_hh[i], h[i], err);
+      h[i] = err;
+    }
+    wgmma_wait<0>();
+    pin(acc_x);
+    pin(hn);
+#pragma unroll
+    for (int i = 0; i < NACC; ++i) acc_x[i] = __fadd_rn(first ? 0.f : acc_x[i], h[i]);
+    pin(acc_x);
+    wgmma_fence();
+    wgmma64(acc_x, qdesc(st, 0, ks), kdesc(st, 1, ks), 1);
+    wgmma64(acc_x, qdesc(st, 1, ks), kdesc(st, 0, ks), 1);
+    wgmma_commit();
+  };
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 2; ++s) issue();
+  if (nstages > 0) {
+    enter();
+    pin(hh0);
+    wgmma_fence();
+    wgmma64(hh0, qdesc(smem, 0, 0), kdesc(smem, 0, 0), 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(hh0);
+  }
+
+  int ti = 0, kt = 0, slot = 0;
+  for (int64_t u = 0; u < nstages; ++u) {
+    const unsigned char* const st = smem + slot * S::STAGE;
+    const int next = slot + 1 == STAGES ? 0 : slot + 1;
+    step(hh0, hh1, st, 0, st, 1, kt == 0);
+    // HH of the next stage's step 0 (after the last stage a product of this
+    // one, unused, so that every step has the same shape)
+    const unsigned char* nst = st;
+    if (u + 1 < nstages) {
+      enter();
+      nst = smem + next * S::STAGE;
+    }
+    step(hh1, hh0, st, 1, nst, 0, false);
+
+    // dot tile complete: online-softmax epilogue. It reads X after the
+    // wait and writes no product's registers (X restarts at the next
+    // tile's first step), so a step that skips it keeps its products in
+    // flight without a register copy
+    if (kt == nk - 1) {
+      wgmma_wait<0>();
+      const float* const sbias = reinterpret_cast<const float*>(st + 2 * S::Q + 2 * S::K);
+      const float* const sv = sbias + BP;
+      const int64_t p0 = tiles.tile(ti) * BP;
+      // K6: rows of a mask row that skips this tile take -1e30 logits
+      const bool dead = tiles.skipped(ti, 16 * wr / PRUNE_ROWS);
+      // accumulator element 4 j + e: row lr[e / 2], column
+      // wc * 64 + j * 8 + 2 t4 + (e % 2)
+      auto logit = [&](int j, int e) {
+        const int col = wc * 64 + j * 8 + 2 * t4 + (e & 1);
+        return (!dead && p0 + col < P)
+                   ? fmaf(acc_hh[4 * j + e] + acc_x[4 * j + e], dotscale, sbias[col])
+                   : NEG_INF;
+      };
+      float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int j = 0; j < NACC / 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], logit(j, e));
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        if (t4 == 0) rmax_s[wc * BQ + lr[i]] = mx[i];
+      }
+      // the two warps of warp row wr, one of each warpgroup (64 threads)
+      asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wr), "r"(64) : "memory");
+      float m_safe[2], t1[2] = {0.f, 0.f}, t2[2][C];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float m_new = fmaxf(m[i], fmaxf(rmax_s[lr[i]], rmax_s[BQ + lr[i]]));
+        m_safe[i] = (m_new <= NEG_INF * 0.5f) ? 0.f : m_new;
+        const float scale = (m[i] <= NEG_INF * 0.5f) ? 0.f : exp2f(m[i] - m_safe[i]);
+        s1[i] *= scale;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          s2[i][c] *= scale;
+          t2[i][c] = 0.f;
+        }
+        m[i] = m_new;
+      }
+#pragma unroll
+      for (int j = 0; j < NACC / 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          const int col = wc * 64 + j * 8 + 2 * t4 + (e & 1);
+          const float ex = exp2f(logit(j, e) - m_safe[i]);
+          t1[i] += ex;
+#pragma unroll
+          for (int c = 0; c < C; ++c) t2[i][c] = fmaf(ex, sv[col * C + c], t2[i][c]);
+        }
+#pragma unroll
+      for (int i = 0; i < NACC; ++i) acc_hh[i] = 0.f;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        s1[i] += t1[i];
+#pragma unroll
+        for (int c = 0; c < C; ++c) s2[i][c] += t2[i][c];
+      }
+    }
+
+    if (++kt == nk) {
+      kt = 0;
+      ++ti;
+    }
+    slot = next;
+  }
+  wgmma_wait<0>();
+  cdt_splitbank::cp_async_wait<0>();
+
+  // sum the per-thread partials of each row (all under the same m): over
+  // the quad by shuffles, then warpgroup 1 hands its sums to warpgroup 0
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      s1[i] += __shfl_xor_sync(0xffffffffu, s1[i], o);
+#pragma unroll
+      for (int c = 0; c < C; ++c) s2[i][c] += __shfl_xor_sync(0xffffffffu, s2[i][c], o);
+    }
+    if (wc == 1 && t4 == 0) {
+      part_s[lr[i] * (1 + C)] = s1[i];
+#pragma unroll
+      for (int c = 0; c < C; ++c) part_s[lr[i] * (1 + C) + 1 + c] = s2[i][c];
+    }
+  }
+  __syncthreads();
+  if (wc == 0 && t4 == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int64_t r = row0 + lr[i];
+      if (r < row_end) {
+        float* const o = part + (split * M + r) * (2 + C);
+        o[0] = m[i];
+        o[1] = s1[i] + part_s[lr[i] * (1 + C)];
+#pragma unroll
+        for (int c = 0; c < C; ++c) o[2 + c] = s2[i][c] + part_s[lr[i] * (1 + C) + 1 + c];
+      }
+    }
+  }
+}
+
+// Scratch layout (the wrapper allocates it, ops/flash_score.py
+// `scratch_numel`): the partials [nsplit][M][2 + C] float32, rounded up to
+// 4 floats, then the planes qh, ql [M][dp] and kh, kl [P][dp] bf16.
+template <int C>
+int launch(const void* q, const void* bias, const void* bank, const void* values,
+           float dotscale, const void* m_in, const void* s1_in, const void* s2_in,
+           void* m_out, void* s1_out, void* s2_out, int64_t M, int64_t rps,
+           int64_t P, int d, const int* mask, int64_t mask_stride, void* scratch,
+           int64_t split_rows, cudaStream_t stream) {
+  const int64_t nsplit = cdt_splitbank::n_splits(P, split_rows);
+  const int dp = padded(d);
+  float* const part = (float*)scratch;
+  uint32_t* const qh = (uint32_t*)(part + (nsplit * M * (2 + C) + 3) / 4 * 4);
+  uint32_t* const ql = qh + M * dp / 2;
+  uint32_t* const kh = ql + M * dp / 2;
+  uint32_t* const kl = kh + P * dp / 2;
+  constexpr int T = 256;
+  auto blocks = [](int64_t n) {
+    const int64_t b = (n + T - 1) / T;
+    return (unsigned)(b < 132 * 16 ? (b > 0 ? b : 1) : 132 * 16);
+  };
+  split_planes_kernel<<<blocks(M * dp / 2), T, 0, stream>>>((const float*)q, M, d, dp, qh, ql);
+  split_planes_kernel<<<blocks(P * dp / 2), T, 0, stream>>>((const float*)bank, P, d, dp, kh, kl);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((rps + BQ - 1) / BQ), (unsigned)(M / rps), (unsigned)nsplit);
+  auto kernel = mask != nullptr ? rows_kernel<C, true> : rows_kernel<C, false>;
+  // K6: room for the tile list of a split
+  const size_t smem = Smem<C>::alloc +
+      (mask != nullptr ? 4 * cdt_splitbank::split_tiles_ints<BP>(
+                                 split_rows < P ? split_rows : P)
+                       : 0);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, NT, smem, stream>>>(
+      qh, ql, kh, kl, (const float*)bias, (const float*)values, dotscale, part, M,
+      rps, P, dp, split_rows, mask, mask_stride);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)cdt_splitbank::merge_splits<C>(m_in, s1_in, s2_in, part, m_out, s1_out,
+                                             s2_out, M, (int)nsplit, stream);
+}
+
+}  // namespace cdt_split_rows

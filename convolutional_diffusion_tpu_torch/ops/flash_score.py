@@ -61,6 +61,16 @@ weights only, at every tier and value strategy, as the JAX wrapper takes
 it. The kernels walk only the live bank tiles; the plain version sets the
 skipped cells' logits to -1e30, which leaves the state as skipping does.
 
+Split-bank grid: the per-row sweeps with the fp32 exp2 (K1 and K2 in
+'vpu', c <= MAX_CHANNELS, with K5 and K6) cut the chunk's bank axis into
+`split_plan`'s ranges, one thread block per (query block, seed, split);
+each block writes a partial state to a scratch the wrapper allocates
+(`scratch_numel`), and a second pass folds the partials into the carried
+state in split order (`merge_splits_plain` is its plain version). K2 also
+writes the bf16 hi/lo planes of its inputs once per launch into that
+scratch (`split_planes_plain`). The plan depends on P alone, so a K5
+launch and the one-seed launches it stands for split alike.
+
 Launch counts: each launch adds one to `flash_score_update.launches` under
 `launch_key`: the kernel's name, then '/bf16_exp' for the fp32 kernel with
 the bf16 exponential, then '/mxu1', '/inbank' or '/mxu' for those
@@ -103,6 +113,12 @@ PER_SEED = "/per_seed"
 PRUNE = "/prune"
 PRUNE_ROWS = _build.PRUNE_ROWS  # query rows per prune-mask cell
 PRUNE_BLOCK = _build.PRUNE_BLOCK  # bank rows per prune-mask cell
+# the split-bank grid (`split_plan`): bank rows per split, a multiple of
+# PRUNE_BLOCK and so of every kernel tile; at M = 8192 a 65536-row chunk
+# gives K1 64 x 16 and K2 128 x 16 blocks, several waves on 132 SMs
+SPLIT_ROWS = 4096
+MAX_SPLITS = 32  # longer chunks take longer splits, whole multiples of SPLIT_ROWS
+PLANE_K = 32  # K2's staged features: its bf16 planes' rows are d rounded up to this
 
 State = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -171,6 +187,84 @@ def _strategy(fast, v_strategy, values, inbank_cols, d, P):
 def prune_grid(M: int, P: int) -> Tuple[int, int]:
     """The shape of a prune mask over M query rows and P bank rows."""
     return -(-M // PRUNE_ROWS), -(-P // PRUNE_BLOCK)
+
+
+def splits_bank(precision: str, strategy: str, c: int, fast_exp: bool | None = None) -> bool:
+    """Whether a sweep runs on the split-bank grid: the per-row sums
+    ('vpu', c <= MAX_CHANNELS) with the fp32 exp2, after fp32 dots (K1) or
+    split dots (K2). The bf16 exponential rounds x = logit - m against the m
+    of each bank tile, so splitting P would change its numbers, and the wide
+    value sums keep the parent's loop."""
+    fast = precision == "default" if fast_exp is None else bool(fast_exp)
+    return not fast and strategy == "vpu" and c <= MAX_CHANNELS
+
+
+def split_plan(P: int, precision: str = "highest", strategy: str = "vpu", c: int = 3,
+               fast_exp: bool | None = None):
+    """The bank-row ranges [(p0, p1), ...] the kernel's blocks split a chunk
+    of P rows into, in merge order: one range unless `splits_bank`, else
+    ranges of SPLIT_ROWS rows (whole SPLIT_ROWS multiples past MAX_SPLITS
+    of them), so every boundary falls on a 128-row tile and a 2048-row
+    prune cell. It depends on P and the variant alone, not on the query
+    rows, the seeds or a mask."""
+    if not splits_bank(precision, strategy, c, fast_exp) or P <= SPLIT_ROWS:
+        return [(0, P)]
+    tiles = -(-P // SPLIT_ROWS)  # splits of SPLIT_ROWS rows
+    per = SPLIT_ROWS * -(-tiles // MAX_SPLITS)
+    return [(p0, min(P, p0 + per)) for p0 in range(0, P, per)]
+
+
+def split_launch(name: str, M: int, rows_per_seed: int, P: int, precision: str,
+                 strategy: str = "vpu", c: int = 3, fast_exp: bool | None = None):
+    """(split_rows, nsplit, grid) of one launch of kernel `name`: the rows
+    per split its C entry takes (`split_plan`'s first range), the number of
+    splits, and on the split-bank grid the thread blocks (query blocks of
+    `_build.SPLIT_BQ` rows per seed, seeds, splits); grid None off it."""
+    plan = split_plan(P, precision, strategy, c, fast_exp)
+    if not splits_bank(precision, strategy, c, fast_exp):
+        return plan[0][1] - plan[0][0], 1, None
+    bq = _build.SPLIT_BQ[name]
+    return (plan[0][1] - plan[0][0], len(plan),
+            (-(-rows_per_seed // bq), M // rows_per_seed, len(plan)))
+
+
+def scratch_numel(name: str, nsplit: int, M: int, P: int, d: int, c: int) -> int:
+    """float32 elements of the split-bank scratch of kernel `name`: the
+    partial states [nsplit, M, 2 + c] rounded up to 4, and for K2 the bf16
+    hi and lo planes of the queries and the chunk, [M + P, d_pad] each (two
+    bf16 a float32 element)."""
+    n = -(-nsplit * M * (2 + c) // 4) * 4
+    if name == KERNEL_OF["high"]:
+        n += (M + P) * (-(-d // PLANE_K) * PLANE_K)
+    return n
+
+
+def merge_splits_plain(state: State, partials) -> State:
+    """Plain version of the merge pass: fold partial states (m, s1, s2) of
+    the splits, each swept from the empty state, into the carried `state`
+    in split order; a term whose m is at the sentinel adds nothing, and a
+    row with no live partial keeps its carried state as it is."""
+    m0, s10, s20 = state
+    ms = torch.stack([p[0] for p in partials])
+    m = torch.maximum(m0, ms.amax(dim=0))
+    zero = torch.zeros((), dtype=m.dtype, device=m.device)
+    live = ms > NEG_INF * 0.5
+    f0 = torch.where(m0 <= NEG_INF * 0.5, zero, torch.exp2(m0 - m))
+    s1, s2 = s10 * f0, s20 * f0[:, None]
+    for (mj, s1j, s2j), lj in zip(partials, live):
+        f = torch.where(lj, torch.exp2(mj - m), zero)
+        s1 = s1 + s1j * f
+        s2 = s2 + s2j * f[:, None]
+    any_live = live.any(dim=0)
+    return (torch.where(any_live, m, m0), torch.where(any_live, s1, s10),
+            torch.where(any_live[:, None], s2, s20))
+
+
+def split_planes_plain(x: torch.Tensor, d_pad: int):
+    """Plain version of K2's pre-split pass: the bf16 hi and lo parts of
+    x [R, d] (`_split_bf16`), zero-padded to [R, d_pad], as bf16."""
+    hi, lo = (F.pad(t, (0, d_pad - x.shape[1])).to(torch.bfloat16) for t in _split_bf16(x))
+    return hi, lo
 
 
 def _mask_cells(mask: torch.Tensor, M: int, p0: int, p1: int) -> torch.Tensor:
@@ -461,6 +555,12 @@ def sweep_kernel(q, bias, bank, values, dotscale: float, m, s1, s2,
         return m_out, s1_out, s2_out
     fn = _build.load(name)
     dev = q.device
+    split_rows, nsplit, grid = split_launch(name, M, rows_per_seed, P, precision, strategy,
+                                            c, fast)
+    scratch = None
+    if grid is not None:
+        scratch = torch.empty(scratch_numel(name, nsplit, M, P, d, c),
+                              dtype=torch.float32, device=dev)
     err = fn(
         q.data_ptr(), bias.data_ptr(), bank.data_ptr(),
         None if values is None else values.data_ptr(),
@@ -470,6 +570,7 @@ def sweep_kernel(q, bias, bank, values, dotscale: float, m, s1, s2,
         None if prune_mask is None else prune_mask.data_ptr(),
         0 if prune_mask is None else prune_mask.shape[1],
         STRATEGY_CODE[strategy], col0, int(fast),
+        None if scratch is None else scratch.data_ptr(), split_rows,
         dev.index if dev.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(dev).cuda_stream,
     )

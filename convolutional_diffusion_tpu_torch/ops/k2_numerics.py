@@ -9,6 +9,10 @@ returns, and how far each flash-score implementation is from float64.
    sum rounded to nearest (RN) and rounded toward zero (RZ), with a zero and
    with a large accumulator. This is why the plain 'high' and 'default'
    versions round each product step toward zero (`flash_score._split_dot`).
+   The same for one warpgroup wgmma.mma_async m64n8k16 (bf16 operands in
+   shared memory, no swizzle), with a zero accumulator (scale-d false) and
+   with a large one, for both readings of the descriptor's byte offsets:
+   whether the asynchronous product would keep K2's exact hi.hi sum.
 2. float64 reference — K1, K2 and their plain versions at the main path's
    widths (8 seeds x 32x32x3, c = 3, 4096 bank rows of one CIFAR10 chunk)
    against the same sweep in float64, over the exact bf16x3 split ("split")
@@ -58,6 +62,33 @@ def phase_mma(rs) -> None:
             rz = int(((got == fs._rz32(s.clone())) & inexact).sum())
             print(f"[mma] {name}, {cname}: {k} of {s.numel()} sums not float32; "
                   f"result == RN {rn / k:.3f}, == RZ {rz / k:.3f}", flush=True)
+
+
+def phase_wgmma(rs) -> None:
+    probe = _build.load("wgmma_probe")
+    n = 400
+    bf = lambda x: torch.from_numpy(x).float().to(torch.bfloat16)  # noqa: E731
+    a, b = bf(rs.normal(size=(n, 64, 16))), bf(rs.normal(size=(n, 8, 16)))
+    exact = torch.einsum("nik,njk->nij", a.double(), b.double())
+    for cname, c, use_c in (("from zero (scale-d false)", torch.full((n, 64, 8), 7.0), 0),
+                            ("C ~ 40 N(0,1)",
+                             torch.from_numpy(rs.normal(size=(n, 64, 8)) * 40).float(), 1)):
+        s = exact + (c.double() if use_c else 0.0)
+        inexact = s.float().double() != s
+        k = int(inexact.sum())
+        for lbo, sbo in ((128, 256), (256, 128)):
+            d = torch.empty(n, 64, 8, device="cuda")
+            args = [a.cuda().contiguous(), b.cuda().contiguous(), c.cuda().contiguous(), d]
+            if probe(*(x.data_ptr() for x in args), n, lbo, sbo, use_c) != 0:
+                raise SystemExit("wgmma probe launch failed")
+            got = d.cpu().double()
+            close = float(((got - s).abs() <= 1e-5 * s.abs().clamp(min=1)).double().mean())
+            rn = int(((got == s.float().double()) & inexact).sum())
+            rz = int(((got == fs._rz32(s.clone())) & inexact).sum())
+            print(f"[wgmma] {cname}, descriptor lbo {lbo} sbo {sbo}: {close:.3f} of the "
+                  f"results within 1e-5 of the exact sum; {k} of {s.numel()} sums not "
+                  f"float32: result == RN {rn / max(k, 1):.3f}, == RZ {rz / max(k, 1):.3f}",
+                  flush=True)
 
 
 def rel(a, b) -> float:
@@ -118,6 +149,7 @@ def main() -> int:
     print(smi, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     phase_mma(np.random.RandomState(1))
+    phase_wgmma(np.random.RandomState(2))
     phase_reference(torch.Generator(device="cuda").manual_seed(0))
     return 0
 

@@ -468,3 +468,78 @@ def test_variant_prune_kernel_matches_plain(precision, fast, strategy):
     zero = tfs.flash_score_update(*args, prune_mask=torch.zeros_like(mask), **kw)
     for a, b in zip(zero, tfs.flash_score_update(*args, **kw)):
         assert torch.equal(a, b)
+
+
+# The split-bank grid of K1 and K2 ('vpu', c <= 8, fp32 exp2): chunks longer
+# than one split (fs.SPLIT_ROWS) run as several splits merged in order.
+SPLIT_P = 2 * tfs.SPLIT_ROWS + 777
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "high"])
+@pytest.mark.parametrize("case", ["1-D", "per-seed", "masked"])
+def test_split_bank_kernels_match_plain(precision, case):
+    dev = _need_cuda()
+    M, d, P, c = 256, 75, SPLIT_P, 3
+    q, qn, bank, pn, values, w = _case(M, d, P, c, seed=11, dev=dev)
+    kw = dict(precision=precision)
+    if case == "per-seed":
+        w = torch.stack([w, w.flip(0), torch.zeros_like(w), w * (w > 0.5)])
+        kw["rows_per_seed"] = M // 4
+    if case == "masked":
+        mask = torch.zeros(tfs.prune_grid(M, P), dtype=torch.int32, device=dev)
+        mask[::2, ::3] = 1
+        mask[1] = 1
+        kw["prune_mask"] = mask
+    assert len(tfs.split_plan(P, precision)) == 3
+    state = tuple(x.clone() for x in tfs.flash_score_update_plain(
+        q, qn, bank[:500], pn[:500], values[:500], w[..., :500].contiguous(), 0.8, 0.6,
+        _empty(M, c, dev), **{k_: v for k_, v in kw.items() if k_ != "prune_mask"}))
+    state[0][::7], state[1][::7], state[2][::7] = tfs.NEG_INF, 0.0, 0.0
+    args = (q, qn, bank, pn, values, w, 0.8, 0.6, state)
+    got = tfs.flash_score_update(*args, **kw)
+    torch.cuda.synchronize()
+    _assert_close(got, tfs.flash_score_update_plain(*args, **kw))
+    if case == "masked":  # the all-skipped query block keeps its state bit for bit
+        rows = slice(tfs.PRUNE_ROWS, 2 * tfs.PRUNE_ROWS)
+        got_k = tfs.sweep_kernel(q, torch.zeros(P, device=dev), bank, values, 0.1,
+                                 *(x.contiguous() for x in state), precision=precision,
+                                 prune_mask=mask)
+        assert all(torch.equal(a[rows], b[rows]) for a, b in zip(got_k, state))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "high"])
+def test_split_bank_per_seed_equals_one_seed_launches(precision):
+    dev = _need_cuda()
+    M, d, P, c, S = 512, 27, SPLIT_P, 3, 4
+    q, qn, bank, pn, values, w = _case(M, d, P, c, seed=12, dev=dev)
+    w2 = torch.stack([w, w.flip(0), torch.zeros_like(w), w * (w > 0.5)])
+    rps = M // S
+    got = tfs.flash_score_update(q, qn, bank, pn, values, w2, 0.8, 0.6, _empty(M, c, dev),
+                                 precision=precision, rows_per_seed=rps)
+    for s in range(S):
+        r = slice(s * rps, (s + 1) * rps)
+        one = tfs.flash_score_update(q[r], qn[r], bank, pn, values, w2[s].contiguous(),
+                                     0.8, 0.6, _empty(rps, c, dev), precision=precision)
+        assert all(torch.equal(a[r], b) for a, b in zip(got, one))
+
+
+@pytest.mark.cuda
+def test_split_bank_logits_are_the_parents():
+    """One launch from the empty state returns m = the row max of the
+    logits: K1's equals the row max of its fp32 order
+    (`fp32_logits_in_order`), K2's the 'default' kernel's, whose split dot
+    is the parent loop's."""
+    dev = _need_cuda()
+    M, d, P, c = 128, 243, SPLIT_P, 3
+    q, _, bank, _, values, _ = _case(M, d, P, c, seed=13, dev=dev)
+    bias = torch.randn(P, device=dev)
+    empty = _empty(M, c, dev)
+    ds = 0.0537109375  # a float32 value, as the wrapper's dotscale is
+    m1 = tfs.sweep_kernel(q, bias, bank, values, ds, *empty, precision="highest")[0]
+    ref = tfs.fp32_logits_in_order(q, bank, ds, bias).amax(1)
+    assert torch.equal(m1, ref)
+    m2 = tfs.sweep_kernel(q, bias, bank, values, ds, *empty, precision="high")[0]
+    m3 = tfs.sweep_kernel(q, bias, bank, values, ds, *empty, precision="default")[0]
+    assert torch.equal(m2, m3)

@@ -1,0 +1,264 @@
+"""Port: the split-bank grid of the per-row kernels K1 and K2, on the CPU.
+
+The kernels cut a chunk's bank axis into `split_plan`'s ranges, sweep each
+from the empty state and fold the partial states into the carried state in
+split order (`merge_splits_plain` is the merge pass's plain version); K2
+also splits its inputs into bf16 planes once per launch
+(`split_planes_plain`). Here: the plan's boundaries, the plain split-and-
+merge against the unsplit plain sweep (1e-6 on m + log2 s1 and s2 / s1,
+and bit for bit where every split is skipped) and, through the wrapper,
+against the JAX kernel in interpret mode (the JAX tests' tolerances), the
+planes against `_split_bf16`, and `chip_smoke.py`'s conversion to the
+library yardstick (attention with an additive bias) against the plain
+sweep in float64."""
+
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+import chip_smoke
+import convolutional_diffusion_tpu.ops.flash_score as jfs
+import convolutional_diffusion_tpu_torch.ops.flash_score as fs
+
+NEG = fs.NEG_INF
+
+
+@pytest.mark.parametrize("P", [1, 127, 4096, 4097, 8192 + 37, 65536, 65536 + 37,
+                               524160, 10 ** 6])
+def test_split_plan_boundaries(P):
+    plan = fs.split_plan(P)
+    assert plan[0][0] == 0 and plan[-1][1] == P
+    assert all(a[1] == b[0] for a, b in zip(plan, plan[1:]))
+    assert len(plan) <= fs.MAX_SPLITS
+    for p0, p1 in plan[:-1]:  # every inner boundary on a tile and a prune cell
+        assert p1 % 128 == 0 and p1 % fs.PRUNE_BLOCK == 0 and p1 > p0
+    if P > fs.SPLIT_ROWS:
+        assert len(plan) > 1
+
+
+@pytest.mark.parametrize("precision,strategy,c,fast,split", [
+    ("highest", "vpu", 3, None, True),
+    ("high", "vpu", 8, None, True),
+    ("default", "vpu", 3, False, True),  # routes to K2
+    ("default", "vpu", 3, None, False),  # the bf16 exponential
+    ("highest", "vpu", 3, True, False),
+    ("high", "mxu", 16, None, False),  # the wide sums keep the parent's loop
+    ("highest", "inbank", 3, None, False),
+    ("high", "vpu", 9, None, False),
+])
+def test_split_plan_variants(precision, strategy, c, fast, split):
+    plan = fs.split_plan(65536, precision, strategy, c, fast)
+    assert (len(plan) > 1) == split
+    assert fs.splits_bank(precision, strategy, c, fast) == split
+
+
+@pytest.mark.parametrize("name,precision,M,rps,grid", [
+    ("flash_score", "highest", 8192, 8192, (64, 1, 16)),
+    ("flash_score", "highest", 8192, 1024, (8, 8, 16)),
+    ("flash_score_bf16x3", "high", 8192, 8192, (128, 1, 16)),
+    ("flash_score_bf16x3", "high", 2048, 2048, (32, 1, 16)),
+    ("flash_score_bf16x3", "high", 8 * 784, 784, (13, 8, 16)),
+])
+def test_split_launch_grid(name, precision, M, rps, grid):
+    """One function gives a launch's split rows, split count and grid: the
+    kernels' block rows come from `_build.SPLIT_BQ` (their nvcc flags)."""
+    split_rows, nsplit, got = fs.split_launch(name, M, rps, 65536, precision)
+    assert (split_rows, nsplit, got) == (fs.SPLIT_ROWS, 16, grid)
+    assert fs.split_plan(65536, precision)[0] == (0, split_rows)
+
+
+@pytest.mark.parametrize("precision,strategy,c,fast", [
+    ("default", "vpu", 3, None), ("high", "mxu", 16, None), ("highest", "vpu", 3, True),
+])
+def test_split_launch_off_the_grid(precision, strategy, c, fast):
+    """Off the split-bank grid a launch takes the whole chunk, no scratch."""
+    assert fs.split_launch(fs.KERNEL_OF[precision], 8192, 8192, 65536, precision, strategy,
+                           c, fast) == (65536, 1, None)
+
+
+def test_split_plan_ignores_queries_seeds_and_masks():
+    """The plan is a function of P and the variant: a K5 launch and the
+    one-seed launches it stands for, masked or not, split alike."""
+    sig = fs.split_plan.__code__.co_varnames[:fs.split_plan.__code__.co_argcount]
+    assert sig == ("P", "precision", "strategy", "c", "fast_exp")
+    assert fs.split_plan(65536) == fs.split_plan(65536, "highest", "vpu", 3, False)
+
+
+def _kernel_inputs(M, d, P, c, seed, S=1):
+    rs = np.random.RandomState(seed)
+    q = torch.from_numpy(rs.normal(size=(M, d)).astype(np.float32))
+    bank = torch.from_numpy(rs.normal(size=(P, d)).astype(np.float32))
+    values = torch.from_numpy(rs.normal(size=(P, c)).astype(np.float32))
+    bias = rs.normal(size=(S, P) if S > 1 else (P,)).astype(np.float32) * 2
+    bias[..., rs.rand(P) < 0.1] = NEG  # excluded patches
+    return q, torch.from_numpy(bias), bank, values, 0.7
+
+
+def _state(M, c, seed):
+    rs = np.random.RandomState(seed + 100)
+    m = torch.from_numpy(rs.normal(size=(M,)).astype(np.float32) * 3 + 10)
+    s1 = torch.from_numpy(rs.uniform(0.5, 2, size=(M,)).astype(np.float32))
+    s2 = torch.from_numpy(rs.normal(size=(M, c)).astype(np.float32))
+    m[::5], s1[::5], s2[::5] = NEG, 0.0, 0.0  # sentinel rows
+    return m, s1, s2
+
+
+def _split_sweep(q, bias, bank, values, dotscale, m, s1, s2, precision="highest",
+                 strategy="vpu", col0=-1, prune_mask=None, fast_exp=None):
+    """The split-bank launch in plain PyTorch: sweep_plain over each range of
+    the plan from the empty state, then the merge."""
+    M, c = q.shape[0], s2.shape[1]
+    parts = []
+    for p0, p1 in fs.split_plan(bank.shape[0], precision, strategy, c, fast_exp):
+        mk = None
+        if prune_mask is not None:
+            mk = prune_mask[:, p0 // fs.PRUNE_BLOCK: -(-p1 // fs.PRUNE_BLOCK)]
+        parts.append(fs.sweep_plain(
+            q, bias[..., p0:p1], bank[p0:p1], None if values is None else values[p0:p1],
+            dotscale, torch.full((M,), NEG), torch.zeros(M), torch.zeros(M, c),
+            precision=precision, strategy=strategy, col0=col0, prune_mask=mk,
+            fast_exp=fast_exp))
+    return fs.merge_splits_plain((m, s1, s2), parts)
+
+
+def _rel(a, b):
+    a, b = a.double(), b.double()
+    fin = torch.isfinite(b)
+    assert torch.equal(fin, torch.isfinite(a))
+    a, b = a[fin], b[fin]
+    return ((a - b).abs().max() / max(a.abs().max(), b.abs().max(), 1.0)).item()
+
+
+def _invariants(state):
+    m, s1, s2 = (x.double() for x in state)
+    live = s1 > 0
+    return torch.where(live, m + torch.log2(s1), m), s2[live] / s1[live][:, None]
+
+
+@pytest.mark.parametrize("precision", ["highest", "high"])
+@pytest.mark.parametrize("case", ["1-D", "per-seed", "masked"])
+def test_plain_split_and_merge_equals_unsplit(precision, case):
+    M, d, P, c = 64 * 4, 12, 2 * fs.SPLIT_ROWS + 300, 3
+    S = 4 if case == "per-seed" else 1
+    q, bias, bank, values, ds = _kernel_inputs(M, d, P, c, seed=1, S=S)
+    state = _state(M, c, seed=1)
+    mask = None
+    if case == "masked":
+        mask = torch.zeros(fs.prune_grid(M, P), dtype=torch.int32)
+        mask[::2, ::3] = 1
+        mask[1, :] = 1  # a whole query block skipped
+    kw = dict(precision=precision, prune_mask=mask)
+    split = _split_sweep(q, bias, bank, values, ds, *state, **kw)
+    whole = fs.sweep_plain(q, bias, bank, values, ds, *state, **kw)
+    assert len(fs.split_plan(P, precision)) == 3
+    for a, b in zip(_invariants(split), _invariants(whole)):
+        assert _rel(a, b) <= 1e-6
+    if mask is not None:  # the all-skipped query block keeps its state bit for bit
+        rows = slice(fs.PRUNE_ROWS, 2 * fs.PRUNE_ROWS)
+        assert all(torch.equal(x[rows], y[rows]) for x, y in zip(split, state))
+
+
+def test_fully_skipped_splits_leave_the_state_bit_equal():
+    M, d, P, c = 64, 8, 2 * fs.SPLIT_ROWS + 5, 3
+    q, bias, bank, values, ds = _kernel_inputs(M, d, P, c, seed=2)
+    state = _state(M, c, seed=2)
+    mask = torch.ones(fs.prune_grid(M, P), dtype=torch.int32)
+    out = _split_sweep(q, bias, bank, values, ds, *state, prune_mask=mask)
+    assert all(torch.equal(x, y) for x, y in zip(out, state))
+    # a split of excluded patches only (bias -1e30) adds nothing either
+    empty_bias = torch.full_like(bias, NEG)
+    out = _split_sweep(q, empty_bias, bank, values, ds, *state)
+    assert all(torch.equal(x, y) for x, y in zip(out, state))
+
+
+def test_merge_passes_over_empty_partials_bit_for_bit():
+    M, c = 16, 2
+    state = _state(M, c, seed=3)
+    empty = (torch.full((M,), NEG), torch.zeros(M), torch.zeros(M, c))
+    out = fs.merge_splits_plain(state, [empty, empty])
+    assert all(torch.equal(x, y) for x, y in zip(out, state))
+    # one live partial for a few rows, the rest keep their state as it is
+    live = tuple(x.clone() for x in empty)
+    live[0][:4], live[1][:4], live[2][:4] = 12.0, 1.5, 0.25
+    out = fs.merge_splits_plain(state, [empty, live])
+    assert all(torch.equal(x[4:], y[4:]) for x, y in zip(out, state))
+    assert not torch.equal(out[1][:4], state[1][:4])
+
+
+@pytest.mark.parametrize("precision", ["highest", "high"])
+def test_split_sweep_through_the_wrapper_matches_jax(precision):
+    """The split-and-merge launch through the wrapper's conventions against
+    the JAX kernel in interpret mode (the JAX kernel tests' tolerances)."""
+    rs = np.random.RandomState(4)
+    M, d, P, c = 64, 27, fs.SPLIT_ROWS + 700, 3
+    q = rs.normal(size=(M, d)).astype(np.float32)
+    bank = rs.normal(size=(P, d)).astype(np.float32)
+    values = rs.normal(size=(P, c)).astype(np.float32)
+    w = rs.uniform(0.5, 1.5, size=(P,)).astype(np.float32)
+    w[rs.rand(P) < 0.1] = 0.0
+    qn, pn = (q ** 2).sum(1), (bank ** 2).sum(1)
+    at, bt = 0.9, 0.45
+    empty = (np.full((M,), -1e30, np.float32), np.zeros(M, np.float32),
+             np.zeros((M, c), np.float32))
+    t = [torch.from_numpy(x) for x in (q, qn, bank, pn, values, w)]
+    got = fs._update(_split_sweep, *t, at, bt, tuple(torch.from_numpy(s) for s in empty),
+                     precision, None, "vpu", None, None, None)
+    want = jfs.flash_score_update(*(jnp.asarray(x) for x in (q, qn, bank, pn, values, w)),
+                                  jnp.float32(at), jnp.float32(bt),
+                                  tuple(jnp.asarray(s) for s in empty),
+                                  precision=precision, interpret=True)
+    got = [g.numpy() for g in got]
+    want = [np.asarray(x) for x in want]
+    np.testing.assert_allclose(got[0] + np.log(got[1]), want[0] + np.log(want[1]),
+                               rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(got[2] / got[1][:, None], want[2] / want[1][:, None],
+                               rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("d", [1, 27, 32, 243])
+def test_split_planes_match_split_bf16(d):
+    rs = np.random.RandomState(d)
+    x = torch.from_numpy((rs.normal(size=(50, d)) * 10 ** rs.uniform(-3, 3, (50, d)))
+                         .astype(np.float32))
+    d_pad = -(-d // fs.PLANE_K) * fs.PLANE_K
+    hi, lo = fs.split_planes_plain(x, d_pad)
+    assert hi.dtype == lo.dtype == torch.bfloat16 and hi.shape == (50, d_pad)
+    ref_hi, ref_lo = fs._split_bf16(x)
+    assert torch.equal(hi[:, :d].float(), ref_hi) and torch.equal(lo[:, :d].float(), ref_lo)
+    assert not hi[:, d:].float().any() and not lo[:, d:].float().any()
+
+
+def test_scratch_numel():
+    assert fs.scratch_numel("flash_score", 16, 8192, 65536, 867, 3) == 16 * 8192 * 5
+    n = fs.scratch_numel("flash_score_bf16x3", 3, 7, 100, 27, 3)
+    assert n == -(-3 * 7 * 5 // 4) * 4 + (7 + 100) * 32
+
+
+@pytest.mark.parametrize("S", [1, 4])
+def test_yardstick_conversion_matches_the_plain_sweep(S):
+    """chip_smoke.py's conversion to the library yardstick: attention with
+    an additive per-key bias (scale = dotscale ln 2, bias ln 2), run here as
+    float64 F.scaled_dot_product_attention (math backend) with its log-sum-
+    exp taken alongside, equals the plain sweep from the empty state
+    within 1e-9 relative on m + log2 s1 (natural log, through the wrapper's
+    offset) and s2 / s1."""
+    M, d, P, c = 64 * S, 27, 600, 3
+    q, bias, bank, values, ds = (x.double() if torch.is_tensor(x) else x
+                                 for x in _kernel_inputs(M, d, P, c, seed=5, S=S))
+    bias[..., :7] = NEG  # excluded patches as the wrapper writes them
+    m, s1, s2 = fs.sweep_plain(q, bias, bank, values, ds, torch.full((M,), NEG,
+                               dtype=torch.float64), torch.zeros(M, dtype=torch.float64),
+                               torch.zeros(M, c, dtype=torch.float64))
+    Q, K, V, ab, scale = chip_smoke.sdpa_inputs(q, bias, bank, values, ds)
+    assert ab.stride(2) == 0  # broadcast over the query rows, not written out
+    out = F.scaled_dot_product_attention(Q, K, V, attn_mask=ab, scale=scale)
+    lse = torch.logsumexp(scale * Q @ K.transpose(-1, -2) + ab, dim=-1)
+    qn_s = torch.rand(M, dtype=torch.float64)
+    got = chip_smoke.sdpa_state(out, lse, qn_s, c)
+    want_lse = (m + torch.log2(s1)) * math.log(2.0) - qn_s
+    assert _rel(got[0] + torch.log(got[1]), want_lse) <= 1e-9
+    assert _rel(got[2] / got[1][:, None], s2 / s1[:, None]) <= 1e-9
