@@ -9,10 +9,12 @@ Phases, each printing its own lines; any failure exits non-zero:
               the SFU's exp2 rate (16 per clock per SM x SMs x max SM clock).
 2. build    — compiles the three flash-score kernels from the sources in this
               checkout (one nvcc per source, started together, sm_90a; K1's
-              and K2's sources hold their split-bank sweeps, the merge pass
-              and K2's pre-split pass too) and prints ptxas registers,
-              shared memory and spills per kernel, any note of ptxas
-              serialising K2's wgmma products, and the build times.
+              source holds its main loop and the merge pass, K2's and the
+              'default' kernel's the split-dot main loop, the merge pass and
+              the pre-split pass) and prints one [ptxas] line per kernel
+              instantiation (registers, spill stores and loads, stack), any
+              note of ptxas serialising the wgmma products, and the build
+              times.
 3. kernel   — each kernel against its plain PyTorch version on the card at
               the main path's shapes: M = 8192 query rows (8 seeds x 32x32),
               one full CIFAR10 bank chunk, c = 3: K1 ('highest', fp32) and
@@ -34,14 +36,15 @@ Phases, each printing its own lines; any failure exits non-zero:
               the schedule: each kernel's time in the variant the ELS module
               takes there, its plain version's time and its bound, and the
               tensor-core tiers' time at the bbELS center's query count.
-              Tier gaps are printed as information only. K1 and K2 run on
-              the split-bank grid (ops/csrc/split_bank.cuh): each timing line
-              prints the split plan and the grid, and at k in {3, 9, 17}
+              Tier gaps are printed as information only. Every kernel runs
+              on the split-bank grid (ops/csrc/split_bank.cuh): each timing
+              line prints the split plan and the grid, and at k in {3, 9, 17}
               every t a launch from the empty state must return m equal, bit
               for bit, to the row max of the parent's logits (K1: of
-              `fs.fp32_logits_in_order` over every eighth 64-row block; K2:
-              the 'default' kernel's, whose dot is the parent's split-dot
-              loop; its agreement with `fs._split_dot` prints). Every timed
+              `fs.fp32_logits_in_order` over every eighth 64-row block; the
+              'default' kernel: K2's per-row launch's, the one split-dot
+              loop; K2's agreement with `fs._split_dot` prints; the moved
+              variants of phase variants likewise, at t = 0.5). Every timed
               variant, here and in the phases below, is also timed against
               the library yardstick: PyTorch's memory-efficient attention
               (`_scaled_dot_product_efficient_attention`) on the same
@@ -514,39 +517,45 @@ def grid_line(name, M, P, kw, c=3, rps=None) -> str:
             f"{math.prod(grid)} blocks")
 
 
-def check_logits(key, k, t, args, kw):
+def check_logits(key, k, t, args, kw, c=3):
     """The logits are the parent's: one `fs.sweep_kernel` launch from the
-    empty state returns m = the row max of its logits. K1's must equal, bit
-    for bit, the row max of `fs.fp32_logits_in_order` (K1's fp32 order, over
-    `row_subset`). K2's must equal the 'default' kernel's, whose dot is the
-    parent's split-dot loop (flash_score_split.cuh) step for step; its
-    distance from the plain `fs._split_dot` is printed beside it (that
-    version takes each tensor-core step as rounded toward zero, which the
-    card does in ~97% of inexact steps, `ops.k2_numerics`)."""
-    _, (q, bias, bank, values, dotscale, *_), _, _ = kernel_call(
-        *args, empty_state(args[0].shape[0], 3), **kw)
+    empty state (the variant's own strategy, exponential and c) returns m =
+    the row max of its logits. On K1's loop m must equal, bit for bit, the
+    row max of `fs.fp32_logits_in_order` (K1's fp32 order, over
+    `row_subset`), in every strategy and with either exponential. On the
+    split-dot loop, every mode of K2 and of the 'default' kernel must equal
+    K2's per-row launch (c = 3) on every row: one dot for all modes. K2's
+    own bits are held against the parent commit's by `kernel_ab.py` (the m
+    digests of one call), and its distance from the plain `fs._split_dot`
+    prints here (that version takes each tensor-core step as rounded toward
+    zero, which the card does in ~97% of inexact steps,
+    `ops.k2_numerics`)."""
+    _, (q, bias, bank, values, dotscale, *_), k_, _ = kernel_call(
+        *args, empty_state(args[0].shape[0], c), **kw)
     M = q.shape[0]
-    empty = (torch.full((M,), fs.NEG_INF, device="cuda"), torch.zeros(M, device="cuda"),
-             torch.zeros(M, 3, device="cuda"))
-    m = fs.sweep_kernel(q, bias, bank, values, dotscale, *empty, precision=kw["precision"])[0]
+    m = fs.sweep_kernel(q, bias, bank, values, dotscale, *empty_state(M, c), **k_)[0]
     r = row_subset(M)
-    if kw["precision"] == "highest":
+    what = f"{key} k={k} t={t} c={c}"
+    if k_["precision"] == "highest":
         ref = fs.fp32_logits_in_order(q[r], bank, dotscale, bias).amax(1)
         same = int((m[r] == ref).sum())
-        print(f"[logits] {key} k={k} t={t}: m_out of a launch from the empty state == the "
+        print(f"[logits] {what}: m_out of a launch from the empty state == the "
               f"row max of fs.fp32_logits_in_order on {same} of {r.numel()} rows", flush=True)
         if same != r.numel():
             fail(f"{key}'s logits moved at k={k} t={t}")
         return
-    parent = fs.sweep_kernel(q, bias, bank, values, dotscale, *empty, precision="default")[0]
-    qh, ql = fs._split_bf16(q[r])
-    ref = fs._add_bias(fs._split_dot(qh.double(), ql.double(), *fs._split_bf16(bank)).double()
-                       * dotscale, bias.double()).float().amax(1)
-    same = int((m == parent).sum())
-    print(f"[logits] {key} k={k} t={t}: m_out of a launch from the empty state == the "
-          f"parent loop's ('default' kernel's) on {same} of {M} rows; == the row max of "
-          f"fs._split_dot (information) on {int((m[r] == ref).sum())} of {r.numel()} rows",
-          flush=True)
+    k2 = fs.sweep_kernel(q, bias, bank, torch.zeros(bank.shape[0], 3, device="cuda"),
+                         dotscale, *empty_state(M, 3), precision="high")[0]
+    same = int((m == k2).sum())
+    line = (f"[logits] {what}: m_out of a launch from the empty state == K2's per-row "
+            f"launch's on {same} of {M} rows")
+    if k_["precision"] == "high" and k_["strategy"] == "vpu" and c <= fs.MAX_CHANNELS:
+        qh, ql = fs._split_bf16(q[r])
+        ref = fs._add_bias(fs._split_dot(qh.double(), ql.double(), *fs._split_bf16(bank))
+                           .double() * dotscale, bias.double()).float().amax(1)
+        line += (f" (K2 itself); == the row max of fs._split_dot (information) on "
+                 f"{int((m[r] == ref).sum())} of {r.numel()} rows")
+    print(line, flush=True)
     if same != M:
         fail(f"{key}'s logits moved at k={k} t={t}")
 
@@ -624,22 +633,57 @@ def phase_device():
     return smi[0], name
 
 
+def demangle(names):
+    """C++ names as cu++filt (the CUDA toolkit's) or c++filt gives them,
+    without their parameter lists; the mangled names where neither runs."""
+    for tool in (shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt", "c++filt"):
+        try:
+            out = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                                 text=True, timeout=60, check=True).stdout.splitlines()
+        except (OSError, subprocess.SubprocessError):
+            continue
+        if len(out) == len(names):
+            out = [n.removeprefix("void ").replace("(anonymous namespace)::", "")
+                   for n in out]
+            return [n[:n.index(">(") + 1] if ">(" in n else n.split("(")[0] for n in out]
+    return list(names)
+
+
+def ptxas_table(log: str):
+    """[(entry, registers, spill stores, spill loads, stack bytes)] of every
+    kernel instantiation in an nvcc -Xptxas -v log."""
+    rows, entry, frame = [], None, (0, 0, 0)
+    for line in log.splitlines():
+        words = line.replace(",", " ").split()
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "spill" in words and "stores" in words:
+            frame = (int(words[words.index("stack") - 2]), int(words[words.index("stores") - 3]),
+                     int(words[words.index("loads") - 3]))
+        elif entry is not None and "Used" in words and "registers" in words:
+            regs = int(words[words.index("Used") + 1])
+            rows.append((entry, regs, frame[1], frame[2], frame[0]))
+            entry, frame = None, (0, 0, 0)
+    return rows
+
+
 def phase_build():
+    """Build the three kernels (one nvcc each, started together) and print
+    ptxas's registers, spills and stack for every instantiation, and any
+    note of ptxas serialising the wgmma products."""
     for name, built in _build.build_all(list(TIER_OF)).items():
-        regs, spills = [], 0
+        table = ptxas_table(built.log)
         for line in built.log.splitlines():
-            if any(t in line for t in ("registers", "spill", "smem", "Compiling entry",
-                                       "Performance Loss")):
+            if "Performance Loss" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
-            words = line.split()
-            if "registers," in words:
-                regs.append(int(words[words.index("registers,") - 1]))
-            if "spill" in words and "stores," in words:
-                spills += int(words[words.index("spill") - 2])
+        for (_, regs, st, ld, stack), entry in zip(table, demangle([t[0] for t in table])):
+            print(f"[ptxas] {source(name)} {entry}: {regs} registers, spill stores {st} "
+                  f"bytes, spill loads {ld} bytes, stack {stack} bytes", flush=True)
         how = f"built in {built.seconds:.1f} s" if built.seconds else "reused an identical build"
+        regs = [t[1] for t in table]
         regs = f"{min(regs)}-{max(regs)}" if regs else "not in the log"
-        print(f"[build] {source(name)}: {how}; registers {regs}, "
-              f"spill stores {spills} bytes", flush=True)
+        print(f"[build] {source(name)}: {how}; {len(table)} instantiations, registers "
+              f"{regs}, spill stores {sum(t[2] for t in table)} bytes", flush=True)
         _build.load(name)
 
 
@@ -786,8 +830,7 @@ def phase_kernel(images_dev, n_bank, gen):
                                 fs.flash_score_update(*args, st, **kw),
                                 fs.flash_score_update_plain(*args, st, **kw))
                         check_cases("kernel", key, k, t, cases, rec)
-                        if name in _build.SPLIT_BQ:
-                            check_logits(key, k, t, args, kw)
+                        check_logits(key, k, t, args, kw)
                     if t != 0.5:
                         continue
                     # timing: each variant; the one the ELS module takes at
@@ -801,8 +844,7 @@ def phase_kernel(images_dev, n_bank, gen):
                     line = (f"[kernel] {key} k={k} d={g.d} M={M} P={P}: kernel {ms:.3f} ms, "
                             f"plain {plain_ms:.3f} ms, library {lib_ms:.3f} ms, bound "
                             f"{b_ms:.3f} ms ({b_by}), {b_ms / ms:.1%} of bound")
-                    if name in _build.SPLIT_BQ:
-                        line += f"; {grid_line(name, M, P, kw)}"
+                    line += f"; {grid_line(name, M, P, kw)}"
                     if prec == "highest":
                         with true_fp32():
                             mm_ms = cuda_ms(lambda: torch.matmul(xq, p.T), 5)
@@ -1002,8 +1044,7 @@ def phase_kernel_per_seed(images_dev, labels_dev, n_bank, gen):
                 grouped_ms = cuda_ms(grouped, 3)
                 b_ms, b_by = bound(M, P, g.d, c, prec, S=SEEDS,
                                    strategy=vkw.get("v_strategy", "vpu"))
-                grid = f"; {grid_line(fs.KERNEL_OF[prec], M, P, kw, rps=rps)}" if (
-                    fs.KERNEL_OF[prec] in _build.SPLIT_BQ and not vkw) else ""
+                grid = f"; {grid_line(fs.KERNEL_OF[prec], M, P, kw, rps=rps)}"
                 print(f"[k5] {key} k={k} d={g.d} M={M} P={P}: kernel {ms:.3f} ms, "
                       f"plain {plain_ms:.3f} ms, library {lib_ms:.3f} ms, bound {b_ms:.3f} "
                       f"ms ({b_by}), {b_ms / ms:.1%} of bound; 1-D kernel on the same inputs "
@@ -1392,6 +1433,8 @@ def phase_variants(images_dev, images16_dev, gen):
                     variant_case("variants", key, k, t, args, M, WIDE_C, kw, rec,
                                  chain=t == 0.5 and rows is None, rows=rows,
                                  exact=precision == "default")
+                    if t == 0.5:
+                        check_logits(key, k, t, args, kw, c=WIDE_C)
                 if t == 0.5:
                     if k in CHECKED_K:
                         wide_ms.setdefault(key, {})[k] = variant_time(
@@ -1454,6 +1497,7 @@ def phase_variants(images_dev, images16_dev, gen):
             variant_case("variants", key, k, t, args, M, 3, kw, rec,
                          chain=t == 0.5 and rows is None, rows=rows, exact=bf16_exp)
             if t == 0.5:
+                check_logits(key, k, t, args, kw)
                 variant_time("variants", key, k, args, M, args[2].shape[0], g.d, 3, kw,
                              rec, rows=rows)
     # (6) K5: per-seed weights (8 seeds of 1024 rows, label-filtered) in each

@@ -35,11 +35,14 @@ SPLIT_TILE = 128
 PRUNE_ROWS = 64
 PRUNE_BLOCK = 2048
 
-# Query rows per thread block of the split-bank sweeps (K1 `flash_score.cu`
-# rows::BQ, K2 `flash_score_split_rows.cuh` BQ; each source static_asserts
-# its own against the -D flag): `flash_score.split_launch` reads them for the
-# grid of a launch.
-SPLIT_BQ = {"flash_score": 128, "flash_score_bf16x3": 64}
+# Query rows per thread block of the two main loops, by launch-count key
+# prefix: K1's (`flash_score.cu` rows::Rows: 128, and 64 with the bf16
+# exponential, which runs one split) and the split-dot loop's
+# (`flash_score_split_rows.cuh` BQ, K2 and the 'default' kernel). Each
+# source static_asserts its own against the -D flag; `flash_score.
+# split_launch` reads them for the grid of a launch.
+SPLIT_BQ = {"flash_score": 128, "flash_score/bf16_exp": 64, "flash_score_bf16x3": 64,
+            "flash_score_fast": 64}
 
 # No --use_fast_math: the flash-score dots' fp32 sums and exp2f must stay
 # full fp32.
@@ -48,6 +51,7 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
     f"-DSPLIT_TILE={SPLIT_TILE}", f"-DPRUNE_ROWS={PRUNE_ROWS}",
     f"-DPRUNE_BLOCK={PRUNE_BLOCK}", f"-DK1_SPLIT_BQ={SPLIT_BQ['flash_score']}",
+    f"-DK1_FAST_BQ={SPLIT_BQ['flash_score/bf16_exp']}",
     f"-DK2_SPLIT_BQ={SPLIT_BQ['flash_score_bf16x3']}",
 ]
 
@@ -61,7 +65,8 @@ _P = ctypes.c_void_p
 # (K6); strategy is the value strategy's code (`flash_score.STRATEGY_CODE`),
 # col0 the first center column of 'inbank' (-1 otherwise), fast 1 for the
 # bf16 exponential; scratch (null or float32 `flash_score.scratch_numel`)
-# and split_rows (`flash_score.split_plan`) are the split-bank grid's
+# and split_rows (`flash_score.split_plan`) are the main loops' (partial
+# states of the splits, the split-dot kernels' bf16 planes)
 _FLASH_ARGS = [
     _P, _P, _P, _P, ctypes.c_float, _P, _P, _P, _P, _P, _P,
     ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,

@@ -39,334 +39,154 @@
 // are; it runs as fp32 FFMA, 67 TFLOP/s published. The bank chunk is read
 // once per query block but stays far below the 3.35 TB/s memory rate.
 //
-// Per-row sums ('vpu', c <= 8, fp32 exp2: every launch of the 'highest'
-// ELS, pruned and conditional machines) run on the split-bank grid
-// (split_bank.cuh, namespace `rows` below): block (x, s, z) owns 128 query
-// rows of seed s and the bank tiles of split z, computes 128 x 128 dot
-// tiles as a register-blocked SGEMM (8 x 8 per thread) staged through a
-// ring of cp.async slots, writes its partial state, and a merge pass folds
-// the splits into the carried state in order. The dot is the fp32 FMA chain
-// over the features in order, so the logits are the bits the per-block
-// design before it gave (`fs.fp32_logits_in_order` repeats them). Prune mask
-// (K6, the PRUNE instantiation): a block of 128 rows covers two PRUNE_ROWS
-// mask rows and walks the tiles either keeps; inside a walked tile the rows
-// of a mask row that skips it take -1e30 logits, so the result is the
-// plain version's with its masked cells, and a split whose tiles are all
-// skipped leaves the state as it was.
+// One main loop for every variant (namespace `rows` below), on the
+// split-bank grid (split_bank.cuh): block (x, s, z) owns BQ query rows of
+// seed s and the bank tiles of split z, computes BQ x 128 dot tiles as a
+// register-blocked SGEMM (8 x 8 per thread at BQ = 128) staged through a
+// ring of cp.async slots, and hands each finished tile to one of three
+// epilogues (template parameter EPI):
+//  PER_ROW    'vpu', c <= 8 (template C), fp32 exp2: every launch of the
+//             'highest' ELS, pruned and conditional machines. Row sums in
+//             shared memory, the tile's values staged with its last stage.
+//  WIDE       'mxu', 'inbank', 'vpu' past 8 channels, fp32 exp2, any c at
+//             runtime: per chunk of CV = 16 channels of V staged in shared
+//             memory (the bank's center columns through a row stride of d
+//             for 'inbank'), row by row, each thread sums e * V over its 8
+//             columns, the row's 16 threads add their sums by shuffles, and
+//             the split's partial s2 rows in the scratch take
+//             s2 * scale + sum, one rounding per tile, as the TPU kernel's
+//             per-block product does. Nothing in shared memory grows with
+//             c, and a row's accumulators are free once its sums are taken,
+//             so the block keeps the ring and two blocks per SM at any
+//             c <= 256.
+//  WIDE_FAST  the bf16 exponential e = bf16(expf(bf16(bf16(x) * bf16(ln 2))))
+//             of x = logit - m in every strategy, any c: m is re-based once
+//             per 128-row bank tile, and x is rounded against the m of its
+//             tile, so the bank axis is never split; the block starts from
+//             the carried state and writes the new one (s2 in the output
+//             rows), BQ = 64 so that M = 8192 still gives 128 blocks. The
+//             products follow the JAX kernel's dtypes (value_sums.cuh
+//             rules): 'vpu' bf16(e * bf16(v)), 'mxu'/'mxu1' e * bf16(v),
+//             'inbank' e * v (HIGHEST promotes the bf16 e); s1 is the fp32
+//             row sum ('mxu1' is 'mxu' here).
+// The other epilogues write their split's partial state, and a merge pass
+// folds the splits into the carried state in order. Every copy of a stage
+// lands in its feature-major place ([feature][row], stride BQ + 4 floats),
+// so the transpose costs no register round trip and no store instruction,
+// and a thread reads per feature two float4s of the query tile and two of
+// the bank tile for 64 FFMAs (one float4 for 32 at BQ = 64).
 //
-// Wide value sums (the WIDE instantiations: 'mxu', 'inbank', 'vpu' past 8
-// channels, and every strategy with the bf16 exponential) keep the
-// per-block design (flash_score_f32_kernel): one block of 64 query rows
-// walks the whole chunk, 4 x 8 microtile per thread, the next stage's loads
-// issued into registers before the current stage's FFMAs and stored
-// transposed; the K6 walk of prune_tiles.cuh. s2 [BQ, c] lives in dynamic
-// shared memory and each bank tile's exponentials go through shared memory
-// into a small fp32 product e @ V (value_sums.cuh ValueTile), so any c runs
-// without an instantiation per c. The product rule follows the JAX
-// kernel's dtypes: fp32 products with the fp32 exp2 (every strategy); with
-// the bf16 exponential e = bf16(expf(bf16(bf16(x) * bf16(ln 2)))) of
-// x = logit - m, 'vpu' rounds each product e * bf16(v) to bf16,
-// 'mxu'/'mxu1' take the exact products e * bf16(v), and 'inbank' e * v with
-// v in fp32 (HIGHEST promotes the bf16 e). 'mxu1' is 'mxu' here: s1 is the
-// fp32 row sum either way. m is re-based once per 128-row bank tile, which
-// with the bf16 exponential is part of the function (x is rounded against
-// the tile's m), so those never split the bank axis; the plain version
-// re-bases at the same rows. 'inbank' reads the center columns col0 ..
-// col0 + c of each bank row from device memory (the rows the tile just
-// staged, so from L2) through a row stride of d. Offsets formed from row
+// The numbers: each dot is the fp32 FMA chain over the features 0 .. d-1
+// in order, then fmaf(acc, dotscale, bias), so every variant's logits are
+// the bits of the per-block loop the port ran before (`fs.fp32_logits_in_
+// order` repeats them); only the order of the fp32 sums s1 and s2 changes
+// (per tile across a row's 16 threads, then across splits in the merge).
+// Prune mask (K6, the PRUNE instantiations): a block of 128 rows covers two
+// PRUNE_ROWS mask rows and walks the tiles either keeps; inside a walked
+// tile the rows of a mask row that skips it take -1e30 logits, so the
+// result is the plain version's with its masked cells, and a split whose
+// tiles are all skipped leaves the state as it was. Offsets formed from row
 // indices are 64-bit. Built without fast-math: exp2f and the dot stay full
 // fp32.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "prune_tiles.cuh"
 #include "split_bank.cuh"
 #include "value_sums.cuh"
 
 namespace {
 
-constexpr int BQ = 64;      // query rows per block
-constexpr int BP = 128;     // bank rows per tile
-constexpr int BK = 16;      // features per shared-memory stage
-constexpr int NT = 256;     // threads: 16 row groups x 16 column groups
-constexpr int TM = 4;       // rows per thread
-constexpr int TN = 8;       // columns per thread: tx*4 + j and 64 + tx*4 + j
-constexpr int AS = BQ + 4;  // padded strides: float4-aligned reads, at most
-constexpr int BS = BP + 4;  // 2-way bank conflicts on the transposing store
-constexpr int QL = BQ * BK / NT;  // query elements each thread stages
-constexpr int KL = BP * BK / NT;  // bank elements each thread stages
 constexpr float NEG_INF = -1e30f;
 
-using ValueTile = cdt_vals::ValueTile<BQ, BP, NT>;
-
-// The wide value sums (s2 in shared memory, runtime c, `rule`); FAST: the
-// bf16 exponential. The per-row sums run on the split-bank grid (`rows`).
-template <bool FAST, bool PRUNE>
-__global__ void __launch_bounds__(NT) flash_score_f32_kernel(
-    const float* __restrict__ q, const float* __restrict__ bias,
-    const float* __restrict__ bank, const float* __restrict__ values,
-    float dotscale, const float* __restrict__ m_in,
-    const float* __restrict__ s1_in, const float* __restrict__ s2_in,
-    float* __restrict__ m_out, float* __restrict__ s1_out,
-    float* __restrict__ s2_out, int64_t rps, int64_t P, int d,
-    const int* __restrict__ mask, int64_t mask_stride, int c_wide,
-    int64_t vstride, int rule) {
-
-  __shared__ __align__(16) float As[BK][AS];
-  __shared__ __align__(16) float Bs[BK][BS];
-  __shared__ float bias_s[BP];
-  extern __shared__ float4 dyn_smem[];  // ValueTile
-  const ValueTile vt(reinterpret_cast<float*>(dyn_smem));
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  // this block's rows: [row0, row_end), inside seed blockIdx.y's rows
-  const int64_t seed = blockIdx.y;
-  const int64_t row0 = seed * rps + (int64_t)blockIdx.x * BQ;
-  const int64_t seed_end = (seed + 1) * rps;
-  const int64_t row_end = row0 + BQ < seed_end ? row0 + BQ : seed_end;
-  bias += seed * P;  // the seed's bias row
-
-  // Carried state. m is the same in all 16 threads of a row; s1 is a
-  // per-thread partial sum under that m (thread tx == 0 starts from the
-  // carried value), summed across the row's threads at exit; s2 lives in
-  // shared memory (ValueTile).
-  float m[TM], s1[TM];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int64_t r = row0 + ty * TM + i;
-    const bool live = r < row_end;
-    m[i] = live ? m_in[r] : NEG_INF;
-    s1[i] = (live && tx == 0) ? s1_in[r] : 0.f;
-  }
-  vt.load_state(s2_in, row0, row_end, c_wide, tid);
-
-  const int nk = (d + BK - 1) / BK;
-  // the live bank tiles (all of them without a mask), K6
-  const cdt_prune::TileWalk<BQ, BP, PRUNE> tiles(mask, mask_stride, blockIdx.x, P);
-
-  float rq[QL], rk[KL], rb = NEG_INF;
-
-  // global -> registers for stage (pt, kt); zero / sentinel past the edges
-  auto load = [&](int64_t pt, int kt) {
-    const int k0 = kt * BK;
-#pragma unroll
-    for (int j = 0; j < QL; ++j) {
-      const int e = tid + j * NT;
-      const int64_t r = row0 + (e / BK);
-      const int kk = k0 + (e % BK);
-      rq[j] = (r < row_end && kk < d) ? q[r * d + kk] : 0.f;
-    }
-    const int64_t p0 = pt * BP;
-#pragma unroll
-    for (int j = 0; j < KL; ++j) {
-      const int e = tid + j * NT;
-      const int64_t p = p0 + (e / BK);
-      const int kk = k0 + (e % BK);
-      rk[j] = (p < P && kk < d) ? bank[p * d + kk] : 0.f;
-    }
-    if (kt == 0) rb = (tid < BP && p0 + tid < P) ? bias[p0 + tid] : NEG_INF;
-  };
-  // registers -> shared memory, transposed so the FFMA loop reads float4s
-  auto store = [&](int kt) {
-#pragma unroll
-    for (int j = 0; j < QL; ++j) {
-      const int e = tid + j * NT;
-      As[e % BK][e / BK] = rq[j];
-    }
-#pragma unroll
-    for (int j = 0; j < KL; ++j) {
-      const int e = tid + j * NT;
-      Bs[e % BK][e / BK] = rk[j];
-    }
-    if (kt == 0 && tid < BP) bias_s[tid] = rb;
-  };
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  // stages (pt, kt) over the live tiles pt, kt = 0 .. nk-1; stage (first
-  // live tile, 0) is loaded before the loop, each next stage's loads are
-  // issued before the current stage's FFMAs. Without PRUNE every tile is
-  // live and the loop counts its n_it stages, as it did before the mask.
-  const int64_t n_it = tiles.n_pt * nk;
-  int64_t pt = tiles.live(0);
-  if (PRUNE ? pt < tiles.n_pt : n_it > 0) {
-    load(pt, 0);
-    store(0);
-  }
-  __syncthreads();
-
-  int kt = 0;
-  for (int64_t it = 0; PRUNE ? pt < tiles.n_pt : it < n_it; ++it) {
-    const int kt_next = (kt + 1 == nk) ? 0 : kt + 1;
-    const int64_t pt_next = (kt + 1 == nk) ? tiles.live(pt + 1) : pt;
-    const bool has_next = PRUNE ? pt_next < tiles.n_pt : it + 1 < n_it;
-    if (has_next) load(pt_next, kt_next);
-
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[kk][ty * TM]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[kk][64 + tx * 4]);
-      const float av[TM] = {a.x, a.y, a.z, a.w};
-      const float bv[TN] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-
-    if (kt == nk - 1) {  // dot tile complete: online-softmax epilogue
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        float lg[TN];
-        float mx = NEG_INF;
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          const int col = (j < 4) ? tx * 4 + j : 64 + tx * 4 + (j - 4);
-          lg[j] = fmaf(acc[i][j], dotscale, bias_s[col]);
-          mx = fmaxf(mx, lg[j]);
-          acc[i][j] = 0.f;
-        }
-#pragma unroll
-        for (int o = 8; o > 0; o >>= 1)
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-        const float m_new = fmaxf(m[i], mx);
-        const float m_safe = (m_new <= NEG_INF * 0.5f) ? 0.f : m_new;
-        const float scale =
-            (m[i] <= NEG_INF * 0.5f) ? 0.f : exp2f(m[i] - m_safe);
-        float t1 = 0.f;
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          const int col = (j < 4) ? tx * 4 + j : 64 + tx * 4 + (j - 4);
-          const float e =
-              FAST ? cdt_vals::fast_exp(lg[j] - m_safe) : exp2f(lg[j] - m_safe);
-          t1 += e;
-          vt.e[(ty * TM + i) * ValueTile::ES + col] = e;
-        }
-        s1[i] = s1[i] * scale + t1;
-        if (tx == 0) vt.scale[ty * TM + i] = scale;
-        m[i] = m_new;
-      }
-      // s2 <- s2 * scale + e @ V of this tile
-      __syncthreads();
-      vt.accumulate(values, vstride, pt * BP, P, c_wide, rule, tid);
-    }
-
-    __syncthreads();  // every thread is done reading this stage
-    if (has_next) store(kt_next);
-    __syncthreads();
-    kt = kt_next;
-    pt = pt_next;
-  }
-
-  // sum the per-thread partials of s1 of each row (all under the same m)
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-#pragma unroll
-    for (int o = 8; o > 0; o >>= 1)
-      s1[i] += __shfl_xor_sync(0xffffffffu, s1[i], o);
-    const int64_t r = row0 + ty * TM + i;
-    if (tx == 0 && r < row_end) {
-      m_out[r] = m[i];
-      s1_out[r] = s1[i];
-    }
-  }
-  // the loop's last __syncthreads ordered every update of the shared s2
-  vt.store_state(s2_out, row0, row_end, c_wide, tid);
-}
-
-template <bool FAST>
-int launch(const void* q, const void* bias, const void* bank,
-           const void* values, float dotscale, const void* m_in,
-           const void* s1_in, const void* s2_in, void* m_out, void* s1_out,
-           void* s2_out, int64_t M, int64_t rps, int64_t P, int d,
-           const int* mask, int64_t mask_stride, int c, int64_t vstride,
-           int rule, cudaStream_t stream) {
-  const dim3 grid((unsigned)((rps + BQ - 1) / BQ), (unsigned)(M / rps));
-  auto kernel = mask != nullptr ? flash_score_f32_kernel<FAST, true>
-                                : flash_score_f32_kernel<FAST, false>;
-  const size_t smem = ValueTile::bytes(c);
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, NT, smem, stream>>>(
-      (const float*)q, (const float*)bias, (const float*)bank,
-      (const float*)values, dotscale, (const float*)m_in,
-      (const float*)s1_in, (const float*)s2_in, (float*)m_out,
-      (float*)s1_out, (float*)s2_out, rps, P, d, mask, mask_stride, c,
-      vstride, rule);
-  return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// The per-row sweep ('vpu', c <= 8, fp32 exp2; K1 with K5 and K6) on the
-// split-bank grid (split_bank.cuh): block (x, s, z) owns BQ = 128 query rows
-// of seed s and the bank tiles of split z, and writes its partial state to
-// the scratch; merge_splits folds the partials into the carried state.
-// 256 threads, each an 8 x 8 microtile (rows 4 ty + i and 64 + 4 ty + i,
-// columns 4 tx + j and 64 + 4 tx + j). Tiles of BP bank rows are staged BK
-// features at a time through a ring of STAGES shared-memory slots filled by
-// 4-byte cp.async (rows of d = k^2 c floats are never 16-byte aligned on
-// the RGB path), one barrier per stage: the copies of STAGES - 1 stages are
-// in flight while a stage's FFMAs run. Each copy lands in its feature-major
-// place ([feature][row], stride 132 floats), so the transpose costs no
-// register round trip and no store instruction, and a thread reads per
-// feature two float4s of the query tile and two of the bank tile for 64
-// FFMAs.
-//
-// The numbers are the parent's: each dot is the fp32 FMA chain over the
-// features 0 .. d-1 in order, then fmaf(acc, dotscale, bias), so the logits
-// are the same bits; only the order of the fp32 sums s1 and s2 changes
-// (per tile across the row's 16 threads, then across splits in the merge).
 namespace rows {
 
-constexpr int BQ = 128;     // query rows per block (two PRUNE_ROWS mask rows)
-static_assert(BQ == K1_SPLIT_BQ, "ops/_build.py SPLIT_BQ holds this block's rows");
+enum Epi { PER_ROW = 0, WIDE = 1, WIDE_FAST = 2 };
+
 constexpr int BP = 128;     // bank rows per tile
 constexpr int BK = 16;      // features per stage
 constexpr int NT = 256;     // threads: 16 row groups x 16 column groups
-constexpr int TI = 8;       // rows per thread: 4 ty + i, 64 + 4 ty + i
 constexpr int TJ = 8;       // columns per thread: 4 tx + j, 64 + 4 tx + j
 constexpr int STAGES = 4;   // ring slots: STAGES - 1 stages in flight
-constexpr int LA = BQ + 4;  // feature-major strides in floats: float4 reads,
-constexpr int LB = BP + 4;  // 2-way bank conflicts on the copies' writes
-static_assert(PRUNE_ROWS == BQ / 2, "rows i < 4 lie in mask row 0, the rest in 1");
+constexpr int LB = BP + 4;  // feature-major strides in floats: float4 reads,
+                            // 2-way bank conflicts on the copies' writes
+constexpr int CV = 16;      // channels of V per chunk of the wide value sums
+constexpr int VS = CV + 4;  // their row stride in floats: 8 consecutive rows' float4s
+                            // fall in 8 distinct bank groups
 
-// the thread's i-th row and j-th column of the 128 x 128 tile
-__device__ __forceinline__ int row_of(int ty, int i) { return (i < 4 ? 0 : 60) + 4 * ty + i; }
+// query rows per block (two PRUNE_ROWS mask rows; one with the bf16
+// exponential, which cannot split the bank axis) and rows per thread
+template <int EPI>
+struct Rows {
+  static constexpr int BQ = EPI == WIDE_FAST ? K1_FAST_BQ : K1_SPLIT_BQ;
+  static constexpr int TI = BQ / 16;
+  static constexpr int LA = BQ + 4;
+};
+static_assert(Rows<PER_ROW>::BQ == 128 && Rows<WIDE_FAST>::BQ == 64,
+              "ops/_build.py SPLIT_BQ holds these blocks' rows");
+static_assert(PRUNE_ROWS == 64, "rows 4 h .. 4 h + 3 of a thread lie in mask row h");
+
+// the thread's i-th row (rows 4 ty + i of each 64-row half) and j-th column
+// of the tile
+__device__ __forceinline__ int row_of(int ty, int i) { return (i / 4) * 64 + 4 * ty + i % 4; }
 __device__ __forceinline__ int col_of(int tx, int j) { return (j < 4 ? 0 : 60) + 4 * tx + j; }
+// the staged row of bank row p in a chunk of values: rows p, p + 4, .. in
+// consecutive slots, so the 8 threads of a quarter warp (columns 4 tx + j)
+// read 8 consecutive rows; the thread's j-th column is row
+// vslot(col_of(tx, j)) = tx + the constant jslot(j)
+__device__ __forceinline__ int vslot(int p) { return (p & 3) * (BP / 4) + (p >> 2); }
+__device__ __forceinline__ int jslot(int j) { return (j & 3) * (BP / 4) + (j >> 2) * 16; }
 
 // dynamic shared memory in floats: STAGES slots of (queries [BK][LA],
-// bank rows [BK][LB], bias [BP], values [BP][C]), then the row sums
-// [BQ][1 + C] (s1, s2), each row's kept by its tx == 0 thread
-template <int C>
+// bank rows [BK][LB], bias [BP], values [BP][C]), then the row state
+// [BQ][W1], each row's kept by its tx == 0 thread: (s1, s2) per row, or in
+// the wide epilogues (s1, m: registers are the 128-register budget of two
+// blocks per SM), then the wide epilogues' values of one chunk [BP][VS]
+template <int C, int EPI>
 struct Smem {
-  static constexpr int A = BK * LA, B = BK * LB;
+  static constexpr int A = BK * Rows<EPI>::LA, B = BK * LB;
+  static constexpr int W1 = EPI == PER_ROW ? 1 + C : 2;
   static constexpr int STAGE = A + B + BP + BP * C;
   static_assert(STAGE % 4 == 0, "slots stay 16-byte aligned");
-  static constexpr int WORDS = STAGES * STAGE + BQ * (1 + C);  // then the K6 tile list
+  static constexpr int ROWS = STAGES * STAGE;  // the row state
+  static constexpr int VALS = ROWS + Rows<EPI>::BQ * W1;
+  static_assert(VALS % 4 == 0, "float4 reads of a chunk's values");
+  static constexpr int WORDS = VALS + (EPI == PER_ROW ? 0 : BP * VS);  // then the K6 tile list
   static constexpr size_t bytes = sizeof(float) * (size_t)WORDS;
 };
 
-template <int C, bool PRUNE>
-__global__ void __launch_bounds__(NT, PRUNE ? 1 : 2) rows_kernel(
+// the wide epilogues' operands: V (values [P, c], or the bank's center
+// columns) with its row stride, c, the product rule, and WIDE_FAST's
+// carried state in and out
+struct Wide {
+  const float* vals;
+  int64_t vstride;
+  int c;
+  int rule;
+  const float* m_in;
+  const float* s1_in;
+  const float* s2_in;
+  float* m_out;
+  float* s1_out;
+  float* s2_out;
+};
+
+template <int C, int EPI, bool PRUNE>
+__global__ void __launch_bounds__(NT, PRUNE && EPI == PER_ROW ? 1 : 2) rows_kernel(
     const float* __restrict__ q, const float* __restrict__ bias,
     const float* __restrict__ bank, const float* __restrict__ values,
     float dotscale, float* __restrict__ part, int64_t M, int64_t rps,
     int64_t P, int d, int64_t split_rows, const int* __restrict__ mask,
-    int64_t mask_stride) {
-  using S = Smem<C>;
+    int64_t mask_stride, Wide w) {
+  constexpr int BQ = Rows<EPI>::BQ, TI = Rows<EPI>::TI, LA = Rows<EPI>::LA;
+  constexpr bool CARRY = EPI == WIDE_FAST;  // from the carried state, no split
+  using S = Smem<C, EPI>;
+  constexpr int W1 = S::W1;
   using cdt_splitbank::cp_async;
   extern __shared__ float4 dyn_smem[];
   float* const smem = reinterpret_cast<float*>(dyn_smem);
-  float* const st = smem + STAGES * S::STAGE;
+  float* const st = smem + S::ROWS;
+  float* const vs = smem + S::VALS;  // wide: one chunk's values [BP][VS]
 
   const int tid = threadIdx.x;
   const int tx = tid & 15;
@@ -386,14 +206,29 @@ __global__ void __launch_bounds__(NT, PRUNE ? 1 : 2) rows_kernel(
       mask, mask_stride, row0, (M + PRUNE_ROWS - 1) / PRUNE_ROWS, p_begin / BP,
       (p_end + BP - 1) / BP, reinterpret_cast<int*>(smem) + S::WORDS);
   const int nk = (d + BK - 1) / BK;
+  const int c = EPI == PER_ROW ? C : w.c;
+  const int rule = EPI == WIDE ? (int)cdt_vals::V_FP32 : w.rule;
+  // the wide epilogues' s2 rows: the carried state's or the split's partials
+  float* const s2blk = CARRY ? w.s2_out + row0 * c : part + (split * M + row0) * (2 + c) + 2;
+  const int s2stride = CARRY ? c : 2 + c;
 
+  // m of each row: registers (PER_ROW) or the row state's second entry
   float m[TI];
 #pragma unroll
   for (int i = 0; i < TI; ++i) {
-    m[i] = NEG_INF;
+    const int lr = row_of(ty, i);
+    const bool live = row0 + lr < row_end;
+    if constexpr (EPI == PER_ROW) m[i] = NEG_INF;
     if (tx == 0) {
 #pragma unroll
-      for (int c = 0; c <= C; ++c) st[row_of(ty, i) * (1 + C) + c] = 0.f;
+      for (int cc = 0; cc < W1; ++cc) st[lr * W1 + cc] = 0.f;
+      if (CARRY && live) st[lr * W1] = w.s1_in[row0 + lr];
+      if (EPI != PER_ROW) st[lr * W1 + 1] = CARRY && live ? w.m_in[row0 + lr] : NEG_INF;
+    }
+    if constexpr (EPI != PER_ROW) {  // s2 of channel ch belongs to thread tx = ch % CV
+      if (live)
+        for (int ch = tx; ch < c; ch += CV)
+          s2blk[lr * s2stride + ch] = CARRY ? w.s2_in[(row0 + lr) * c + ch] : 0.f;
     }
   }
 
@@ -461,11 +296,17 @@ __global__ void __launch_bounds__(NT, PRUNE ? 1 : 2) rows_kernel(
     const float* const sb = sa + S::A;
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {  // features in order
-      const float4 a0 = *reinterpret_cast<const float4*>(sa + kk * LA + 4 * ty);
-      const float4 a1 = *reinterpret_cast<const float4*>(sa + kk * LA + 64 + 4 * ty);
+      float av[TI];
+#pragma unroll
+      for (int h = 0; h < TI / 4; ++h) {
+        const float4 a = *reinterpret_cast<const float4*>(sa + kk * LA + 64 * h + 4 * ty);
+        av[4 * h] = a.x;
+        av[4 * h + 1] = a.y;
+        av[4 * h + 2] = a.z;
+        av[4 * h + 3] = a.w;
+      }
       const float4 b0 = *reinterpret_cast<const float4*>(sb + kk * LB + 4 * tx);
       const float4 b1 = *reinterpret_cast<const float4*>(sb + kk * LB + 64 + 4 * tx);
-      const float av[TI] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
       const float bv[TJ] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
       for (int i = 0; i < TI; ++i)
@@ -475,51 +316,139 @@ __global__ void __launch_bounds__(NT, PRUNE ? 1 : 2) rows_kernel(
 
     if (kt == nk - 1) {  // dot tile complete: online-softmax epilogue
       const float* const sbias = sb + S::B;
-      const float* const sv = sbias + BP;
       const int64_t p0 = tiles.tile(ti) * BP;
+      if constexpr (EPI == PER_ROW) {
+        const float* const sv = sbias + BP;
 #pragma unroll
-      for (int i = 0; i < TI; ++i) {
-        // K6: rows of a mask row that skips this tile take -1e30 logits
-        const bool dead = tiles.skipped(ti, i < 4 ? 0 : 1);
-        float lg[TJ];
-        float mx = NEG_INF;
+        for (int i = 0; i < TI; ++i) {
+          const int lr = row_of(ty, i);
+          // K6: rows of a mask row that skips this tile take -1e30 logits
+          const bool dead = tiles.skipped(ti, i / 4);
+          float lg[TJ];
+          float mx = NEG_INF;
 #pragma unroll
-        for (int j = 0; j < TJ; ++j) {
-          const int col = col_of(tx, j);
-          lg[j] = (!dead && p0 + col < P) ? fmaf(acc[i][j], dotscale, sbias[col]) : NEG_INF;
-          mx = fmaxf(mx, lg[j]);
-          acc[i][j] = 0.f;
+          for (int j = 0; j < TJ; ++j) {
+            const int col = col_of(tx, j);
+            lg[j] = (!dead && p0 + col < P) ? fmaf(acc[i][j], dotscale, sbias[col]) : NEG_INF;
+            mx = fmaxf(mx, lg[j]);
+            acc[i][j] = 0.f;
+          }
+#pragma unroll
+          for (int o = 8; o > 0; o >>= 1)
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+          const float m_new = fmaxf(m[i], mx);
+          const float m_safe = (m_new <= NEG_INF * 0.5f) ? 0.f : m_new;
+          const float scale = (m[i] <= NEG_INF * 0.5f) ? 0.f : exp2f(m[i] - m_safe);
+          float t1 = 0.f, t2[C];
+#pragma unroll
+          for (int cc = 0; cc < C; ++cc) t2[cc] = 0.f;
+#pragma unroll
+          for (int j = 0; j < TJ; ++j) {
+            const int col = col_of(tx, j);
+            const float e = exp2f(lg[j] - m_safe);
+            t1 += e;
+#pragma unroll
+            for (int cc = 0; cc < C; ++cc) t2[cc] = fmaf(e, sv[col * C + cc], t2[cc]);
+          }
+#pragma unroll
+          for (int o = 8; o > 0; o >>= 1) {
+            t1 += __shfl_xor_sync(0xffffffffu, t1, o);
+#pragma unroll
+            for (int cc = 0; cc < C; ++cc) t2[cc] += __shfl_xor_sync(0xffffffffu, t2[cc], o);
+          }
+          if (tx == 0) {
+            float* const sr = st + lr * W1;
+            sr[0] = fmaf(sr[0], scale, t1);
+#pragma unroll
+            for (int cc = 0; cc < C; ++cc) sr[1 + cc] = fmaf(sr[1 + cc], scale, t2[cc]);
+          }
+          m[i] = m_new;
         }
+      } else {
+        // The wide sums, row by row as the per-row epilogue: the row's
+        // exponentials (its accumulators are free from then on, so the
+        // 128-register budget of two blocks per SM holds) and s1, then per
+        // chunk of CV channels of V staged in shared memory its sums e @ V
+        // over its 8 columns, 4 channels at a time, added across the row's
+        // 16 threads, and s2 <- s2 * scale + sum by the thread that owns
+        // the channel. Up to CV channels the chunk is staged once per tile,
+        // past them once per row and chunk.
+        const bool once = c <= CV;
+        // stage channels g0 .. g0 + CV of the tile's values (those below c)
+        auto stage = [&](int g0) {
+          const int cw = min(CV, (c - g0 + 3) / 4 * 4);
+          __syncthreads();  // the chunk staged before is read
+          for (int e = tid; e < BP * cw; e += NT) {
+            const int p = e / cw, ch = g0 + e % cw;
+            const float x = (p0 + p < P && ch < c) ? w.vals[(p0 + p) * w.vstride + ch] : 0.f;
+            vs[vslot(p) * VS + e % cw] = rule == cdt_vals::V_FP32 ? x : cdt_vals::bf16r(x);
+          }
+          __syncthreads();
+        };
+        if (once) stage(0);
 #pragma unroll
-        for (int o = 8; o > 0; o >>= 1)
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-        const float m_new = fmaxf(m[i], mx);
-        const float m_safe = (m_new <= NEG_INF * 0.5f) ? 0.f : m_new;
-        const float scale = (m[i] <= NEG_INF * 0.5f) ? 0.f : exp2f(m[i] - m_safe);
-        float t1 = 0.f, t2[C];
+        for (int i = 0; i < TI; ++i) {
+          const int lr = row_of(ty, i);
+          const bool dead = tiles.skipped(ti, i / 4);
+          float ex[TJ];
+          float mx = NEG_INF;
 #pragma unroll
-        for (int c = 0; c < C; ++c) t2[c] = 0.f;
+          for (int j = 0; j < TJ; ++j) {
+            const int col = col_of(tx, j);
+            ex[j] = (!dead && p0 + col < P) ? fmaf(acc[i][j], dotscale, sbias[col]) : NEG_INF;
+            mx = fmaxf(mx, ex[j]);
+            acc[i][j] = 0.f;
+          }
+          const float m_old = st[lr * W1 + 1];
 #pragma unroll
-        for (int j = 0; j < TJ; ++j) {
-          const int col = col_of(tx, j);
-          const float e = exp2f(lg[j] - m_safe);
-          t1 += e;
+          for (int o = 8; o > 0; o >>= 1)
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+          const float m_new = fmaxf(m_old, mx);
+          const float m_safe = (m_new <= NEG_INF * 0.5f) ? 0.f : m_new;
+          const float scale = (m_old <= NEG_INF * 0.5f) ? 0.f : exp2f(m_old - m_safe);
+          float t1 = 0.f;
 #pragma unroll
-          for (int c = 0; c < C; ++c) t2[c] = fmaf(e, sv[col * C + c], t2[c]);
+          for (int j = 0; j < TJ; ++j) {
+            const float x = ex[j] - m_safe;
+            ex[j] = EPI == WIDE_FAST ? cdt_vals::fast_exp(x) : exp2f(x);
+            t1 += ex[j];
+          }
+#pragma unroll
+          for (int o = 8; o > 0; o >>= 1) t1 += __shfl_xor_sync(0xffffffffu, t1, o);
+          if (tx == 0) {
+            st[lr * W1] = fmaf(st[lr * W1], scale, t1);
+            st[lr * W1 + 1] = m_new;
+          }
+          const bool live = row0 + lr < row_end;
+          for (int g0 = 0; g0 < c; g0 += CV) {
+            if (!once) stage(g0);
+#pragma unroll
+            for (int q4 = 0; q4 < CV / 4; ++q4) {
+              if (g0 + 4 * q4 >= c) break;
+              float t[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+              for (int j = 0; j < TJ; ++j) {
+                const float4 x = *reinterpret_cast<const float4*>(vs + (tx + jslot(j)) * VS + 4 * q4);
+                const float v[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+                for (int u = 0; u < 4; ++u)
+                  t[u] = rule == cdt_vals::V_BF16_PRODUCT ? t[u] + cdt_vals::bf16r(ex[j] * v[u])
+                                                          : fmaf(ex[j], v[u], t[u]);
+              }
+#pragma unroll
+              for (int o = 8; o > 0; o >>= 1)
+#pragma unroll
+                for (int u = 0; u < 4; ++u) t[u] += __shfl_xor_sync(0xffffffffu, t[u], o);
+              // channel g0 + tx belongs to thread tx
+              if ((tx >> 2) == q4 && g0 + tx < c && live) {
+                const int u = tx & 3;
+                const float tv = u == 0 ? t[0] : u == 1 ? t[1] : u == 2 ? t[2] : t[3];
+                float* const s2 = s2blk + lr * s2stride + g0 + tx;
+                *s2 = fmaf(*s2, scale, tv);
+              }
+            }
+          }
         }
-#pragma unroll
-        for (int o = 8; o > 0; o >>= 1) {
-          t1 += __shfl_xor_sync(0xffffffffu, t1, o);
-#pragma unroll
-          for (int c = 0; c < C; ++c) t2[c] += __shfl_xor_sync(0xffffffffu, t2[c], o);
-        }
-        if (tx == 0) {
-          float* const sr = st + row_of(ty, i) * (1 + C);
-          sr[0] = fmaf(sr[0], scale, t1);
-#pragma unroll
-          for (int c = 0; c < C; ++c) sr[1 + c] = fmaf(sr[1 + c], scale, t2[c]);
-        }
-        m[i] = m_new;
       }
     }
 
@@ -531,35 +460,42 @@ __global__ void __launch_bounds__(NT, PRUNE ? 1 : 2) rows_kernel(
   }
   cdt_splitbank::cp_async_wait<0>();
 
-  // this split's partial state of the block's rows
+  // the state of the block's rows: the split's partial, or the new state
   if (tx == 0) {
 #pragma unroll
     for (int i = 0; i < TI; ++i) {
       const int lr = row_of(ty, i);
       const int64_t r = row0 + lr;
       if (r < row_end) {
-        float* const o = part + (split * M + r) * (2 + C);
-        o[0] = m[i];
+        const float mi = EPI == PER_ROW ? m[i] : st[lr * W1 + 1];
+        if constexpr (CARRY) {
+          w.m_out[r] = mi;
+          w.s1_out[r] = st[lr * W1];
+        } else {
+          float* const o = part + (split * M + r) * (2 + c);
+          o[0] = mi;
+          o[1] = st[lr * W1];
 #pragma unroll
-        for (int c = 0; c <= C; ++c) o[1 + c] = st[lr * (1 + C) + c];
+          for (int cc = 0; cc < C; ++cc) o[2 + cc] = st[lr * W1 + 1 + cc];
+        }
       }
     }
   }
 }
 
-// the sweep, then the merge of its splits into (m_out, s1_out, s2_out);
-// scratch holds the partials [nsplit][M][2 + C]
-template <int C>
+// the sweep, then (but WIDE_FAST) the merge of its splits into (m_out,
+// s1_out, s2_out); scratch holds the partials [nsplit][M][2 + c]
+template <int C, int EPI>
 int launch(const void* q, const void* bias, const void* bank, const void* values,
-           float dotscale, const void* m_in, const void* s1_in, const void* s2_in,
-           void* m_out, void* s1_out, void* s2_out, int64_t M, int64_t rps,
-           int64_t P, int d, const int* mask, int64_t mask_stride, void* scratch,
-           int64_t split_rows, cudaStream_t stream) {
+           float dotscale, int64_t M, int64_t rps, int64_t P, int d, const int* mask,
+           int64_t mask_stride, void* scratch, int64_t split_rows, const Wide& w,
+           cudaStream_t stream) {
+  constexpr int BQ = Rows<EPI>::BQ;
   const int64_t nsplit = cdt_splitbank::n_splits(P, split_rows);
   const dim3 grid((unsigned)((rps + BQ - 1) / BQ), (unsigned)(M / rps), (unsigned)nsplit);
-  auto kernel = mask != nullptr ? rows_kernel<C, true> : rows_kernel<C, false>;
+  auto kernel = mask != nullptr ? rows_kernel<C, EPI, true> : rows_kernel<C, EPI, false>;
   // K6: room for the tile list of a split
-  const size_t smem = Smem<C>::bytes +
+  const size_t smem = Smem<C, EPI>::bytes +
       (mask != nullptr ? 4 * cdt_splitbank::split_tiles_ints<BP>(
                                  split_rows < P ? split_rows : P)
                        : 0);
@@ -571,12 +507,12 @@ int launch(const void* q, const void* bias, const void* bank, const void* values
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid, NT, smem, stream>>>(
       (const float*)q, (const float*)bias, (const float*)bank, (const float*)values,
-      dotscale, (float*)scratch, M, rps, P, d, split_rows, mask, mask_stride);
+      dotscale, (float*)scratch, M, rps, P, d, split_rows, mask, mask_stride, w);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)cdt_splitbank::merge_splits<C>(m_in, s1_in, s2_in, (const float*)scratch,
-                                             m_out, s1_out, s2_out, M, (int)nsplit,
-                                             stream);
+  if (err != cudaSuccess || EPI == WIDE_FAST) return (int)err;
+  return (int)cdt_splitbank::merge_splits(w.m_in, w.s1_in, w.s2_in, (const float*)scratch,
+                                          w.m_out, w.s1_out, w.s2_out, M, (int)nsplit,
+                                          w.c, stream);
 }
 
 }  // namespace rows
@@ -590,10 +526,10 @@ int launch(const void* q, const void* bias, const void* bank, const void* values
 // [ceil(M / PRUNE_ROWS), mask_stride] (K6, see the top). strategy: 0 'vpu',
 // 1 'mxu1' (bf16 exponential only), 2 'inbank' (values may be null; V =
 // bank[:, col0 : col0 + c]), 3 'mxu'; fast 1 for the bf16 exponential.
-// The per-row sums ('vpu', c <= 8, fp32 exp2) run on the split-bank grid:
-// scratch is float32 [nsplit][M][2 + c] with nsplit = ceil(P / split_rows)
-// (at least 1), which the wrapper allocates (ops/flash_score.py
-// `split_plan`); the wide instantiations take neither.
+// With the fp32 exp2 the sweep splits the bank axis: scratch is float32
+// [nsplit][M][2 + c] with nsplit = ceil(P / split_rows) (at least 1), which
+// the wrapper allocates (ops/flash_score.py `split_plan`,
+// `scratch_numel`); with the bf16 exponential it takes neither.
 extern "C" int flash_score_f32(const void* q, const void* bias,
                                const void* bank, const void* values,
                                float dotscale, const void* m_in,
@@ -615,16 +551,30 @@ extern "C" int flash_score_f32(const void* q, const void* bias,
        (rows_per_seed != M || mask_stride < (P + PRUNE_BLOCK - 1) / PRUNE_BLOCK)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (!fast && strategy == 0 && c <= 8) {  // per-row 'vpu' sums, split-bank grid
-    if (scratch == nullptr || !cdt_splitbank::valid_split(P, split_rows))
-      return (int)cudaErrorInvalidValue;
+  const int* mk = (const int*)mask;
+  // V is the values [P, c] or the bank's center columns
+  const bool inbank = strategy == 2;
+  const rows::Wide w{inbank ? (const float*)bank + col0 : (const float*)values,
+                     inbank ? (int64_t)d : (int64_t)c,
+                     c,
+                     !fast ? cdt_vals::V_FP32
+                     : strategy == 0 ? cdt_vals::V_BF16_PRODUCT
+                     : inbank ? cdt_vals::V_FP32 : cdt_vals::V_BF16,
+                     (const float*)m_in, (const float*)s1_in, (const float*)s2_in,
+                     (float*)m_out, (float*)s1_out, (float*)s2_out};
+  if (fast)  // one split, from the carried state
+    return rows::launch<0, rows::WIDE_FAST>(q, bias, bank, values, dotscale, M, rows_per_seed,
+                                            P, d, mk, mask_stride, nullptr, P > 0 ? P : 1,
+                                            w, s);
+  if (scratch == nullptr || !cdt_splitbank::valid_split(P, split_rows))
+    return (int)cudaErrorInvalidValue;
+  if (strategy == 0 && c <= 8) {  // per-row 'vpu' sums
     switch (c) {
-#define CDT_CASE(CC)                                                           \
-  case CC:                                                                     \
-    return rows::launch<CC>(q, bias, bank, values, dotscale, m_in, s1_in,      \
-                            s2_in, m_out, s1_out, s2_out, M, rows_per_seed, P, \
-                            d, (const int*)mask, mask_stride, scratch,         \
-                            split_rows, s);
+#define CDT_CASE(CC)                                                                  \
+  case CC:                                                                            \
+    return rows::launch<CC, rows::PER_ROW>(q, bias, bank, values, dotscale, M,        \
+                                           rows_per_seed, P, d, mk, mask_stride,      \
+                                           scratch, split_rows, w, s);
       CDT_CASE(1)
       CDT_CASE(2)
       CDT_CASE(3)
@@ -636,15 +586,6 @@ extern "C" int flash_score_f32(const void* q, const void* bias,
 #undef CDT_CASE
     }
   }
-  // the wide value sums: V is the values [P, c] or the bank's center columns
-  const bool inbank = strategy == 2;
-  const void* vals = inbank ? (const void*)((const float*)bank + col0) : values;
-  const int64_t vstride = inbank ? d : c;
-  const int rule = !fast ? cdt_vals::V_FP32
-                   : strategy == 0 ? cdt_vals::V_BF16_PRODUCT
-                   : inbank ? cdt_vals::V_FP32 : cdt_vals::V_BF16;
-  auto wide = fast ? launch<true> : launch<false>;
-  return wide(q, bias, bank, vals, dotscale, m_in, s1_in, s2_in, m_out, s1_out,
-              s2_out, M, rows_per_seed, P, d, (const int*)mask, mask_stride, c,
-              vstride, rule, s);
+  return rows::launch<0, rows::WIDE>(q, bias, bank, values, dotscale, M, rows_per_seed, P, d,
+                                     mk, mask_stride, scratch, split_rows, w, s);
 }

@@ -31,19 +31,18 @@
 // per accumulator per k16 step, which puts a floor of ~6.3 ms under a
 // 65536-row chunk at M = 8192, k = 17 (2.8 ms of tensor-core bound).
 //
-// The per-row sums ('vpu', c <= 8) run on the split-bank grid
+// Every variant runs the one split-dot main loop of the port
 // (flash_score_split_rows.cuh): the inputs are split into bf16 hi/lo planes
 // once per launch, staged by cp.async into a ring of shared-memory slots,
-// multiplied by warpgroup wgmma m64n64k16 products pipelined under the
-// exact sum, and one block per (query block, seed, split) writes a partial
-// state that a merge pass folds in split order. The wide modes ('inbank',
-// 'mxu') are flash_score_split.cuh's template, shared with the 'default'
-// kernel: one block of 64 query rows walks the whole chunk, the next
-// stage's fp32 loads issued into registers and split into hi/lo pairs as
-// they are stored, mma.sync m16n8k16 products. Both keep 8 warps per
-// block, warp (wr, wc) owning query rows 16 wr .. +16 and bank columns
-// 64 wc .. +64 of each 128-row tile (the m16n8 accumulator layout), and d
-// zero-padded to the stage width (zero features add exact zeros).
+// and multiplied by warpgroup wgmma m64n64k16 products pipelined under the
+// exact sum. The per-row sums ('vpu', c <= 8) split the bank axis: one
+// block per (query block, seed, split) writes a partial state that a merge
+// pass folds in split order. The wide modes ('inbank' any c, 'mxu', 'vpu'
+// past 8 channels; flash_score_split.cuh) run one split from the carried
+// state, as the 'default' kernel does. Warpgroup wc owns bank columns
+// 64 wc .. +64 of each 128-row tile (the m16n8 accumulator layout per
+// warp), and d is zero-padded to the stage width (zero features add exact
+// zeros).
 //
 // The hi.hi sum is exact over the k16 slices the tensor core returns: each
 // k16 hi.hi product starts from a zero accumulator (the tensor core returns
@@ -73,12 +72,10 @@
 // bias is [M / rows_per_seed, P]; rows_per_seed = M for 1-D weights. mask is
 // null or the K6 skip mask of 1-D weights. strategy: 0 'vpu', 2 'inbank'
 // (values may be null; V = bank[:, col0 : col0 + c]), 3 'mxu'; fast must be
-// 0 (the bf16 exponential after split dots is flash_score_fast's). The
-// per-row 'vpu' sums (c <= 8) run on the split-bank grid
-// (flash_score_split_rows.cuh) and take the scratch [nsplit][M][2 + c]
-// float32 partials, nsplit = ceil(P / split_rows) (at least 1), then the bf16
-// planes (ops/flash_score.py `scratch_numel`); the wide modes take
-// flash_score_split.cuh's loop (`sweep`) and neither.
+// 0 (the bf16 exponential after split dots is flash_score_fast's). scratch
+// is float32: the partial states [nsplit][M][2 + c], nsplit =
+// ceil(P / split_rows) (at least 1; one for the wide modes), then the bf16
+// planes (ops/flash_score.py `scratch_numel`).
 extern "C" int flash_score_bf16x3(const void* q, const void* bias,
                                   const void* bank, const void* values,
                                   float dotscale, const void* m_in,
@@ -91,37 +88,8 @@ extern "C" int flash_score_bf16x3(const void* q, const void* bias,
                                   long long split_rows, int device,
                                   void* stream) {
   if (fast != 0) return (int)cudaErrorInvalidValue;
-  if (strategy != 0 || c > 8)
-    return cdt_split::sweep<false>(q, bias, bank, values, dotscale, m_in, s1_in,
-                                   s2_in, m_out, s1_out, s2_out, M,
-                                   rows_per_seed, P, d, c, mask, mask_stride,
-                                   strategy, col0, device, stream);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (M <= 0) return (int)cudaSuccess;
-  if (rows_per_seed <= 0 || M % rows_per_seed != 0 ||
-      M / rows_per_seed > 65535 || c < 1 || scratch == nullptr ||
-      !cdt_splitbank::valid_split(P, split_rows) ||
-      (mask != nullptr &&
-       (rows_per_seed != M || mask_stride < (P + PRUNE_BLOCK - 1) / PRUNE_BLOCK)))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (c) {
-#define CDT_CASE(CC)                                                            \
-  case CC:                                                                      \
-    return cdt_split_rows::launch<CC>(q, bias, bank, values, dotscale, m_in,    \
-                                      s1_in, s2_in, m_out, s1_out, s2_out, M,   \
-                                      rows_per_seed, P, d, (const int*)mask,    \
-                                      mask_stride, scratch, split_rows, s);
-    CDT_CASE(1)
-    CDT_CASE(2)
-    CDT_CASE(3)
-    CDT_CASE(4)
-    CDT_CASE(5)
-    CDT_CASE(6)
-    CDT_CASE(7)
-    CDT_CASE(8)
-#undef CDT_CASE
-  }
-  return (int)cudaErrorInvalidValue;
+  return cdt_split_rows::sweep<false>(q, bias, bank, values, dotscale, m_in, s1_in, s2_in,
+                                      m_out, s1_out, s2_out, M, rows_per_seed, P, d, c,
+                                      mask, mask_stride, strategy, col0, scratch, split_rows,
+                                      device, stream);
 }

@@ -10,12 +10,13 @@
 // (the same product against the bank's own center columns, no values
 // operand, K4), with 1-D weights or per-seed weights (2-D w with
 // rows_per_seed, variant K5), and with 1-D weights the prune skip bit
-// (variant K6, flash_score_split.cuh).
+// (variant K6, split_bank.cuh).
 //
 // The dot, the online softmax, the -1e30 sentinel and `m_new <= NEG_INF/2`
-// guards and the (query block, seed) grid are the 'high' kernel's, shared
-// through flash_score_split.cuh (the dot is summed exactly as there, so the
-// two tiers' logits are the same bits). The exponential is JAX's lowering
+// guards and the (query block, seed) grid are the 'high' kernel's: both run
+// the one split-dot main loop of flash_score_split_rows.cuh (pre-split
+// bf16 planes, a cp.async ring, wgmma products pipelined under the exact
+// sum), so the two tiers' logits are the same bits. The exponential is JAX's lowering
 // of `jnp.exp2` on a bf16 array, exp(bf16(ln 2) * x) with the factor
 // 0.69140625 and the product rounded to bf16:
 //   e = bf16(expf(bf16(bf16(logit - m) * 0.69140625)))
@@ -31,24 +32,25 @@
 // rate (16 per clock per SM, ~4.2 T/s at 132 SMs and 1.98 GHz) and the
 // per-pair elementwise work at the fp32 rate (67 TFLOP/s); at d_pad = 32
 // (k = 3 on RGB) the exponentials are the limit, from d_pad ~ 48 up the
-// products. This first version keeps the 'high' kernel's structure
-// (mma.sync, register-staged tiles, the TwoSum adds of the exact dot), so
-// it reaches a fraction of that; 'mxu1' and 'inbank' move the value sums
-// from the fp32 pipe onto the tensor cores, reusing the logit tile's
-// accumulator registers as the A operand.
+// products. The bf16 exponential rounds x = logit - m against the m of each
+// 128-row bank tile, so the kernel never splits the bank axis: each block of
+// 64 query rows walks the whole chunk from the carried state (128 blocks at
+// M = 8192, one wave). 'mxu1' and 'inbank' take their value sums on the
+// tensor cores, reusing the logit tile's accumulator registers as the A
+// operand.
 
-#include "flash_score_split.cuh"
+#include "flash_score_split_rows.cuh"
 
 // Plain C entry point (bound with ctypes). strategy: 0 'vpu', 1 'mxu1',
 // 2 'inbank' (values may be null; V = bank[:, col0 : col0 + c]), 3 'mxu';
 // fast must be 1. Launches on `stream` and does not synchronise; returns
-// cudaGetLastError() after the launch (0 = launched). bias is
+// cudaGetLastError() after the launches (0 = launched). bias is
 // [M / rows_per_seed, P]; rows_per_seed = M for 1-D weights. mask is null or
-// the K6 skip mask of 1-D weights. flash_score_split.cuh `sweep` routes
-// them. scratch and split_rows are the split-bank grid's (the interface is
-// the three kernels' one); this kernel walks the whole chunk per query
-// block, since its bf16 exponential rounds x against the m of each tile,
-// and takes neither.
+// the K6 skip mask of 1-D weights. flash_score_split_rows.cuh `sweep` routes
+// them. scratch is float32 [M][2 + c] rounded up to 4 (the tensor-core wide
+// sums' second state rows), then the bf16 planes (ops/flash_score.py
+// `scratch_numel`); split_rows is not read: one split, since the bf16
+// exponential rounds x against the m of each tile.
 extern "C" int flash_score_fast(const void* q, const void* bias,
                                 const void* bank, const void* values,
                                 float dotscale, const void* m_in,
@@ -61,8 +63,8 @@ extern "C" int flash_score_fast(const void* q, const void* bias,
                                 long long split_rows, int device,
                                 void* stream) {
   if (fast != 1) return (int)cudaErrorInvalidValue;
-  return cdt_split::sweep<true>(q, bias, bank, values, dotscale, m_in, s1_in,
-                                s2_in, m_out, s1_out, s2_out, M, rows_per_seed,
-                                P, d, c, mask, mask_stride, strategy, col0,
-                                device, stream);
+  return cdt_split_rows::sweep<true>(q, bias, bank, values, dotscale, m_in, s1_in, s2_in,
+                                     m_out, s1_out, s2_out, M, rows_per_seed, P, d, c, mask,
+                                     mask_stride, strategy, col0, scratch, split_rows, device,
+                                     stream);
 }

@@ -1,9 +1,11 @@
-// K2's per-row sweep ('high': bf16x3 split dot, fp32 exp2, 'vpu' sums of
-// c <= 8 channels; with K5 and K6) on the split-bank grid (split_bank.cuh),
-// a main loop that does no global loads, split arithmetic or transposes,
-// and whose tensor-core products run under its exact fp32 sum. The
-// 'default' kernel and K2's wide modes keep flash_score_split.cuh's loop;
-// this header takes its split and TwoSum from there.
+// The one main loop of the split-dot kernels: K2 ('high', flash_score_
+// bf16x3.cu: bf16x3 split dot, fp32 exp2) and the 'default' kernel
+// (flash_score_fast.cu: the same dot, bf16 exponential), every value
+// strategy, with K5 and K6: a loop that does no global loads, split
+// arithmetic or transposes, and whose tensor-core products run under its
+// exact fp32 sum. The epilogue modes (flash_score_split.cuh) differ only in
+// the exponential, the value sums and where the state starts; `sweep` at
+// the bottom routes a launch to its mode for both entry points.
 //
 // 1. Split once per launch. `split_planes_kernel` writes the bf16 hi and lo
 //    parts of the queries [M, d] and of the bank chunk [P, d] as planes
@@ -13,14 +15,19 @@
 // 2. Stage asynchronously. Each stage of BK = 32 features (the query
 //    block's and the bank tile's hi and lo rows, 16-byte cp.async, as
 //    64-byte rows in the 64-byte swizzle the warpgroup product reads; the
-//    tile's bias and values with its last stage) goes into a ring of
-//    STAGES shared-memory slots, STAGES - 2 stages ahead, one barrier per
-//    stage. (Unswizzled 8-row x 16-byte core matrices gave the same bits
-//    and ran ~1.3x slower, PERF.md §6.)
+//    tile's bias and, per-row modes, values with its last stage) goes into a
+//    ring of STAGES shared-memory slots, STAGES - 2 stages ahead, one
+//    barrier per stage. (Unswizzled 8-row x 16-byte core matrices gave the
+//    same bits and ran ~1.3x slower, PERF.md §6.)
 // 3. Fill the card. One block of two warpgroups per (query block of BQ = 64
-//    rows, seed, split): 2048 blocks at M = 8192 over a 65536-row chunk,
-//    512 at the bbELS center's 2048 rows, where the parent ran 128 and 32.
-//    The partial states are merged in split order (merge_splits).
+//    rows, seed, split). K2's per-row sums split the bank axis (2048
+//    blocks at M = 8192 over a 65536-row chunk, 512 at the bbELS center's
+//    2048 rows) and a merge pass folds the partial states in split order
+//    (merge_splits). Every other mode runs one split from the carried
+//    state: the bf16 exponential rounds x = logit - m against the m of each
+//    tile, so splitting would change its function, and K2's wide modes keep
+//    the 'default' kernel's state handling (128 blocks at M = 8192, one
+//    wave).
 // 4. Overlap the products with the exact sum. Warpgroup wc owns bank
 //    columns 64 wc .. +64 of each 128-row tile: per k16 step s, three
 //    wgmma.mma_async m64n64k16 (bf16 from shared memory, fp32 in
@@ -34,24 +41,28 @@
 //    flight. The wait is for every group: when X is read while the later
 //    HH is still in flight, which a wait for the older group alone would
 //    allow, ptxas serialises every product of the loop (its note C7514).
-//    Registers: S, X and the two HH fragments are 4 x 32 per thread, ~240
-//    in all, one block of 8 warps per SM (the exact sum keeps four
-//    accumulators live, which leaves no room for a second block).
+//    Registers: S, X and the two HH fragments are 4 x 32 per thread, one
+//    block of 8 warps per SM (the exact sum keeps four accumulators live,
+//    which leaves no room for a second block).
 //
-// The dot is the parent's step for step, so the logits are the same bits:
-// per k16 step the hi.hi product from a zero accumulator (the tensor core
-// rounds the exact 16-product sum toward zero to fp32 in ~97% of inexact
-// steps, wgmma as mma.sync, ops/k2_numerics.py), added into the running
-// sum by TwoSum with its error into the cross-term accumulator, then
-// qh.kl and ql.kh accumulated there; the logit is
-// fmaf(S + X, dotscale, bias).
+// The dot is the per-block loop's the port ran before, step for step, so
+// the logits are the same bits in every mode: per k16 step the hi.hi
+// product from a zero accumulator (the tensor core rounds the exact
+// 16-product sum toward zero to fp32 in ~97% of inexact steps, wgmma as
+// mma.sync, ops/k2_numerics.py), added into the running sum by TwoSum with
+// its error into the cross-term accumulator, then qh.kl and ql.kh
+// accumulated there; the logit is fmaf(S + X, dotscale, bias).
 //
-// The epilogue is the parent's per-row one: the accumulator of warp wr of
-// warpgroup wc holds query rows 16 wr + g, +8 and, for n8 block j, bank
-// columns 64 wc + 8 j + 2 t4, +1 (mma.sync's m16n8 layout); the row max
-// goes over the quad by shuffles and over the two warpgroups through
-// shared memory, with a named barrier for the pair of warps that share
-// the rows.
+// The epilogue works on the accumulator layout: the accumulator of warp wr
+// of warpgroup wc holds query rows 16 wr + g, +8 and, for n8 block j, bank
+// columns 64 wc + 8 j + 2 t4, +1 (mma.sync's m16n8 layout, so two adjacent
+// n8 blocks of exponentials are the A fragment of an m16n8k16 value
+// product); the row max goes over the quad by shuffles and over the two
+// warpgroups through shared memory (one buffer per tile parity), with a
+// named barrier for the pair of warps that share the rows; per-thread
+// partial s1 / s2 under that max are summed once, at exit. The wide modes
+// keep s2 in the rows of the state they write (value_sums.cuh) and pass
+// each tile's values through shared memory under block-wide barriers.
 
 #pragma once
 
@@ -59,18 +70,21 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "flash_score_split.cuh"
 #include "split_bank.cuh"
+#include "value_sums.cuh"
 
 namespace cdt_split_rows {
 
-using cdt_split::split_pair;
-using cdt_split::two_sum;
+using namespace cdt_split;  // split_pair, two_sum, mma_bf16, pack_bf16, the modes
 using cdt_splitbank::cp_async;
+using cdt_vals::bf16r;
+using cdt_vals::fast_exp;
 
 constexpr int BQ = 64;      // query rows per block: 4 warp rows x 16
 static_assert(BQ == K2_SPLIT_BQ, "ops/_build.py SPLIT_BQ holds this block's rows");
-constexpr int BP = 128;     // bank rows per tile: 2 warpgroups x 64
 constexpr int BK = 32;      // features per stage
 constexpr int KS = BK / 16; // k16 steps per stage
 constexpr int NT = 256;     // 2 warpgroups
@@ -81,18 +95,53 @@ constexpr int SBO = 8 * BK * 2;  // bytes between 8-row groups of a staged plane
 constexpr float NEG_INF = -1e30f;
 static_assert(KS == 2, "the pipeline alternates two HH fragments, one per step of a stage");
 static_assert(BK * 2 == 64, "a staged row is one 64-byte swizzle row");
+using ValueTile = cdt_vals::ValueTile<BQ, BP, NT>;
+
+template <int MODE>
+struct Traits {
+  static constexpr bool WIDE = MODE >= SIMT_HIGH;  // runtime c, s2 in device memory
+  static constexpr bool SIMT = MODE == SIMT_HIGH || MODE == SIMT_FAST;
+  static constexpr bool MMAV = MODE == MMAV_SPLIT || MODE == MMAV_FAST;
+  static constexpr bool SPLITV = MODE == MMAV_SPLIT;  // the split value product
+  static constexpr bool BF16_EXP = MODE == FAST_VPU || MODE == FAST_MMA ||
+                                   MODE == SIMT_FAST || MODE == MMAV_FAST;
+  static constexpr bool ROWSUM = MODE == HIGH_VPU || MODE == FAST_VPU;  // s1, s2 per row
+  static constexpr bool CARRY = MODE != HIGH_VPU;  // one split from the carried state
+};
 
 // dynamic shared memory, bytes: STAGES slots of (Qh, Ql [BQ x BK bf16],
-// Kh, Kl [BP x BK bf16], bias [BP] f32, values [BP][C] f32), then the
-// warpgroups' row maxima [2][BQ] and warpgroup 1's sums at exit
-// [BQ][1 + C], then the K6 tile list
-template <int C>
+// Kh, Kl [BP x BK bf16], bias [BP] f32, values [BP][CV] f32), then the
+// warpgroups' row maxima [2 tile parities][2][BQ] and warpgroup 1's sums at
+// exit [BQ][PW], then the wide modes' value tile (ValueTile or MmaTile),
+// then the K6 tile list
+template <int C, int MODE>
 struct Smem {
+  using T = Traits<MODE>;
+  static constexpr int CV = T::WIDE ? 0 : C;  // value channels staged per tile
+  static constexpr int NV = (C + 8) / 8;      // n8 tiles of [V | 1] (FAST_MMA)
+  static constexpr int PW = MODE == FAST_MMA ? NV * 8 : 1 + CV;
   static constexpr int Q = BQ * BK * 2, K = BP * BK * 2;
-  static constexpr int STAGE = 2 * Q + 2 * K + 4 * BP + 4 * BP * C;
+  static constexpr int STAGE = 2 * Q + 2 * K + 4 * BP + 4 * BP * CV;
   static_assert(STAGE % 128 == 0, "slots stay 128-byte aligned");
-  static constexpr size_t bytes = (size_t)STAGES * STAGE + 4 * (2 * BQ + BQ * (1 + C));
+  static constexpr size_t TAIL = 4 * (4 * BQ + BQ * PW);
+  static constexpr size_t EXTRA =
+      T::SIMT ? ValueTile::bytes : T::MMAV ? MmaTile<T::SPLITV>::bytes : 0;
+  static constexpr size_t bytes = (size_t)STAGES * STAGE + TAIL + EXTRA;
   static constexpr size_t alloc = bytes + 1024;  // room to align the slots
+};
+
+// the values' row stride (the bank's row for 'inbank'), the wide modes' c
+// and product rule, and the carried state in and out
+struct State {
+  int64_t vstride;
+  int c;
+  int rule;
+  const float* m_in;
+  const float* s1_in;
+  const float* s2_in;
+  float* m_out;
+  float* s1_out;
+  float* s2_out;
 };
 
 // d rounded up to the stage width: the planes' row length
@@ -171,21 +220,26 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-template <int C, bool PRUNE>
+template <int C, int MODE, bool PRUNE>
 __global__ void __launch_bounds__(NT, 1) rows_kernel(
     const uint32_t* __restrict__ qh, const uint32_t* __restrict__ ql,
     const uint32_t* __restrict__ kh, const uint32_t* __restrict__ kl,
     const float* __restrict__ bias, const float* __restrict__ values,
     float dotscale, float* __restrict__ part, int64_t M, int64_t rps,
     int64_t P, int dp, int64_t split_rows, const int* __restrict__ mask,
-    int64_t mask_stride) {
-  using S = Smem<C>;
+    int64_t mask_stride, State w) {
+  using T = Traits<MODE>;
+  using S = Smem<C, MODE>;
+  constexpr int NV = S::NV, PW = S::PW, CV = S::CV;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   // the swizzle's pattern follows address bits: slots start 1024-aligned
   unsigned char* const smem =
       smem_raw + ((1024 - (cdt_splitbank::smem_u32(smem_raw) & 1023)) & 1023);
   float* const rmax_s = reinterpret_cast<float*>(smem + STAGES * S::STAGE);
-  float* const part_s = rmax_s + 2 * BQ;
+  float* const part_s = rmax_s + 4 * BQ;
+  float* const extra = part_s + BQ * PW;
+  const ValueTile vt(extra);
+  const MmaTile<T::SPLITV> mt(extra);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -198,6 +252,7 @@ __global__ void __launch_bounds__(NT, 1) rows_kernel(
   const int64_t row0 = seed * rps + (int64_t)blockIdx.x * BQ;
   const int64_t seed_end = (seed + 1) * rps;
   const int64_t row_end = row0 + BQ < seed_end ? row0 + BQ : seed_end;
+  const int nrows = (int)(row_end - row0);
   bias += seed * P;
   const int64_t split = blockIdx.z;
   const int64_t p_begin = split * split_rows;
@@ -211,14 +266,48 @@ __global__ void __launch_bounds__(NT, 1) rows_kernel(
   const int64_t nstages = (int64_t)tiles.n * nk;
   const int64_t wpr = dp / 2;  // words per plane row
   const int lr[2] = {wr * 16 + g, wr * 16 + g + 8};
+  const int c = T::WIDE ? w.c : C;
 
-  // this split's state, from empty; m is the same in all 8 threads of a row,
-  // s1, s2 per-thread partials under it, summed at exit
-  float m[2] = {NEG_INF, NEG_INF}, s1[2] = {0.f, 0.f}, s2[2][C];
+  // The state: from empty (HIGH_VPU, a split's partial) or the carried one.
+  // m is the same in all 8 threads of a row; s1 and the per-row s2 are
+  // per-thread partials under it, summed at exit, the thread (wc == 0,
+  // t4 == 0) starting from the carried values. FAST_MMA: sv in the
+  // product's accumulator layout (element e: row lr[e / 2], column
+  // 2 t4 + (e % 2) of n8 tile nv; columns < C are s2, column C is s1),
+  // warpgroup 0 starting from the carried values. The wide modes: s2 in
+  // the output rows (MMAV: warpgroup 1's sums in the scratch's rows).
+  const bool owner = wc == 0 && t4 == 0;
+  float m[2], s1[2] = {0.f, 0.f}, s2[2][T::ROWSUM ? C : 1], sv[NV][4];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < 2; ++i) {
+    const int64_t r = row0 + lr[i];
+    const bool carried = T::CARRY && r < row_end;
+    m[i] = carried ? w.m_in[r] : NEG_INF;
+    if (MODE != FAST_MMA && carried && owner) s1[i] = w.s1_in[r];
+    if constexpr (T::ROWSUM) {
 #pragma unroll
-    for (int c = 0; c < C; ++c) s2[i][c] = 0.f;
+      for (int cc = 0; cc < C; ++cc) s2[i][cc] = carried && owner ? w.s2_in[r * C + cc] : 0.f;
+    }
+  }
+  if constexpr (MODE == FAST_MMA) {
+#pragma unroll
+    for (int nv = 0; nv < NV; ++nv)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int64_t r = row0 + lr[e >> 1];
+        const int col = nv * 8 + 2 * t4 + (e & 1);
+        float v = 0.f;
+        if (wc == 0 && r < row_end)
+          v = col < C ? w.s2_in[r * C + col] : (col == C ? w.s1_in[r] : 0.f);
+        sv[nv][e] = v;
+      }
+  }
+  if constexpr (T::WIDE) {  // read by the first epilogue after a barrier of the loop
+    for (int i = tid; i < nrows * c; i += NT) {
+      w.s2_out[row0 * c + i] = w.s2_in[row0 * c + i];
+      if constexpr (T::MMAV) part[row0 * c + i] = 0.f;
+    }
+  }
 
   auto load = [&](int slot, int64_t pt, int kt) {
     unsigned char* const sqh = smem + slot * S::STAGE;
@@ -245,10 +334,12 @@ __global__ void __launch_bounds__(NT, 1) rows_kernel(
     }
     if (kt == nk - 1) {  // the tile's bias and values, read by its epilogue
       float* const sbias = reinterpret_cast<float*>(skh + 2 * S::K);
-      float* const sv = sbias + BP;
+      float* const svals = sbias + BP;
       if (tid < BP) cp_async<4>(sbias + tid, bias + p0 + tid, bias, p0 + tid < P);
-      for (int e = tid; e < BP * C; e += NT)
-        cp_async<4>(sv + e, values + p0 * C + e, values, p0 * C + e < P * C);
+      for (int e = tid; e < BP * CV; e += NT) {
+        const int64_t p = p0 + e / CV;
+        cp_async<4>(svals + e, values + p * w.vstride + e % CV, values, p < P);
+      }
     }
   };
 
@@ -351,7 +442,7 @@ __global__ void __launch_bounds__(NT, 1) rows_kernel(
     if (kt == nk - 1) {
       wgmma_wait<0>();
       const float* const sbias = reinterpret_cast<const float*>(st + 2 * S::Q + 2 * S::K);
-      const float* const sv = sbias + BP;
+      const float* const svals = sbias + BP;
       const int64_t p0 = tiles.tile(ti) * BP;
       // K6: rows of a mask row that skips this tile take -1e30 logits
       const bool dead = tiles.skipped(ti, 16 * wr / PRUNE_ROWS);
@@ -363,6 +454,7 @@ __global__ void __launch_bounds__(NT, 1) rows_kernel(
                    ? fmaf(acc_hh[4 * j + e] + acc_x[4 * j + e], dotscale, sbias[col])
                    : NEG_INF;
       };
+      float* const rmax = rmax_s + (ti & 1) * 2 * BQ;  // a tile's readers never meet the next's writers
       float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
       for (int j = 0; j < NACC / 4; ++j)
@@ -372,42 +464,188 @@ __global__ void __launch_bounds__(NT, 1) rows_kernel(
       for (int i = 0; i < 2; ++i) {
         mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
         mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-        if (t4 == 0) rmax_s[wc * BQ + lr[i]] = mx[i];
+        if (t4 == 0) rmax[wc * BQ + lr[i]] = mx[i];
       }
       // the two warps of warp row wr, one of each warpgroup (64 threads)
       asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wr), "r"(64) : "memory");
-      float m_safe[2], t1[2] = {0.f, 0.f}, t2[2][C];
+      float m_safe[2], scale[2];
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        const float m_new = fmaxf(m[i], fmaxf(rmax_s[lr[i]], rmax_s[BQ + lr[i]]));
+        const float m_new = fmaxf(m[i], fmaxf(rmax[lr[i]], rmax[BQ + lr[i]]));
         m_safe[i] = (m_new <= NEG_INF * 0.5f) ? 0.f : m_new;
-        const float scale = (m[i] <= NEG_INF * 0.5f) ? 0.f : exp2f(m[i] - m_safe[i]);
-        s1[i] *= scale;
+        scale[i] = (m[i] <= NEG_INF * 0.5f) ? 0.f : exp2f(m[i] - m_safe[i]);
+        if constexpr (MODE != FAST_MMA) {
+          s1[i] *= scale[i];
+          if constexpr (T::ROWSUM) {
 #pragma unroll
-        for (int c = 0; c < C; ++c) {
-          s2[i][c] *= scale;
-          t2[i][c] = 0.f;
+            for (int cc = 0; cc < C; ++cc) s2[i][cc] *= scale[i];
+          }
         }
         m[i] = m_new;
       }
+      auto ex = [&](int j, int e) {
+        const float x = logit(j, e) - m_safe[e >> 1];
+        return T::BF16_EXP ? fast_exp(x) : exp2f(x);
+      };
+      if constexpr (T::ROWSUM) {
+        float t1[2] = {0.f, 0.f}, t2[2][C];
 #pragma unroll
-      for (int j = 0; j < NACC / 4; ++j)
+        for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = e >> 1;
-          const int col = wc * 64 + j * 8 + 2 * t4 + (e & 1);
-          const float ex = exp2f(logit(j, e) - m_safe[i]);
-          t1[i] += ex;
+          for (int cc = 0; cc < C; ++cc) t2[i][cc] = 0.f;
+        // per column its C values (bf16(v) with the bf16 exponential), read
+        // once for both rows; each row's sums take the columns in order
 #pragma unroll
-          for (int c = 0; c < C; ++c) t2[i][c] = fmaf(ex, sv[col * C + c], t2[i][c]);
+        for (int j = 0; j < NACC / 4; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int col = wc * 64 + j * 8 + 2 * t4 + h;
+            float v[C];
+#pragma unroll
+            for (int cc = 0; cc < C; ++cc)
+              v[cc] = T::BF16_EXP ? bf16r(svals[col * C + cc]) : svals[col * C + cc];
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const float x = ex(j, 2 * i + h);
+              t1[i] += x;
+#pragma unroll
+              for (int cc = 0; cc < C; ++cc)
+                t2[i][cc] = T::BF16_EXP ? t2[i][cc] + bf16r(x * v[cc]) : fmaf(x, v[cc], t2[i][cc]);
+            }
+          }
+#pragma unroll
+        for (int i = 0; i < NACC; ++i) acc_hh[i] = 0.f;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          s1[i] += t1[i];
+#pragma unroll
+          for (int cc = 0; cc < C; ++cc) s2[i][cc] += t2[i][cc];
+        }
+      } else if constexpr (MODE == FAST_MMA) {
+        // e @ [V | 1 | 0..]: B[k][n] of k16 step s is V'[r0 + k][n], r0 the
+        // step's first bank row in the warpgroup's 64
+        auto vb = [&](int p, int n) {
+          return n < C ? bf16r(svals[p * C + n]) : (n == C ? 1.f : 0.f);
+        };
+        float tv[NV][4];
+#pragma unroll
+        for (int nv = 0; nv < NV; ++nv)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) tv[nv][e] = 0.f;
+#pragma unroll
+        for (int s = 0; s < NACC / 8; ++s) {
+          // n8 blocks 2s, 2s+1 are the k16 A fragment: a0 (g, k 2t4..),
+          // a1 (g+8, k 2t4..), a2 (g, k 2t4+8..), a3 (g+8, k 2t4+8..)
+          float x[2][4];
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) x[h][e] = ex(2 * s + h, e);
+          const uint32_t a[4] = {pack_bf16(x[0][0], x[0][1]), pack_bf16(x[0][2], x[0][3]),
+                                 pack_bf16(x[1][0], x[1][1]), pack_bf16(x[1][2], x[1][3])};
+          const int r0 = wc * 64 + s * 16 + 2 * t4;
+#pragma unroll
+          for (int nv = 0; nv < NV; ++nv) {
+            const int n = nv * 8 + g;
+            mma_bf16(tv[nv], a, pack_bf16(vb(r0, n), vb(r0 + 1, n)),
+                     pack_bf16(vb(r0 + 8, n), vb(r0 + 9, n)));
+          }
         }
 #pragma unroll
-      for (int i = 0; i < NACC; ++i) acc_hh[i] = 0.f;
+        for (int i = 0; i < NACC; ++i) acc_hh[i] = 0.f;
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        s1[i] += t1[i];
+        for (int nv = 0; nv < NV; ++nv)
 #pragma unroll
-        for (int c = 0; c < C; ++c) s2[i][c] += t2[i][c];
+          for (int e = 0; e < 4; ++e) sv[nv][e] = fmaf(sv[nv][e], scale[e >> 1], tv[nv][e]);
+      } else {
+        // the wide modes: e of the tile, its fp32 row sums, and e to shared
+        // memory (SIMT) or the A fragments of the value product (MMAV; n8
+        // blocks 2s, 2s+1 are k16 step s, as in FAST_MMA; hi and, SPLITV,
+        // lo parts)
+        float t1[2] = {0.f, 0.f};
+        uint32_t ah[T::MMAV ? NACC / 8 : 1][4], al[T::SPLITV ? NACC / 8 : 1][4];
+#pragma unroll
+        for (int s = 0; s < NACC / 8; ++s) {
+          float x[2][4];
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int j = 2 * s + h;
+              x[h][e] = ex(j, e);
+              t1[e >> 1] += x[h][e];
+              if constexpr (T::SIMT)
+                vt.e[lr[e >> 1] * ValueTile::ES + wc * 64 + j * 8 + 2 * t4 + (e & 1)] = x[h][e];
+            }
+          if constexpr (T::MMAV) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              if constexpr (T::SPLITV) {
+                split_pair(x[h][0], x[h][1], ah[s][2 * h], al[s][2 * h]);
+                split_pair(x[h][2], x[h][3], ah[s][2 * h + 1], al[s][2 * h + 1]);
+              } else {
+                ah[s][2 * h] = pack_bf16(x[h][0], x[h][1]);
+                ah[s][2 * h + 1] = pack_bf16(x[h][2], x[h][3]);
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < NACC; ++i) acc_hh[i] = 0.f;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) s1[i] += t1[i];
+        if constexpr (T::SIMT) {
+          if (owner) {
+#pragma unroll
+            for (int i = 0; i < 2; ++i) vt.scale[lr[i]] = scale[i];
+          }
+          __syncthreads();
+          vt.accumulate(values, w.vstride, p0, P, c, w.rule, w.s2_out + row0 * c, nrows, tid);
+        } else {
+          float* const slab = wc == 0 ? w.s2_out : part;  // this warpgroup's state rows
+          const int cp = (c + 7) / 8 * 8;
+          for (int g0 = 0; g0 < c; g0 += CG) {
+            __syncthreads();  // every read of the values staged before is done
+            for (int i = tid; i < BP * CG; i += NT) {
+              const int64_t p = p0 + i / CG;
+              const int ch = g0 + i % CG;
+              const float v = (p < P && ch < c) ? values[p * w.vstride + ch] : 0.f;
+              const __nv_bfloat16 hi = __float2bfloat16_rn(v);
+              mt.vh[(i % CG) * VSTR + i / CG] = hi;
+              if constexpr (T::SPLITV)
+                mt.vl[(i % CG) * VSTR + i / CG] = __float2bfloat16_rn(v - __bfloat162float(hi));
+            }
+            __syncthreads();
+            const int n_nv = min(CG, cp - g0) / 8;
+            for (int nv = 0; nv < n_nv; ++nv) {
+              float tv[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+              for (int s = 0; s < NACC / 8; ++s) {
+                // B fragments: bank rows r0, r0+1 (b0) and r0+8, r0+9 (b1)
+                // of value column n = g of n8 tile nv
+                const int vo = (nv * 8 + g) * VSTR + wc * 64 + s * 16 + 2 * t4;
+                const uint32_t bh0 = *reinterpret_cast<const uint32_t*>(&mt.vh[vo]);
+                const uint32_t bh1 = *reinterpret_cast<const uint32_t*>(&mt.vh[vo + 8]);
+                mma_bf16(tv, ah[s], bh0, bh1);
+                if constexpr (T::SPLITV) {
+                  const uint32_t bl0 = *reinterpret_cast<const uint32_t*>(&mt.vl[vo]);
+                  const uint32_t bl1 = *reinterpret_cast<const uint32_t*>(&mt.vl[vo + 8]);
+                  mma_bf16(tv, ah[s], bl0, bl1);
+                  mma_bf16(tv, al[s], bh0, bh1);
+                }
+              }
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int64_t r = row0 + lr[e >> 1];
+                const int ch = g0 + nv * 8 + 2 * t4 + (e & 1);
+                if (r < row_end && ch < c) {
+                  float& x = slab[r * c + ch];
+                  x = fmaf(x, scale[e >> 1], tv[e]);
+                }
+              }
+            }
+          }
+        }
       }
     }
 
@@ -420,51 +658,101 @@ __global__ void __launch_bounds__(NT, 1) rows_kernel(
   wgmma_wait<0>();
   cdt_splitbank::cp_async_wait<0>();
 
-  // sum the per-thread partials of each row (all under the same m): over
-  // the quad by shuffles, then warpgroup 1 hands its sums to warpgroup 0
+  if constexpr (MODE == FAST_MMA) {
+    // warpgroup 1 hands its partial sums to warpgroup 0
+    if (wc == 1) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
+      for (int nv = 0; nv < NV; ++nv)
 #pragma unroll
-    for (int o = 1; o <= 2; o <<= 1) {
-      s1[i] += __shfl_xor_sync(0xffffffffu, s1[i], o);
-#pragma unroll
-      for (int c = 0; c < C; ++c) s2[i][c] += __shfl_xor_sync(0xffffffffu, s2[i][c], o);
+        for (int e = 0; e < 4; ++e)
+          part_s[lr[e >> 1] * PW + nv * 8 + 2 * t4 + (e & 1)] = sv[nv][e];
     }
-    if (wc == 1 && t4 == 0) {
-      part_s[lr[i] * (1 + C)] = s1[i];
+    __syncthreads();
+    if (wc == 0) {
 #pragma unroll
-      for (int c = 0; c < C; ++c) part_s[lr[i] * (1 + C) + 1 + c] = s2[i][c];
+      for (int nv = 0; nv < NV; ++nv)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int64_t r = row0 + lr[e >> 1];
+          const int col = nv * 8 + 2 * t4 + (e & 1);
+          const float v = sv[nv][e] + part_s[lr[e >> 1] * PW + col];
+          if (r < row_end) {
+            if (col < C) w.s2_out[r * C + col] = v;
+            if (col == C) w.s1_out[r] = v;
+          }
+        }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int64_t r = row0 + lr[i];
+        if (t4 == 0 && r < row_end) w.m_out[r] = m[i];
+      }
     }
-  }
-  __syncthreads();
-  if (wc == 0 && t4 == 0) {
+  } else {
+    // sum the per-thread partials of each row (all under the same m): over
+    // the quad by shuffles, then warpgroup 1 hands its sums to warpgroup 0
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const int64_t r = row0 + lr[i];
-      if (r < row_end) {
-        float* const o = part + (split * M + r) * (2 + C);
-        o[0] = m[i];
-        o[1] = s1[i] + part_s[lr[i] * (1 + C)];
 #pragma unroll
-        for (int c = 0; c < C; ++c) o[2 + c] = s2[i][c] + part_s[lr[i] * (1 + C) + 1 + c];
+      for (int o = 1; o <= 2; o <<= 1) {
+        s1[i] += __shfl_xor_sync(0xffffffffu, s1[i], o);
+        if constexpr (T::ROWSUM) {
+#pragma unroll
+          for (int cc = 0; cc < C; ++cc) s2[i][cc] += __shfl_xor_sync(0xffffffffu, s2[i][cc], o);
+        }
       }
+      if (wc == 1 && t4 == 0) {
+        part_s[lr[i] * PW] = s1[i];
+        if constexpr (T::ROWSUM) {
+#pragma unroll
+          for (int cc = 0; cc < C; ++cc) part_s[lr[i] * PW + 1 + cc] = s2[i][cc];
+        }
+      }
+    }
+    __syncthreads();
+    if (owner) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int64_t r = row0 + lr[i];
+        if (r < row_end) {
+          if constexpr (T::CARRY) {
+            w.m_out[r] = m[i];
+            w.s1_out[r] = s1[i] + part_s[lr[i] * PW];
+            if constexpr (T::ROWSUM) {
+#pragma unroll
+              for (int cc = 0; cc < C; ++cc)
+                w.s2_out[r * C + cc] = s2[i][cc] + part_s[lr[i] * PW + 1 + cc];
+            }
+          } else {
+            float* const o = part + (split * M + r) * (2 + C);
+            o[0] = m[i];
+            o[1] = s1[i] + part_s[lr[i] * PW];
+#pragma unroll
+            for (int cc = 0; cc < C; ++cc) o[2 + cc] = s2[i][cc] + part_s[lr[i] * PW + 1 + cc];
+          }
+        }
+      }
+    }
+    // MMAV: the two warpgroups' state rows, complete since the barrier
+    if constexpr (T::MMAV) {
+      for (int i = tid; i < nrows * c; i += NT) w.s2_out[row0 * c + i] += part[row0 * c + i];
     }
   }
 }
 
 // Scratch layout (the wrapper allocates it, ops/flash_score.py
-// `scratch_numel`): the partials [nsplit][M][2 + C] float32, rounded up to
-// 4 floats, then the planes qh, ql [M][dp] and kh, kl [P][dp] bf16.
-template <int C>
+// `scratch_numel`): the partials [nsplit][M][2 + c] float32 (HIGH_VPU;
+// MMAV keeps warpgroup 1's state rows [M][c] there), rounded up to 4
+// floats, then the planes qh, ql [M][dp] and kh, kl [P][dp] bf16. The
+// carried modes take split_rows >= P, one split.
+template <int C, int MODE>
 int launch(const void* q, const void* bias, const void* bank, const void* values,
-           float dotscale, const void* m_in, const void* s1_in, const void* s2_in,
-           void* m_out, void* s1_out, void* s2_out, int64_t M, int64_t rps,
-           int64_t P, int d, const int* mask, int64_t mask_stride, void* scratch,
-           int64_t split_rows, cudaStream_t stream) {
+           float dotscale, int64_t M, int64_t rps, int64_t P, int d, const int* mask,
+           int64_t mask_stride, void* scratch, int64_t split_rows, const State& w,
+           cudaStream_t stream) {
   const int64_t nsplit = cdt_splitbank::n_splits(P, split_rows);
   const int dp = padded(d);
   float* const part = (float*)scratch;
-  uint32_t* const qh = (uint32_t*)(part + (nsplit * M * (2 + C) + 3) / 4 * 4);
+  uint32_t* const qh = (uint32_t*)(part + (nsplit * M * (2 + w.c) + 3) / 4 * 4);
   uint32_t* const ql = qh + M * dp / 2;
   uint32_t* const kh = ql + M * dp / 2;
   uint32_t* const kl = kh + P * dp / 2;
@@ -478,9 +766,9 @@ int launch(const void* q, const void* bias, const void* bank, const void* values
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((rps + BQ - 1) / BQ), (unsigned)(M / rps), (unsigned)nsplit);
-  auto kernel = mask != nullptr ? rows_kernel<C, true> : rows_kernel<C, false>;
+  auto kernel = mask != nullptr ? rows_kernel<C, MODE, true> : rows_kernel<C, MODE, false>;
   // K6: room for the tile list of a split
-  const size_t smem = Smem<C>::alloc +
+  const size_t smem = Smem<C, MODE>::alloc +
       (mask != nullptr ? 4 * cdt_splitbank::split_tiles_ints<BP>(
                                  split_rows < P ? split_rows : P)
                        : 0);
@@ -492,11 +780,97 @@ int launch(const void* q, const void* bias, const void* bank, const void* values
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid, NT, smem, stream>>>(
       qh, ql, kh, kl, (const float*)bias, (const float*)values, dotscale, part, M,
-      rps, P, dp, split_rows, mask, mask_stride);
+      rps, P, dp, split_rows, mask, mask_stride, w);
   err = cudaGetLastError();
+  if (err != cudaSuccess || MODE != HIGH_VPU) return (int)err;
+  return (int)cdt_splitbank::merge_splits(w.m_in, w.s1_in, w.s2_in, part, w.m_out, w.s1_out,
+                                          w.s2_out, M, (int)nsplit, C, stream);
+}
+
+// launch<c, MODE> for the per-row modes' c in 1 .. 8
+template <int MODE, typename... A>
+int launch_c(int c, A... a) {
+  switch (c) {
+    case 1: return launch<1, MODE>(a...);
+    case 2: return launch<2, MODE>(a...);
+    case 3: return launch<3, MODE>(a...);
+    case 4: return launch<4, MODE>(a...);
+    case 5: return launch<5, MODE>(a...);
+    case 6: return launch<6, MODE>(a...);
+    case 7: return launch<7, MODE>(a...);
+    case 8: return launch<8, MODE>(a...);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The checks and the routing of the C entry points (BF16_EXP: the 'default'
+// kernel's bf16 exponential, else K2's fp32 exp2): launches on `stream`
+// without synchronising; returns cudaGetLastError() after the launches
+// (0 = launched). bias is [M / rows_per_seed, P]; rows_per_seed = M for 1-D
+// weights. mask is null or, with 1-D weights only, the int32 skip mask
+// [ceil(M / PRUNE_ROWS), mask_stride] (K6). strategy: 0 'vpu', 1 'mxu1'
+// (bf16 exponential only), 2 'inbank' (values may be null; V =
+// bank[:, col0 : col0 + c]), 3 'mxu'. Up to 8 channels, 'vpu' (and with the
+// bf16 exponential 'mxu1' and 'inbank') keep their per-row sums; the rest
+// take the wide modes (flash_score_split.cuh). scratch is the float32
+// scratch of `launch`; split_rows the rows per split of K2's per-row sums
+// (ops/flash_score.py `split_plan`), which the other modes do not read.
+template <bool BF16_EXP>
+int sweep(const void* q, const void* bias, const void* bank, const void* values,
+          float dotscale, const void* m_in, const void* s1_in, const void* s2_in,
+          void* m_out, void* s1_out, void* s2_out, long long M, long long rows_per_seed,
+          long long P, int d, int c, const void* mask, long long mask_stride, int strategy,
+          int col0, void* scratch, long long split_rows, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  return (int)cdt_splitbank::merge_splits<C>(m_in, s1_in, s2_in, part, m_out, s1_out,
-                                             s2_out, M, (int)nsplit, stream);
+  if (M <= 0) return (int)cudaSuccess;
+  if (rows_per_seed <= 0 || M % rows_per_seed != 0 ||
+      M / rows_per_seed > 65535 || c < 1 || strategy < 0 || strategy > 3 ||
+      (strategy == 1 && !BF16_EXP) || scratch == nullptr ||
+      (strategy == 2 && (col0 < 0 || col0 + c > d)) ||
+      (mask != nullptr &&
+       (rows_per_seed != M || mask_stride < (P + PRUNE_BLOCK - 1) / PRUNE_BLOCK)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int* mk = (const int*)mask;
+  // V is the values [P, c] or the bank's center columns
+  const bool inbank = strategy == 2;
+  const void* vals = inbank ? (const void*)((const float*)bank + col0) : values;
+  State w{inbank ? (int64_t)d : (int64_t)c, c,
+          BF16_EXP ? (int)cdt_vals::V_BF16_PRODUCT : (int)cdt_vals::V_FP32,
+          (const float*)m_in, (const float*)s1_in, (const float*)s2_in,
+          (float*)m_out, (float*)s1_out, (float*)s2_out};
+  if constexpr (!BF16_EXP) {
+    if (strategy == 0 && c <= 8) {  // K2's per-row sums, split
+      if (!cdt_splitbank::valid_split(P, split_rows)) return (int)cudaErrorInvalidValue;
+      return launch_c<HIGH_VPU>(c, q, bias, bank, vals, dotscale, (int64_t)M,
+                                (int64_t)rows_per_seed, (int64_t)P, d, mk,
+                                (int64_t)mask_stride, scratch, (int64_t)split_rows, w, s);
+    }
+  }
+  // one split, from the carried state
+  const int64_t whole = P > 0 ? P : 1;
+  auto wide = [&](auto mode) {
+    return launch<0, decltype(mode)::value>(q, bias, bank, vals, dotscale, M, rows_per_seed,
+                                            P, d, mk, mask_stride, scratch, whole, w, s);
+  };
+  if constexpr (BF16_EXP) {
+    if (c <= 8 && strategy == 0)
+      return launch_c<FAST_VPU>(c, q, bias, bank, vals, dotscale, (int64_t)M,
+                                (int64_t)rows_per_seed, (int64_t)P, d, mk,
+                                (int64_t)mask_stride, scratch, whole, w, s);
+    if (c <= 8)  // 'mxu1', 'inbank': e @ [V | 1] per row
+      return launch_c<FAST_MMA>(c, q, bias, bank, vals, dotscale, (int64_t)M,
+                                (int64_t)rows_per_seed, (int64_t)P, d, mk,
+                                (int64_t)mask_stride, scratch, whole, w, s);
+    if (strategy == 0)  // 'vpu' past 8 channels: bf16(e * bf16(v))
+      return wide(std::integral_constant<int, SIMT_FAST>{});
+    return wide(std::integral_constant<int, MMAV_FAST>{});  // bf16(e) @ bf16(V)
+  } else {
+    if (inbank)  // the split product eh.vh + eh.vl + el.vh
+      return wide(std::integral_constant<int, MMAV_SPLIT>{});
+    return wide(std::integral_constant<int, SIMT_HIGH>{});  // 'mxu', 'vpu' past 8: fp32
+  }
 }
 
 }  // namespace cdt_split_rows

@@ -160,15 +160,16 @@ __host__ __forceinline__ bool valid_split(int64_t P, int64_t split_rows) {
   return n_splits(P, split_rows) <= 65535;
 }
 
-// Fold the partial states part [nsplit][M][2 + C] (m, s1, s2) into the
+// Fold the partial states part [nsplit][M][2 + c] (m, s1, s2) into the
 // carried state, in split order, one thread per row:
 //   m   = max(m_in, m_j)
 //   s1  = s1_in * 2^(m_in - m) + sum_j s1_j * 2^(m_j - m)
 //   s2  likewise per channel,
 // with the sentinel guards of the sweep (a term whose m is at the
 // sentinel adds nothing). A row whose partials are all at the sentinel is
-// its carried state, bit for bit.
-template <int C>
+// its carried state, bit for bit. c is a runtime count (the per-row sums'
+// c <= 8 and the wide sums' c <= 256 alike): each channel repeats the
+// split loop, with the same factors, so every sum takes the same steps.
 __global__ void merge_splits_kernel(const float* __restrict__ m_in,
                                     const float* __restrict__ s1_in,
                                     const float* __restrict__ s2_in,
@@ -176,8 +177,8 @@ __global__ void merge_splits_kernel(const float* __restrict__ m_in,
                                     float* __restrict__ m_out,
                                     float* __restrict__ s1_out,
                                     float* __restrict__ s2_out, int64_t M,
-                                    int nsplit) {
-  constexpr int W = 2 + C;
+                                    int nsplit, int c) {
+  const int64_t W = 2 + c;
   const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= M) return;
   const float m0 = m_in[r];
@@ -191,37 +192,32 @@ __global__ void merge_splits_kernel(const float* __restrict__ m_in,
   if (!any) {
     m_out[r] = m0;
     s1_out[r] = s1_in[r];
-#pragma unroll
-    for (int c = 0; c < C; ++c) s2_out[r * C + c] = s2_in[r * C + c];
+    for (int ch = 0; ch < c; ++ch) s2_out[r * c + ch] = s2_in[r * c + ch];
     return;
   }
   const float f0 = m0 <= NEG_INF * 0.5f ? 0.f : exp2f(m0 - m);
-  float s1 = s1_in[r] * f0, s2[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) s2[c] = s2_in[r * C + c] * f0;
-  for (int j = 0; j < nsplit; ++j) {
-    const float* pj = part + ((int64_t)j * M + r) * W;
-    if (!(pj[0] > NEG_INF * 0.5f)) continue;
-    const float f = exp2f(pj[0] - m);
-    s1 = fmaf(pj[1], f, s1);
-#pragma unroll
-    for (int c = 0; c < C; ++c) s2[c] = fmaf(pj[2 + c], f, s2[c]);
+  // sum k: s1 (k = 0) or channel k - 1 of s2
+  for (int k = 0; k <= c; ++k) {
+    float s = (k == 0 ? s1_in[r] : s2_in[r * c + k - 1]) * f0;
+    for (int j = 0; j < nsplit; ++j) {
+      const float* pj = part + ((int64_t)j * M + r) * W;
+      if (!(pj[0] > NEG_INF * 0.5f)) continue;
+      s = fmaf(pj[1 + k], exp2f(pj[0] - m), s);
+    }
+    if (k == 0) s1_out[r] = s;
+    else s2_out[r * c + k - 1] = s;
   }
   m_out[r] = m;
-  s1_out[r] = s1;
-#pragma unroll
-  for (int c = 0; c < C; ++c) s2_out[r * C + c] = s2[c];
 }
 
-template <int C>
-cudaError_t merge_splits(const void* m_in, const void* s1_in, const void* s2_in,
-                         const float* part, void* m_out, void* s1_out,
-                         void* s2_out, int64_t M, int nsplit,
-                         cudaStream_t stream) {
+inline cudaError_t merge_splits(const void* m_in, const void* s1_in, const void* s2_in,
+                                const float* part, void* m_out, void* s1_out,
+                                void* s2_out, int64_t M, int nsplit, int c,
+                                cudaStream_t stream) {
   constexpr int T = 256;
-  merge_splits_kernel<C><<<(unsigned)((M + T - 1) / T), T, 0, stream>>>(
+  merge_splits_kernel<<<(unsigned)((M + T - 1) / T), T, 0, stream>>>(
       (const float*)m_in, (const float*)s1_in, (const float*)s2_in, part,
-      (float*)m_out, (float*)s1_out, (float*)s2_out, M, nsplit);
+      (float*)m_out, (float*)s1_out, (float*)s2_out, M, nsplit, c);
   return cudaGetLastError();
 }
 

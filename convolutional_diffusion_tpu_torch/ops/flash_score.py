@@ -61,13 +61,17 @@ weights only, at every tier and value strategy, as the JAX wrapper takes
 it. The kernels walk only the live bank tiles; the plain version sets the
 skipped cells' logits to -1e30, which leaves the state as skipping does.
 
-Split-bank grid: the per-row sweeps with the fp32 exp2 (K1 and K2 in
-'vpu', c <= MAX_CHANNELS, with K5 and K6) cut the chunk's bank axis into
-`split_plan`'s ranges, one thread block per (query block, seed, split);
-each block writes a partial state to a scratch the wrapper allocates
-(`scratch_numel`), and a second pass folds the partials into the carried
-state in split order (`merge_splits_plain` is its plain version). K2 also
-writes the bf16 hi/lo planes of its inputs once per launch into that
+Split-bank grid: every kernel runs one main loop per dot type (K1's fp32
+FFMA loop, the split dots' pipelined tensor-core loop), one thread block
+per (query block, seed, split). The sweeps with the fp32 exp2 (K1 in every
+value strategy, K2 in 'vpu' with c <= MAX_CHANNELS; with K5 and K6) cut the
+chunk's bank axis into `split_plan`'s ranges; each block writes a partial
+state to a scratch the wrapper allocates (`scratch_numel`), and a second
+pass folds the partials into the carried state in split order
+(`merge_splits_plain` is its plain version). The bf16 exponential rounds
+x = logit - m against each tile's m, so those sweeps, and K2's wide value
+sums, run one split from the carried state. The split-dot kernels also
+write the bf16 hi/lo planes of their inputs once per launch into that
 scratch (`split_planes_plain`). The plan depends on P alone, so a K5
 launch and the one-seed launches it stands for split alike.
 
@@ -93,8 +97,9 @@ LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 LN2_BF16 = 0.69140625  # ln 2 rounded to bf16: the 'default' tier's exp2 factor
 MAX_CHANNELS = 8  # value channels the kernels' 'vpu' sums hold per row
-# value channels of the kernels' matrix value sums ('mxu', and 'vpu' or
-# 'inbank' past MAX_CHANNELS): their state lives in shared memory
+# value channels the kernels' matrix value sums take ('mxu', and 'vpu' or
+# 'inbank' past MAX_CHANNELS): the range the card tests hold; their state
+# rows live in device memory, so no shared memory grows with c
 WIDE_MAX_CHANNELS = 256
 PLAIN_BLOCK = 8192  # bank rows per step of the plain version
 FAST_TILE = _build.SPLIT_TILE  # bank rows per online-softmax step of the bf16-exp kernels
@@ -118,7 +123,7 @@ PRUNE_BLOCK = _build.PRUNE_BLOCK  # bank rows per prune-mask cell
 # gives K1 64 x 16 and K2 128 x 16 blocks, several waves on 132 SMs
 SPLIT_ROWS = 4096
 MAX_SPLITS = 32  # longer chunks take longer splits, whole multiples of SPLIT_ROWS
-PLANE_K = 32  # K2's staged features: its bf16 planes' rows are d rounded up to this
+PLANE_K = 32  # the split-dot loop's staged features: its bf16 planes' rows are d rounded up to this
 
 State = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -190,13 +195,14 @@ def prune_grid(M: int, P: int) -> Tuple[int, int]:
 
 
 def splits_bank(precision: str, strategy: str, c: int, fast_exp: bool | None = None) -> bool:
-    """Whether a sweep runs on the split-bank grid: the per-row sums
-    ('vpu', c <= MAX_CHANNELS) with the fp32 exp2, after fp32 dots (K1) or
-    split dots (K2). The bf16 exponential rounds x = logit - m against the m
-    of each bank tile, so splitting P would change its numbers, and the wide
-    value sums keep the parent's loop."""
+    """Whether a sweep (at `precision` after `_route`) splits the bank axis:
+    the fp32 exp2 after fp32 dots (K1, every value strategy) or, after split
+    dots (K2), the per-row sums ('vpu', c <= MAX_CHANNELS). The bf16
+    exponential rounds x = logit - m against the m of each bank tile, so
+    splitting P would change its numbers; K2's wide value sums run one split
+    from the carried state, as the 'default' kernel does."""
     fast = precision == "default" if fast_exp is None else bool(fast_exp)
-    return not fast and strategy == "vpu" and c <= MAX_CHANNELS
+    return not fast and (precision == "highest" or (strategy == "vpu" and c <= MAX_CHANNELS))
 
 
 def split_plan(P: int, precision: str = "highest", strategy: str = "vpu", c: int = 3,
@@ -214,29 +220,38 @@ def split_plan(P: int, precision: str = "highest", strategy: str = "vpu", c: int
     return [(p0, min(P, p0 + per)) for p0 in range(0, P, per)]
 
 
+def block_rows(name: str, fast_exp: bool) -> int:
+    """Query rows per thread block of kernel `name` (`_build.SPLIT_BQ`): K1
+    takes 64 with the bf16 exponential (one split: M = 8192 still fills the
+    card), 128 otherwise; the split-dot loop 64."""
+    return _build.SPLIT_BQ[name + (BF16_EXP if name == KERNEL_OF["highest"] and fast_exp
+                                   else "")]
+
+
 def split_launch(name: str, M: int, rows_per_seed: int, P: int, precision: str,
                  strategy: str = "vpu", c: int = 3, fast_exp: bool | None = None):
     """(split_rows, nsplit, grid) of one launch of kernel `name`: the rows
     per split its C entry takes (`split_plan`'s first range), the number of
-    splits, and on the split-bank grid the thread blocks (query blocks of
-    `_build.SPLIT_BQ` rows per seed, seeds, splits); grid None off it."""
-    plan = split_plan(P, precision, strategy, c, fast_exp)
-    if not splits_bank(precision, strategy, c, fast_exp):
-        return plan[0][1] - plan[0][0], 1, None
-    bq = _build.SPLIT_BQ[name]
+    splits, and the thread blocks (query blocks of `block_rows` rows per
+    seed, seeds, splits)."""
+    fast = precision == "default" if fast_exp is None else bool(fast_exp)
+    plan = split_plan(P, precision, strategy, c, fast)
+    bq = block_rows(name, fast)
     return (plan[0][1] - plan[0][0], len(plan),
             (-(-rows_per_seed // bq), M // rows_per_seed, len(plan)))
 
 
-def scratch_numel(name: str, nsplit: int, M: int, P: int, d: int, c: int) -> int:
-    """float32 elements of the split-bank scratch of kernel `name`: the
-    partial states [nsplit, M, 2 + c] rounded up to 4, and for K2 the bf16
-    hi and lo planes of the queries and the chunk, [M + P, d_pad] each (two
-    bf16 a float32 element)."""
-    n = -(-nsplit * M * (2 + c) // 4) * 4
-    if name == KERNEL_OF["high"]:
-        n += (M + P) * (-(-d // PLANE_K) * PLANE_K)
-    return n
+def scratch_numel(name: str, nsplit: int, M: int, P: int, d: int, c: int,
+                  fast_exp: bool = False) -> int:
+    """float32 elements of the scratch of kernel `name`: the partial states
+    [nsplit, M, 2 + c] rounded up to 4 (the split-dot kernels' wide
+    tensor-core sums keep a second copy of the state rows there), and for
+    the split-dot kernels the bf16 hi and lo planes of the queries and the
+    chunk, [M + P, d_pad] each (two bf16 a float32 element). K1 with the
+    bf16 exponential writes its state in place and takes none."""
+    if name == KERNEL_OF["highest"]:
+        return 0 if fast_exp else -(-nsplit * M * (2 + c) // 4) * 4
+    return -(-nsplit * M * (2 + c) // 4) * 4 + (M + P) * (-(-d // PLANE_K) * PLANE_K)
 
 
 def merge_splits_plain(state: State, partials) -> State:
@@ -555,12 +570,10 @@ def sweep_kernel(q, bias, bank, values, dotscale: float, m, s1, s2,
         return m_out, s1_out, s2_out
     fn = _build.load(name)
     dev = q.device
-    split_rows, nsplit, grid = split_launch(name, M, rows_per_seed, P, precision, strategy,
-                                            c, fast)
-    scratch = None
-    if grid is not None:
-        scratch = torch.empty(scratch_numel(name, nsplit, M, P, d, c),
-                              dtype=torch.float32, device=dev)
+    split_rows, nsplit, _ = split_launch(name, M, rows_per_seed, P, precision, strategy, c,
+                                         fast)
+    numel = scratch_numel(name, nsplit, M, P, d, c, fast)
+    scratch = torch.empty(numel, dtype=torch.float32, device=dev) if numel else None
     err = fn(
         q.data_ptr(), bias.data_ptr(), bank.data_ptr(),
         None if values is None else values.data_ptr(),

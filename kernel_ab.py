@@ -4,32 +4,48 @@ helper of chip_smoke.py, whose data, timer and port each run imports.
     python3 kernel_ab.py ROOT [ROOT ...]    A/B of checkouts
     python3 kernel_ab.py --k2-variants      K2's recorded design variants
     python3 kernel_ab.py --splits           K1 and K2 at each split size
+    python3 kernel_ab.py --k1-wide          K1's per-row and wide sums at equal d
 
 A/B: each ROOT (a checkout's root directory) runs in its own process, in the
 order given (for example parent, change, change, parent), imports that
 checkout's chip_smoke.py and port, and builds its kernels into its own
 build directory. Each times, with chip_smoke's `cuda_ms` (CUDA events, 5
-launches after a warm-up), K1 ('highest'), K2 ('high') and the 'default'
-kernel at chip_smoke's main shapes: M = 8192 query rows (8 noised 32x32x3
-seeds, t = 0.5), one full 65536-row chunk of a synthetic CIFAR10-shaped
-bank, c = 3, k in {3, 9, 13, 17}; and K2 at the bbELS center's query count
-(the valid windows, M = 8 (33 - k)^2). Prints the card's name and power
-limit, one JSON line per ROOT, and a table of each key's times in ROOT
-order.
+launches after a warm-up), at chip_smoke's main shapes: M = 8192 query rows
+(8 noised 32x32 seeds, t = 0.5), one full chunk of a synthetic
+CIFAR10-shaped bank (65536 rows at c = 3):
+  - K1 ('highest'), K2 ('high') and the 'default' kernel, c = 3, in the
+    strategy 'auto' takes ('vpu'), k in {3, 9, 13, 17}; K2 also at the
+    bbELS center's query count (the valid windows, M = 8 (33 - k)^2);
+  - 'default' 'inbank' (the ELS module's variant at k <= 5), k in {3, 5};
+  - 'mxu' on a 16-channel bank (what 'auto' takes at c = 16) in the three
+    kernels, k in {3, 9, 17};
+  - the bf16 exponential after fp32 dots, 'mxu', c = 3, k = 9;
+  - K6's masked instantiation (a mask that skips nothing): K1 at k = 17,
+    'mxu' c = 16 in K1 and K2 at k = 3.
+Every key also records a digest of m from one call from the empty state:
+m is the row max of the logits, so equal digests across ROOTs mean the
+kernels' logits are the same bits on every row. Prints the card's name and
+power limit, one JSON line per ROOT, a table of each key's times in ROOT
+order and, per key, whether the m digests agree in every ROOT.
 
 --k2-variants: copies this checkout's port and chip_smoke.py into
 build/k2_variants/NAME/ for each entry of K2_VARIANTS, applies its edits to
-K2's main loop (`ops/csrc/flash_score_split_rows.cuh`), builds them in
-parallel, and times K2 in each (k = 3, 9, 17 and the bbELS center at
-k = 17), with the count of ptxas's wgmma serialisation notes (C7514).
+the split-dot main loop (`ops/csrc/flash_score_split_rows.cuh`), builds
+them in parallel, and times K2 in each (k = 3, 9, 17 and the bbELS center
+at k = 17), with the count of ptxas's wgmma serialisation notes (C7514).
 
 --splits: K1 and K2 of this checkout at k in {3, 5, 9, 17} with every
 chunk cut into splits of each SPLIT_SIZES rows (`flash_score.SPLIT_ROWS`),
 K2 also at the bbELS center; the best of two timings each.
+
+--k1-wide: K1 of this checkout in its two fp32-exp2 epilogues on the same
+inputs, an 8-channel bank at k in {9, 17}: 'vpu' (the per-row sums) and
+'mxu' (the wide sums); the best of two timings each.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import shutil
 import subprocess
@@ -71,7 +87,8 @@ def _problem(cs, k: int, gen, images):
 
     beta = cs.cosine_noise_schedule(0.5)
     at, bt = torch.sqrt(1.0 - beta), torch.sqrt(beta)
-    g = cs.bank_geometry(images.shape[0], 32, 32, 3, k, cs.TARGET_BLOCK)
+    c = images.shape[-1]
+    g = cs.bank_geometry(images.shape[0], 32, 32, c, k, cs.TARGET_BLOCK)
     p, ctr, pn = cs.chunk_patches(images[: g.cs], k)
     w = torch.full((p.shape[0],), 1.0 / p.shape[0], device="cuda")
     x = at.item() * images[:8] + bt.item() * torch.randn(
@@ -81,39 +98,87 @@ def _problem(cs, k: int, gen, images):
     return xq, xc, (p, pn, ctr, w, at, bt)
 
 
-def _setup(root: str):
+def _setup(root: str, channels=(3,)):
     sys.path.insert(0, root)
     import chip_smoke as cs
     import torch
 
-    ds = cs.synthetic_dataset(num_samples=1200, image_size=32, num_channels=3, seed=0)
-    images = torch.from_numpy(ds.images).cuda()
+    images = {c: torch.from_numpy(cs.synthetic_dataset(
+        num_samples=1200, image_size=32, num_channels=c, seed=0).images).cuda()
+        for c in channels}
     return cs, images, torch.Generator(device="cuda").manual_seed(0)
 
 
-def _ms(cs, q, rest, precision: str, best_of: int = 1) -> float:
-    args = (q, (q * q).sum(-1), *rest)
-    return min(cs.cuda_ms(lambda: cs.fs.flash_score_update(
-        *args, cs.empty_state(q.shape[0], 3), precision=precision), 5)
-        for _ in range(best_of))
+def _call(cs, q, rest, precision: str, **kw):
+    """One sweep from the empty state, as the ELS module calls it."""
+    p, pn, ctr, w, at, bt = rest
+    if kw.get("v_strategy") == "inbank":
+        ctr = None
+    return lambda: cs.fs.flash_score_update(q, (q * q).sum(-1), p, pn, ctr, w, at, bt,
+                                            cs.empty_state(q.shape[0], rest[2].shape[1]),
+                                            precision=precision, **kw)
+
+
+def _ms(cs, q, rest, precision: str, best_of: int = 1, **kw) -> float:
+    fn = _call(cs, q, rest, precision, **kw)
+    return min(cs.cuda_ms(fn, 5) for _ in range(best_of))
+
+
+def _digest(cs, q, rest, precision: str, **kw) -> str:
+    """A digest of m after one call from the empty state (the logits' row
+    max) on every row."""
+    m = _call(cs, q, rest, precision, **kw)()[0]
+    return hashlib.sha256(m.cpu().numpy().tobytes()).hexdigest()[:16]
 
 
 def one(root: str) -> dict:
-    cs, images, gen = _setup(root)
-    out = {}
-    for k in KS:
-        xq, xc, rest = _problem(cs, k, gen, images)
+    cs, images, gen = _setup(root, channels=(3, 16))
+    out, bits = {}, {}
+
+    def row(key, q, rest, precision, **kw):
+        out[key] = _ms(cs, q, rest, precision, **kw)
+        bits[key] = _digest(cs, q, rest, precision, **kw)
+
+    for k in sorted(set(KS) | {5}):
+        xq, xc, rest = _problem(cs, k, gen, images[3])
+        if k in KS:
+            for prec in ("highest", "high", "default"):
+                row(f"{prec} k={k}", xq, rest, prec)
+            row(f"bbELS center high k={k}", xc, rest, "high")
+        if k in (3, 5):
+            row(f"default inbank k={k}", xq, rest, "default", v_strategy="inbank",
+                inbank_cols=(cs.center_index(k, 3).start, 3))
+        if k == 9:
+            row(f"highest bf16-exp mxu k={k}", xq, rest, "highest", fast_exp=True,
+                v_strategy="mxu")
+        if k == 17:  # K6: a mask that skips nothing (the masked instantiation)
+            row(f"highest k={k} masked", xq, rest, "highest",
+                prune_mask=_no_skip(cs, xq, rest))
+    for k in (3, 9, 17):
+        xq, _, rest = _problem(cs, k, gen, images[16])
         for prec in ("highest", "high", "default"):
-            out[f"{prec} k={k}"] = _ms(cs, xq, rest, prec)
-        out[f"bbELS center high k={k}"] = _ms(cs, xc, rest, "high")
-    return out
+            row(f"{prec} mxu c=16 k={k}", xq, rest, prec)
+        if k == 3:
+            for prec in ("highest", "high"):
+                row(f"{prec} mxu c=16 k={k} masked", xq, rest, prec,
+                    prune_mask=_no_skip(cs, xq, rest))
+    return {"ms": out, "m digest": bits}
+
+
+def _no_skip(cs, q, rest):
+    """An all-zero prune mask of the sweep: every tile walked, through the
+    masked (K6) instantiation."""
+    import torch
+
+    return torch.zeros(cs.fs.prune_grid(q.shape[0], rest[0].shape[0]), dtype=torch.int32,
+                       device="cuda")
 
 
 def one_k2(root: str) -> dict:
     cs, images, gen = _setup(root)
     out = {}
     for k in (3, 9, 17):
-        xq, xc, rest = _problem(cs, k, gen, images)
+        xq, xc, rest = _problem(cs, k, gen, images[3])
         out[f"K2 k={k}"] = _ms(cs, xq, rest, "high", best_of=2)
         if k == 17:
             out[f"K2 bbELS center k={k}"] = _ms(cs, xc, rest, "high", best_of=2)
@@ -123,7 +188,7 @@ def one_k2(root: str) -> dict:
 def splits() -> None:
     cs, images, gen = _setup(str(HERE))
     for k in (3, 5, 9, 17):
-        xq, xc, rest = _problem(cs, k, gen, images)
+        xq, xc, rest = _problem(cs, k, gen, images[3])
         for rows in SPLIT_SIZES:
             cs.fs.SPLIT_ROWS = rows
             n = len(cs.fs.split_plan(rest[0].shape[0], "high"))
@@ -131,6 +196,15 @@ def splits() -> None:
                   f"{_ms(cs, xq, rest, 'highest', 2):.3f} ms, K2 "
                   f"{_ms(cs, xq, rest, 'high', 2):.3f} ms, K2 at the bbELS center's "
                   f"M={xc.shape[0]} {_ms(cs, xc, rest, 'high', 2):.3f} ms", flush=True)
+
+
+def k1_wide() -> None:
+    cs, images, gen = _setup(str(HERE), channels=(8,))
+    for k in (9, 17):
+        xq, _, rest = _problem(cs, k, gen, images[8])
+        ms = {s_: _ms(cs, xq, rest, "highest", 2, v_strategy=s_) for s_ in ("vpu", "mxu")}
+        print(f"[k1-wide] k={k} d={xq.shape[1]} M={xq.shape[0]} P={rest[0].shape[0]} c=8: "
+              f"'vpu' {ms['vpu']:.3f} ms, 'mxu' {ms['mxu']:.3f} ms", flush=True)
 
 
 def _run(mode: str, root: str) -> dict | None:
@@ -147,6 +221,15 @@ def _table(tag: str, names, runs) -> None:
         print(f"[{tag}] {name}: {json.dumps(r)}", flush=True)
     for key in runs[0]:
         print(f"[{tag}] {key}: " + " / ".join(f"{r[key]:.3f}" for r in runs) + " ms", flush=True)
+
+
+def _bits(names, digests) -> None:
+    for key in digests[0]:
+        same = len({d[key] for d in digests}) == 1
+        print(f"[ab-bits] {key}: m digests of one call from the empty state "
+              + ("equal in every ROOT" if same else
+                 "DIFFER: " + ", ".join(f"{n} {d[key]}" for n, d in zip(names, digests))),
+              flush=True)
 
 
 def k2_variants() -> int:
@@ -200,10 +283,14 @@ def main(argv) -> int:
     if argv == ["--splits"]:
         splits()
         return 0
+    if argv == ["--k1-wide"]:
+        k1_wide()
+        return 0
     runs = [_run("--one", root) for root in argv]
     if not argv or any(r is None for r in runs):
         return 1
-    _table("ab", argv, runs)
+    _table("ab", argv, [r["ms"] for r in runs])
+    _bits(argv, [r["m digest"] for r in runs])
     return 0
 
 

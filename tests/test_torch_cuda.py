@@ -369,19 +369,24 @@ def _variant_kw(precision, fast, strategy, values, d, c):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c", [3, 9, 16, 48])
+@pytest.mark.parametrize("c", [3, 9, 16, 48, 256])
 @pytest.mark.parametrize("precision,fast,strategy", VARIANTS,
                          ids=lambda v: str(v).lower())
 def test_variant_kernel_matches_plain(precision, fast, strategy, c):
     """Each (tier, exponential, value strategy) launches its kernel under
     its key, and only that, and matches the plain version, at c = 3 (the
-    per-row sums where they apply), 9, 16 and 48 (the wide sums, s2 in
-    shared memory; 48 takes two passes of the tensor-core value sums)."""
+    per-row sums where they apply), 9, 16, 48 and 256 (the wide sums, s2 in
+    the state's rows in device memory; 48 takes two passes of the
+    tensor-core value sums, 256 the most channels the kernels take)."""
     dev = _need_cuda()
     M, d, P = 1000, 9 * c, 2048 + 700
     q, qn, bank, pn, values, w = _case(M, d, P, c, seed=c + len(strategy), dev=dev)
     kw, values, key = _variant_kw(precision, fast, strategy, values, d, c)
     args = (q, qn, bank, pn, values, w, 0.8, 0.6, _empty(M, c, dev))
+    if strategy == "mxu1" and c % 128 == 0:  # the JAX wrapper's rule: no lane for s1
+        with pytest.raises(ValueError, match="no spare lane"):
+            tfs.flash_score_update(*args, **kw)
+        return
     before = dict(tfs.flash_score_update.launches)
     got = tfs.flash_score_update(*args, **kw)
     torch.cuda.synchronize()
@@ -440,7 +445,9 @@ def test_variant_per_seed_chained_and_excluded(precision, fast, strategy):
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision,fast,strategy", [
     ("highest", False, "mxu"), ("high", False, "mxu"), ("highest", False, "inbank"),
-    ("high", False, "inbank"), ("highest", True, "mxu"), ("default", True, "mxu")],
+    ("high", False, "inbank"), ("highest", True, "mxu"), ("default", True, "mxu"),
+    ("default", True, "vpu"), ("default", True, "inbank"), ("default", True, "mxu1"),
+    ("high", False, "vpu"), ("highest", True, "vpu"), ("highest", False, "vpu")],
     ids=lambda v: str(v).lower())
 def test_variant_prune_kernel_matches_plain(precision, fast, strategy):
     """K6 with the new variants at c = 16: a forced mask against the plain
@@ -529,8 +536,9 @@ def test_split_bank_per_seed_equals_one_seed_launches(precision):
 def test_split_bank_logits_are_the_parents():
     """One launch from the empty state returns m = the row max of the
     logits: K1's equals the row max of its fp32 order
-    (`fp32_logits_in_order`), K2's the 'default' kernel's, whose split dot
-    is the parent loop's."""
+    (`fp32_logits_in_order`), K2's the 'default' kernel's (both run the one
+    split-dot loop, whose dot is the per-block loop's before it, step for
+    step)."""
     dev = _need_cuda()
     M, d, P, c = 128, 243, SPLIT_P, 3
     q, _, bank, _, values, _ = _case(M, d, P, c, seed=13, dev=dev)
@@ -543,3 +551,109 @@ def test_split_bank_logits_are_the_parents():
     m2 = tfs.sweep_kernel(q, bias, bank, values, ds, *empty, precision="high")[0]
     m3 = tfs.sweep_kernel(q, bias, bank, values, ds, *empty, precision="default")[0]
     assert torch.equal(m2, m3)
+
+
+def _kernel_args(M, d, P, c, seed, dev, strategy):
+    """Kernel-convention inputs of `tfs.sweep_kernel` (a random bias row with
+    excluded patches, dotscale a float32 value) and the keywords of a value
+    strategy ('inbank' reads the middle columns of d)."""
+    q, _, bank, _, values, _ = _case(M, d, P, c, seed=seed, dev=dev)
+    bias = torch.randn(P, generator=torch.Generator().manual_seed(seed)).to(dev) * 2
+    bias[::11] = tfs.NEG_INF
+    kw = dict(strategy=strategy)
+    if strategy == "inbank":
+        kw["col0"], values = (d - c) // 2, None
+    return (q, bias, bank, values, 0.0537109375), kw
+
+
+def _carried(M, c, dev, seed):
+    """A carried state with sentinel rows, in the kernels' convention."""
+    g = torch.Generator().manual_seed(seed)
+    m = torch.randn(M, generator=g) * 3 + 10
+    s1 = torch.rand(M, generator=g) + 0.5
+    s2 = torch.randn(M, c, generator=g)
+    m[::5], s1[::5], s2[::5] = tfs.NEG_INF, 0.0, 0.0
+    return tuple(x.to(dev) for x in (m, s1, s2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [3, 16, 256])
+@pytest.mark.parametrize("strategy", ["vpu", "mxu", "inbank"])
+def test_merge_pass_matches_merge_splits_plain(strategy, c):
+    """K1 with the fp32 exp2 over a chunk of three splits (the per-row sums
+    at c = 3, the wide sums otherwise): one launch against the launches of
+    each split's rows from the empty state, merged by `merge_splits_plain`
+    into a carried state with sentinel rows, within 1e-6 on m + log s1 and
+    s2 / s1 (the merge pass fuses each product and sum, the plain merge
+    rounds them apart); a row that no split reaches keeps its state bit for
+    bit."""
+    dev = _need_cuda()
+    M, c_ = 256, c
+    d = 9 * c if strategy != "vpu" or c > 8 else 75
+    args, kw = _kernel_args(M, d, SPLIT_P, c_, 14 + c, dev, strategy)
+    q, bias, bank, values, ds = args
+    state = _carried(M, c_, dev, seed=c)
+    plan = tfs.split_plan(SPLIT_P, "highest", strategy, c_)
+    assert len(plan) == 3
+    got = tfs.sweep_kernel(*args, *state, precision="highest", **kw)
+    parts = [tfs.sweep_kernel(q, bias[p0:p1].contiguous(), bank[p0:p1].contiguous(),
+                              None if values is None else values[p0:p1].contiguous(), ds,
+                              *_empty(M, c_, dev), precision="highest", **kw)
+             for p0, p1 in plan]
+    want = tfs.merge_splits_plain(state, parts)
+    live = want[1] > 0
+    for a, b in zip(got, want):
+        assert torch.equal(a[~live], b[~live])
+    lse = [x[0][live] + torch.log(x[1][live]) for x in (got, want)]
+    assert _rel(*lse) <= 1e-6
+    assert _rel(got[2][live] / got[1][live, None], want[2][live] / want[1][live, None]) <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision,fast,strategy", VARIANTS, ids=lambda v: str(v).lower())
+def test_variant_per_seed_equals_one_seed_launches(precision, fast, strategy):
+    """K5 on the two main loops at c = 16: per-seed weights at
+    rows_per_seed 784 (a partial last block per seed) over a chunk of three
+    splits, against one-seed 1-D launches on each seed's rows, bit for bit:
+    a block never mixes seeds and does the one-seed launch's arithmetic."""
+    dev = _need_cuda()
+    S, rps, c = 3, 784, 16
+    d, M = 9 * c, S * rps
+    q, qn, bank, pn, values, _ = _case(M, d, SPLIT_P, c, seed=15, dev=dev)
+    kw, values, _ = _variant_kw(precision, fast, strategy, values, d, c)
+    w = torch.rand(S, SPLIT_P, generator=torch.Generator().manual_seed(15)).to(dev)
+    w[w < 0.3] = 0.0
+    got = tfs.flash_score_update(q, qn, bank, pn, values, w, 0.7, 0.5, _empty(M, c, dev),
+                                 rows_per_seed=rps, **kw)
+    for s in range(S):
+        r = slice(s * rps, (s + 1) * rps)
+        one = tfs.flash_score_update(q[r], qn[r], bank, pn, values, w[s].contiguous(), 0.7,
+                                     0.5, _empty(rps, c, dev), **kw)
+        assert all(torch.equal(a, b[r]) for a, b in zip(one, got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [3, 16])
+def test_moved_variants_logits_are_the_parents(c):
+    """One launch from the empty state returns m = the row max of its
+    logits. On K1's loop, every strategy with either exponential equals the
+    row max of `fp32_logits_in_order` (K1's fp32 order); on the split-dot
+    loop, every strategy of K2 and of the 'default' kernel equals K2's
+    per-row launch, so the logits are the same bits in every mode."""
+    dev = _need_cuda()
+    M, P = 256, SPLIT_P
+    d = 9 * c
+    args, _ = _kernel_args(M, d, P, c, 16, dev, "vpu")
+    q, bias, bank, values, ds = args
+    empty = _empty(M, c, dev)
+    ref = tfs.fp32_logits_in_order(q, bank, ds, bias).amax(1)
+    k2 = tfs.sweep_kernel(q, bias, bank, values[:, :3].contiguous(), ds, *_empty(M, 3, dev),
+                          precision="high")[0]
+    for precision, fast, strategy in VARIANTS:
+        prec = tfs._route(precision, fast)
+        kw = dict(strategy=strategy, fast_exp=fast)
+        vals = values
+        if strategy == "inbank":
+            kw["col0"], vals = (d - c) // 2, None
+        m = tfs.sweep_kernel(q, bias, bank, vals, ds, *empty, precision=prec, **kw)[0]
+        assert torch.equal(m, ref if prec == "highest" else k2), (precision, fast, strategy)

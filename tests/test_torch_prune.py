@@ -10,6 +10,8 @@ rule, and within 1e-6 of the unmasked sweep (a sound mask skips only
 weights that are exactly 0 in fp32); modules and machines at 1e-3 relative
 to scale (clustering changes the summation order)."""
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -154,10 +156,11 @@ def test_geometry_constants_are_the_kernels():
     assert tp.PRUNE_BLOCK == jp.PRUNE_BLOCK  # the JAX package's stats block
     assert f"-DPRUNE_ROWS={tp.PRUNE_ROWS}" in _build.NVCC_FLAGS
     assert f"-DPRUNE_BLOCK={tp.PRUNE_BLOCK}" in _build.NVCC_FLAGS
-    header = (_build.CSRC / "prune_tiles.cuh").read_text()
+    header = (_build.CSRC / "split_bank.cuh").read_text()  # the K6 tile walk
     assert "PRUNE_ROWS % BQ == 0" in header and "PRUNE_BLOCK % BP == 0" in header
-    for src in ("flash_score.cu", "flash_score_split.cuh"):
-        assert '#include "prune_tiles.cuh"' in (_build.CSRC / src).read_text()
+    assert not re.search(r"\bPRUNE_(ROWS|BLOCK)\s*=\s*\d", header)
+    for src in ("flash_score.cu", "flash_score_split_rows.cuh"):
+        assert '#include "split_bank.cuh"' in (_build.CSRC / src).read_text()
     assert tfs.prune_grid(8192, 64800) == (128, 32)
     assert tfs.prune_grid(100, 2048) == (2, 1)
 

@@ -46,9 +46,14 @@ def test_split_plan_boundaries(P):
     ("default", "vpu", 3, False, True),  # routes to K2
     ("default", "vpu", 3, None, False),  # the bf16 exponential
     ("highest", "vpu", 3, True, False),
-    ("high", "mxu", 16, None, False),  # the wide sums keep the parent's loop
-    ("highest", "inbank", 3, None, False),
+    ("high", "mxu", 16, None, False),  # K2's wide sums: one split, carried state
+    ("highest", "inbank", 3, None, True),  # K1 splits in every strategy
     ("high", "vpu", 9, None, False),
+    ("highest", "mxu", 16, None, True),
+    ("highest", "vpu", 9, None, True),
+    ("highest", "mxu", 256, None, True),
+    ("high", "inbank", 3, None, False),
+    ("default", "mxu", 16, None, False),
 ])
 def test_split_plan_variants(precision, strategy, c, fast, split):
     plan = fs.split_plan(65536, precision, strategy, c, fast)
@@ -73,11 +78,39 @@ def test_split_launch_grid(name, precision, M, rps, grid):
 
 @pytest.mark.parametrize("precision,strategy,c,fast", [
     ("default", "vpu", 3, None), ("high", "mxu", 16, None), ("highest", "vpu", 3, True),
+    ("default", "inbank", 3, None), ("default", "mxu", 16, None), ("high", "inbank", 3, None),
+    ("highest", "mxu", 256, True),
 ])
 def test_split_launch_off_the_grid(precision, strategy, c, fast):
-    """Off the split-bank grid a launch takes the whole chunk, no scratch."""
+    """Off the split-bank grid (no split of the bank axis) a launch takes the
+    whole chunk in one split from the carried state, on the same main loops:
+    64-row query blocks (the split-dot loop's; K1's with the bf16
+    exponential), one block per query block and seed."""
     assert fs.split_launch(fs.KERNEL_OF[precision], 8192, 8192, 65536, precision, strategy,
-                           c, fast) == (65536, 1, None)
+                           c, fast) == (65536, 1, (128, 1, 1))
+    assert fs.split_launch(fs.KERNEL_OF[precision], 8 * 784, 784, 65536, precision, strategy,
+                           c, fast) == (65536, 1, (13, 8, 1))
+
+
+@pytest.mark.parametrize("precision,strategy,c,grid", [
+    ("highest", "mxu", 16, (64, 1, 16)), ("highest", "inbank", 3, (64, 1, 16)),
+    ("highest", "vpu", 9, (64, 1, 16)), ("highest", "mxu", 256, (64, 1, 16)),
+])
+def test_split_launch_wide_grid(precision, strategy, c, grid):
+    """K1's wide value sums after the fp32 exp2 take the per-row sums'
+    split-bank grid: 128-row blocks, the same splits."""
+    assert fs.split_launch("flash_score", 8192, 8192, 65536, precision, strategy, c) == (
+        fs.SPLIT_ROWS, 16, grid)
+
+
+def test_block_rows_are_the_kernels():
+    """The grid's block rows: K1 128 (64 with the bf16 exponential), the
+    split-dot loop 64 for K2 and the 'default' kernel alike (one loop, one
+    -D flag)."""
+    assert fs.block_rows("flash_score", False) == 128
+    assert fs.block_rows("flash_score", True) == 64
+    assert fs.block_rows("flash_score_bf16x3", False) == fs.block_rows(
+        "flash_score_fast", True) == 64
 
 
 def test_split_plan_ignores_queries_seeds_and_masks():
@@ -236,6 +269,48 @@ def test_scratch_numel():
     assert fs.scratch_numel("flash_score", 16, 8192, 65536, 867, 3) == 16 * 8192 * 5
     n = fs.scratch_numel("flash_score_bf16x3", 3, 7, 100, 27, 3)
     assert n == -(-3 * 7 * 5 // 4) * 4 + (7 + 100) * 32
+
+
+@pytest.mark.parametrize("c", [16, 256])
+def test_scratch_numel_wide_and_default(c):
+    """K1's wide partials [nsplit, M, 2 + c]; K1 with the bf16 exponential
+    none (its state is written in place); the 'default' kernel and K2's
+    wide sums one split's state rows, then the planes of queries and chunk."""
+    assert fs.scratch_numel("flash_score", 16, 8192, 65536, 4624, c) == 16 * 8192 * (2 + c)
+    assert fs.scratch_numel("flash_score", 1, 8192, 65536, 4624, c, fast_exp=True) == 0
+    planes = (8192 + 65536) * 4640
+    for name in ("flash_score_fast", "flash_score_bf16x3"):
+        assert fs.scratch_numel(name, 1, 8192, 65536, 4624, c) == 8192 * (2 + c) + planes
+    assert fs.scratch_numel("flash_score_fast", 1, 7, 100, 27, 3) == 36 + (7 + 100) * 32
+
+
+@pytest.mark.parametrize("precision,strategy", [
+    ("highest", "mxu"), ("highest", "inbank"), ("high", "mxu"), ("high", "inbank")])
+def test_plain_split_and_merge_equals_unsplit_wide(precision, strategy):
+    """The merge pass over wide partials (c = 16): plain sweeps of the
+    chunk's SPLIT_ROWS ranges from the empty state, merged in order into a
+    carried state with sentinel rows, against one unsplit plain sweep,
+    within 1e-6 on m + log2 s1 and s2 / s1 (fp32 sums in another order);
+    'inbank' at 'high' within 2e-5 on s2 / s1: its split value product
+    eh.vh + eh.vl + el.vh drops el.vl, ~2^-16 of each term, and e's bf16
+    parts are taken against each split's own m."""
+    M, c, P = 64 * 2, 16, 2 * fs.SPLIT_ROWS + 300
+    d = 9 * c
+    q, bias, bank, values, ds = _kernel_inputs(M, d, P, c, seed=6)
+    state = _state(M, c, seed=6)
+    col0 = (d - c) // 2 if strategy == "inbank" else -1
+    vals = None if strategy == "inbank" else values
+    kw = dict(precision=precision, strategy=strategy, col0=col0)
+    parts = [fs.sweep_plain(q, bias[p0:p1], bank[p0:p1],
+                            None if vals is None else vals[p0:p1], ds,
+                            torch.full((M,), NEG), torch.zeros(M), torch.zeros(M, c), **kw)
+             for p0 in range(0, P, fs.SPLIT_ROWS) for p1 in [min(P, p0 + fs.SPLIT_ROWS)]]
+    assert len(parts) == 3
+    split = fs.merge_splits_plain(state, parts)
+    whole = fs.sweep_plain(q, bias, bank, vals, ds, *state, **kw)
+    tol = (1e-6, 2e-5 if (precision, strategy) == ("high", "inbank") else 1e-6)
+    for a, b, t in zip(_invariants(split), _invariants(whole), tol):
+        assert _rel(a, b) <= t
 
 
 @pytest.mark.parametrize("S", [1, 4])
