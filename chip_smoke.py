@@ -175,6 +175,48 @@ Phases, each printing its own lines; any failure exits non-zero:
               are held at 2.5e-2, not 2.5e-3: on the CPU alone a last-bit
               change of their split dots moves them by ~1.1e-2 (printed
               beside each, with the tier gap to 'high').
+10. neural  — the neural serving half (cuDNN and cuBLAS: the JAX models have
+              no Pallas kernel). Gates: the flagship conditional ResNet of
+              the JAX bench (emb_dim 256, 8 layers, 'zeros', 10 classes) at
+              'highest' on the card and on the CPU from the same seeded
+              weights and NHWC seeds, a 20-step DDIM trajectory (every
+              state) and one ddpm_step with injected noise, each within 1e-3
+              relative to scale; the epsilon of one forward and the
+              ddpm_step also within 1e-5 (true fp32 against true fp32), and
+              the TF32 model's epsilon (precision=None) must fall outside
+              1e-5, so TF32 in cuDNN or cuBLAS shows; the reference pickles
+              tests/goldens/pickles/backbone_{resnet_cond,unet}.pt loaded on
+              the card against tests/goldens/pickle_forward.npz (atol 5e-5,
+              rtol 2e-4); every output finite. Then the bench's cells, each
+              a 1000-step DDPM `sampling.sample` call after a 3-step
+              warm-up: the flagship at batch 64 at 'highest' and with TF32
+              allowed (precision=None, the JAX bench's headline), three
+              calls each, interleaved (each call's line, then the median
+              and the spread), and the 64x64 conditional UNet (fsizes
+              64..512, 2 classes) at batch 32, one call: wall, images/s,
+              ms per step, TFLOP/s from the bench's count (the flagship),
+              peak memory; then a profiled 20-step window: the kernels'
+              device time over the window's span on the device clock (CUDA
+              events inside the window), both from that one run (the
+              device-busy share; the window's step, which carries the
+              profiler's host cost, prints beside the unprofiled step), the
+              kernel launches per step and the host synchronisations.
+11. calibrate — scale calibration against the CNN: a small case (N = 256,
+              2 seeds, 3 steps, k = 3, 5) on the card and on the CPU must
+              give the same k_optimals; then the README recipe that the JAX
+              bench times: eight ELS modules k = 3..17 at 'highest' on one
+              bank ledger over N = 5000 synthetic 32x32x3 images, 10 seeds,
+              20 steps, the flagship unconditional at 'highest': wall (bank
+              builds included), K1 launches (one per bank chunk per k per
+              step, nothing else), peak memory, banked k's, median and mode;
+              then at the recipe's shapes (M = 10 x 1024 query rows, the
+              N = 5000 banked chunks) one call of the k = 3 and k = 17
+              modules at t = 0.05 and 0.5: every K1 launch of the call
+              against the plain version from the same input state on every
+              eighth 64-row query block, m + log s1 and s2/s1 at 1e-3.
+12. cli_sample — cli.sample --conditional on the card with the conditional
+              reference pickle: the PNG grid (decoded with zlib: 2 x 8
+              tiles of 16x16 RGB) and --save_arrays under build/chip_smoke/.
 
 The kernels line lists every variant checked; the variants no module path
 reaches ('inbank' at 'highest'/'high', the bf16 exponential after fp32
@@ -183,7 +225,7 @@ through keywords or an environment override, carry their path launches
 (0) and are exempt from the rule that each listed variant ran on the
 paths.
 
-Artifacts of phases 7 and 8 go to build/chip_smoke/ (git-ignored). The
+Artifacts of phases 7, 8 and 12 go to build/chip_smoke/ (git-ignored). The
 card's name and power limit print as the first line, the kernels JSON
 record as the second-to-last, and {"ok": true, "device": {...}} as the
 last. Without a CUDA device it exits non-zero and prints no result.
@@ -206,9 +248,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from convolutional_diffusion_tpu_torch import sampling as tsampling
+from convolutional_diffusion_tpu_torch.calibration import calibrate
 from convolutional_diffusion_tpu_torch.cli import els as cli_els
+from convolutional_diffusion_tpu_torch.cli import sample as cli_sample
+from convolutional_diffusion_tpu_torch.cli.common import load_model
 from convolutional_diffusion_tpu_torch.cli.common import build_score_module
 from convolutional_diffusion_tpu_torch.data import synthetic_dataset
+from convolutional_diffusion_tpu_torch.models import DiffusionModel, MinimalResNet, MinimalUNet
 from convolutional_diffusion_tpu_torch.ops import _build
 from convolutional_diffusion_tpu_torch.ops import flash_score as fs
 from convolutional_diffusion_tpu_torch.ops import prune as pr
@@ -228,6 +275,7 @@ from convolutional_diffusion_tpu_torch.scores import (
 )
 from convolutional_diffusion_tpu_torch.scores import els as tels
 from convolutional_diffusion_tpu_torch.scores.bank import (
+    BankLedger,
     bank_cache_nbytes,
     bank_geometry,
     build_clustered_bank,
@@ -250,6 +298,10 @@ TARGET_BLOCK = 65536
 MODULE_BATCH = 256  # the JAX bench's ELS module batch size
 CHECKED_K = (3, 9, 17)  # kernels held against the plain version at these k
 TOL = 1e-3
+# card vs CPU on the neural path at 'highest', beside TOL: true fp32 against
+# true fp32 reads ~1e-6 on an H100 (a forward, a DDPM step), TF32 ~6e-4; the
+# TF32 model must fall outside it, so TF32 reaching a convolution shows
+FP32_TOL = 1e-5
 DEFAULT_TOL = 4e-3  # the 'default' tier's own (tests/test_flash_score.py:407)
 # card vs CPU on the small 'default' machines: above the readings (up to
 # 1.81e-3 on an H100), below the upper range of one sweep's gap between the
@@ -304,6 +356,32 @@ STRESS_AT_BT = (0.99, 0.08)  # the stress problem's low-noise step
 # a clustered build may hold one bank plus this much (k-means sample and
 # distance blocks, the sort's ids): a second copy of the bank would not fit
 BUILD_TRANSIENT = 4e9
+
+# the neural half (phases neural, calibrate, cli_sample): the JAX bench's
+# flagship conditional MinimalResNet (bench.py:111-114) and its 64x64 UNet
+# (bench.py:142-146), each a 1000-step DDPM sampler call
+FLAGSHIP = dict(channels=3, emb_dim=256, num_layers=8, mode="zeros", conditional=True,
+                num_classes=10, kernel_size=3, lastksize=3)
+# the bench's analytic count per image per step (bench.py:63-68): 8 residual
+# convs 256 -> 256 3x3 on 32x32, the up- and down-projections, the
+# embedding MLPs (~9.7 GFLOP)
+FLAGSHIP_FLOPS_PER_IMG_STEP = (8 * 2 * 256 * 256 * 9 * 32 * 32 + 2 * 3 * 256 * 9 * 32 * 32
+                               + 2 * 256 * 3 * 9 * 32 * 32 + 9 * 2 * 256 * 256)
+UNET64 = dict(channels=3, fsizes=(64, 128, 256, 512), mode="zeros", conditional=True,
+              num_classes=2, lastksize=3)
+DDPM_STEPS = 1000
+BUSY_STEPS = 20  # DDPM steps of the profiled window (device-busy share)
+NEURAL_RUNS = 3  # timed DDPM calls of each flagship cell, interleaved
+# the README calibration recipe the JAX bench times (bench.py:302-345):
+# eight ELS modules at 'highest' on one bank ledger, module batch 16, N =
+# 5000 synthetic 32x32x3 images, 10 seeds, 20 steps, the flagship
+# unconditional
+CALIB_KS = (3, 5, 7, 9, 11, 13, 15, 17)
+CALIB_N = 5000
+CALIB_SEEDS = 10
+CALIB_BATCH = 16
+GOLDENS = Path(__file__).resolve().parent / "tests" / "goldens"
+PICKLE_ATOL, PICKLE_RTOL = 5e-5, 2e-4  # tests/test_convert_pickle.py:39
 
 
 def source(name: str) -> str:
@@ -2154,6 +2232,351 @@ def phase_devices_wide(seed):
     return {k_: n for k_, n in launches.items() if n}
 
 
+def flagship(device, precision="highest", conditional=True, seed=0):
+    cfg = dict(FLAGSHIP, precision=precision)
+    if not conditional:
+        cfg.update(conditional=False, num_classes=None)
+    return DiffusionModel(MinimalResNet(**cfg), in_channels=3, default_imsize=32,
+                          seed=seed, device=device)
+
+
+def device_busy(tag, model, x, label, gen, step_ms, steps=BUSY_STEPS):
+    """A `steps`-step DDPM window under torch.profiler, with CUDA events
+    recorded inside it: the kernels' and copies' device time (one stream, so
+    they do not overlap) over the window's span on the device clock, both of
+    this one run (the device-busy share); the host's cudaLaunchKernel calls
+    per step and its *Synchronize calls in the window (the closing one
+    included). The window's step carries the profiler's host cost; the
+    unprofiled calls' step `step_ms` prints beside it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        tsampling.sample_scan(model, model.noise_schedule, x, nsteps=steps, label=label,
+                              generator=gen, ddpm=True)
+        end.record()
+        torch.cuda.synchronize()
+    span_ms = start.elapsed_time(end)
+    events = prof.key_averages()
+    dev_ms = sum(getattr(e, "self_device_time_total", 0) for e in events
+                 if e.device_type == DeviceType.CUDA) / 1e3
+    launches = sum(e.count for e in events if "LaunchKernel" in e.key) / steps
+    syncs = sum(e.count for e in events if "Synchronize" in e.key)
+    busy = ("not measured (the profiler saw no device time)" if not dev_ms else
+            f"{dev_ms / steps:.3f} ms of device time per step over a {span_ms / steps:.3f} "
+            f"ms step on the device clock (one profiled {steps}-step window, CUDA events "
+            f"inside it): busy {100 * dev_ms / span_ms:.1f}%; the unprofiled calls' step "
+            f"{step_ms:.3f} ms")
+    print(f"[neural] {tag}: {busy}; {launches:.1f} kernel launches per step; {syncs} "
+          f"host synchronisations in the window (its closing one included)", flush=True)
+
+
+def ddpm_inputs(batch, imsize, nlabels, seed):
+    """(x, label, generator) of a DDPM cell, drawn on the card from `seed`."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((batch, imsize, imsize, 3), generator=gen, device="cuda")
+    label = torch.randint(0, nlabels, (batch,), generator=gen, device="cuda")
+    return x, label, gen
+
+
+def ddpm_warm(model, x, label, gen):
+    tsampling.sample(model, x=x, nsteps=3, label=label, generator=gen, ddpm=True,
+                     device="cuda")
+    torch.cuda.synchronize()
+
+
+def ddpm_call(tag, model, x, label, gen, flops_per_img_step=None):
+    """One timed 1000-step DDPM sampler call (`sampling.sample`, ddpm=True):
+    wall on the host clock ending in a synchronise, CUDA events around the
+    same call, images/s, ms per step, TFLOP/s from the bench's count, peak
+    memory. Returns the wall in seconds."""
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = tsampling.sample(model, x=x, nsteps=DDPM_STEPS, label=label, generator=gen,
+                           ddpm=True, device="cuda")
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if out.shape != x.shape or not torch.isfinite(out).all():
+        fail(f"{tag}: the DDPM output is not a finite {list(x.shape)} tensor")
+    batch = x.shape[0]
+    rate = ("" if flops_per_img_step is None else
+            f", {flops_per_img_step * batch * DDPM_STEPS / wall / 1e12:.2f} TFLOP/s "
+            f"(the bench's count, {flops_per_img_step / 1e9:.2f} GFLOP per image-step)")
+    print(f"[neural] {tag}: {DDPM_STEPS}-step DDPM, batch {batch}, {x.shape[1]}x{x.shape[2]}"
+          f"x3: wall {wall:.3f} s, {batch / wall:.3f} images/s, {wall / DDPM_STEPS * 1e3:.3f} "
+          f"ms per step{rate}; CUDA events {start.elapsed_time(end) / 1e3:.3f} s; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    return wall
+
+
+def within(got, want, atol, rtol) -> bool:
+    return bool(((got.double() - want.double()).abs()
+                 <= atol + rtol * want.double().abs()).all())
+
+
+def phase_neural(seed):
+    """The neural serving path on the card: gates first (card vs CPU at
+    'highest', the reference pickles against their recorded forwards), then
+    the flagship's 1000-step DDPM at 'highest' and with TF32 allowed
+    (precision=None, the JAX bench's headline), and the 64x64 UNet's."""
+    # gate 1: card vs CPU, the same seeded weights and NHWC seeds: a 20-step
+    # DDIM trajectory (every state) and one DDPM step with injected noise
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((2, 32, 32, 3), generator=g)
+    label = torch.tensor([3, 7])
+    traj = {}
+    for dev in ("cuda", "cpu"):
+        model = flagship(dev, seed=seed)
+        seen = []
+
+        def record(t, xt, lab, model=model, seen=seen):
+            seen.append(xt.cpu())
+            return model(t, xt, lab)
+
+        out = tsampling.sample_scan(record, model.noise_schedule, x.to(dev), nsteps=20,
+                                    label=label.to(dev))
+        traj[dev] = torch.stack(seen[1:] + [out.cpu()])
+        beta_t, beta_prev = torch.tensor([0.7, 0.3]), torch.tensor([0.6, 0.2])
+        noise = torch.randn(x.shape, generator=torch.Generator().manual_seed(seed + 1))
+        with torch.no_grad():
+            eps = model(torch.tensor([0.9, 0.4]).to(dev), x.to(dev), label.to(dev))
+        traj[dev, "ddpm"] = tsampling.ddpm_step(x.to(dev), eps, beta_t.to(dev),
+                                                beta_prev.to(dev), noise.to(dev)).cpu()
+        traj[dev, "eps"] = eps.cpu()
+        del model
+    with torch.no_grad():
+        tf32_eps = flagship("cuda", precision=None, seed=seed)(
+            torch.tensor([0.9, 0.4]).cuda(), x.cuda(), label.cuda()).cpu()
+    e_traj = rel(traj["cuda"], traj["cpu"])
+    e_ddpm = rel(traj["cuda", "ddpm"], traj["cpu", "ddpm"])
+    e_eps = rel(traj["cuda", "eps"], traj["cpu", "eps"])
+    e_tf32 = rel(tf32_eps, traj["cpu", "eps"])
+    print(f"[neural] flagship 'highest', card vs CPU (seeded weights, 2 NHWC seeds, "
+          f"labels [3, 7]): 20-step DDIM trajectory rel {e_traj:.2e} over every state "
+          f"(max |x| {traj['cpu'].abs().max().item():.3g}; tol {TOL:g}), one forward's "
+          f"epsilon rel {e_eps:.2e} and one ddpm_step with injected noise rel "
+          f"{e_ddpm:.2e} (tol {FP32_TOL:g}, and {TOL:g}); the TF32 model's "
+          f"(precision=None) epsilon against the CPU's 'highest' rel {e_tf32:.2e} (must "
+          f"exceed {FP32_TOL:g})", flush=True)
+    if not (e_traj <= TOL and e_ddpm <= TOL):
+        fail("neural: the card and the CPU disagree at 'highest'")
+    if not (e_eps <= FP32_TOL and e_ddpm <= FP32_TOL):
+        fail(f"neural: the card's 'highest' forward is past {FP32_TOL:g} from the CPU's: "
+             "not true fp32")
+    if not e_tf32 > FP32_TOL:
+        fail(f"neural: the TF32 model's epsilon is within {FP32_TOL:g} of the CPU's "
+             "'highest': the fp32 gate cannot tell TF32 from fp32")
+    if not (torch.isfinite(traj["cuda"]).all() and torch.isfinite(traj["cuda", "ddpm"]).all()):
+        fail("neural: a card output is not finite")
+    # gate 2: the reference pickles on the card against their recorded forwards
+    z = np.load(GOLDENS / "pickle_forward.npz")
+    xz = torch.from_numpy(np.transpose(z["x"], (0, 2, 3, 1))).cuda()
+    for name, key, lab in (("backbone_resnet_cond.pt", "resnet_out", z["label"]),
+                           ("backbone_unet.pt", "unet_out", None)):
+        model = load_model(str(GOLDENS / "pickles" / name), device="cuda")
+        with torch.no_grad():
+            got = model(torch.from_numpy(z["t"]).cuda(), xz,
+                        None if lab is None else torch.from_numpy(lab).cuda()).cpu()
+        want = torch.from_numpy(np.transpose(z[key], (0, 2, 3, 1)))
+        err = (got - want).abs().max().item()
+        print(f"[neural] {name} on the card ({type(model.backbone).__name__}, mode "
+              f"{model.backbone.mode!r}): max abs error {err:.2e} against "
+              f"pickle_forward.npz (atol {PICKLE_ATOL:g}, rtol {PICKLE_RTOL:g})", flush=True)
+        if not (torch.isfinite(got).all() and within(got, want, PICKLE_ATOL, PICKLE_RTOL)):
+            fail(f"neural: {name} on the card disagrees with its recorded forward")
+    # the bench's cells: the flagship's two, NEURAL_RUNS calls each, interleaved
+    models = {"flagship 'highest'": flagship("cuda", precision="highest", seed=seed),
+              "flagship TF32": flagship("cuda", precision=None, seed=seed)}
+    inputs = ddpm_inputs(64, 32, 10, seed)
+    for model in models.values():
+        ddpm_warm(model, *inputs)
+    walls = {tag: [] for tag in models}
+    for run in range(NEURAL_RUNS):
+        for tag, model in models.items():
+            walls[tag].append(ddpm_call(f"{tag} call {run + 1}", model, *inputs,
+                                        flops_per_img_step=FLAGSHIP_FLOPS_PER_IMG_STEP))
+    med, batch = {}, inputs[0].shape[0]
+    for tag, model in models.items():
+        w = sorted(walls[tag])
+        med[tag] = w[len(w) // 2]
+        print(f"[neural] {tag}: median of {len(w)} calls {med[tag]:.3f} s, "
+              f"{batch / med[tag]:.3f} images/s, "
+              f"{FLAGSHIP_FLOPS_PER_IMG_STEP * batch * DDPM_STEPS / med[tag] / 1e12:.2f} "
+              f"TFLOP/s; walls {w[0]:.3f}-{w[-1]:.3f} s, spread "
+              f"{100 * (w[-1] - w[0]) / med[tag]:.1f}% of the median", flush=True)
+        device_busy(tag, model, *inputs, med[tag] / DDPM_STEPS * 1e3)
+    del models, inputs
+    unet = DiffusionModel(MinimalUNet(**UNET64), in_channels=3, default_imsize=64,
+                          seed=seed, device="cuda")
+    inputs = ddpm_inputs(32, 64, 2, seed)
+    ddpm_warm(unet, *inputs)
+    wall = ddpm_call("UNet-64 'highest'", unet, *inputs)
+    device_busy("UNet-64 'highest'", unet, *inputs, wall / DDPM_STEPS * 1e3)
+    del unet, inputs
+    torch.cuda.empty_cache()
+    speedup = med["flagship 'highest'"] / med["flagship TF32"]
+    print(f"[neural] TF32 against 'highest': {speedup:.2f}x images/s (medians)", flush=True)
+
+
+def calib_modules(images, labels, ks, device, ledger=None):
+    return {k: LocalEquivScoreModule((images, labels), kernel_size=k, batch_size=CALIB_BATCH,
+                                     target_block=TARGET_BLOCK, bank_ledger=ledger,
+                                     device=device) for k in ks}
+
+
+def phase_calibrate(seed):
+    """Scale calibration against the CNN: a small case on the card and on
+    the CPU (the same k at every step), then the README recipe on the card
+    with its wall, K1 launches, peak memory and scales, and its modules'
+    K1 launches held against the plain version (`recipe_gate`). Returns the
+    recipe's launches by key and the gate's worst max abs error by key."""
+    small = synthetic_dataset(num_samples=256, image_size=32, num_channels=3,
+                              seed=seed + 2)
+    x0 = torch.randn((2, 32, 32, 3), generator=torch.Generator().manual_seed(seed))
+
+    def small_case(dev):
+        cnn = flagship(dev, conditional=False, seed=seed)
+        mods = calib_modules(small.images, small.labels, (3, 5), dev)
+        return calibrate(cnn, mods, image_size=32, in_channels=3, nsamps=2, nsteps=3,
+                         x0=x0, device=dev)["k_optimals"]
+
+    card, cpu = small_case("cuda"), small_case("cpu")
+    print(f"[calibrate] small case (N = 256, 2 seeds, 3 steps, k = 3, 5): k_optimals "
+          f"card {card.tolist()}, CPU {cpu.tolist()}", flush=True)
+    if not np.array_equal(card, cpu):
+        fail("calibrate: the card's k_optimals differ from the CPU port's")
+    ds = synthetic_dataset(num_samples=CALIB_N, image_size=32, num_channels=3, seed=seed)
+    images = torch.from_numpy(ds.images).cuda()
+    labels = torch.from_numpy(ds.labels.astype(np.int64)).cuda()
+    cnn = flagship("cuda", conditional=False, seed=seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    ledger = BankLedger(tels.DEFAULT_BANK_BUDGET)
+    mods = calib_modules(images, labels, CALIB_KS, "cuda", ledger)
+    res = calibrate(cnn, mods, image_size=32, in_channels=3, nsamps=CALIB_SEEDS, nsteps=20,
+                    generator=torch.Generator(device="cuda").manual_seed(seed), device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ran = {key: n for key, n in fs.flash_score_update.launches.items() if n}
+    expected = {}  # one sweep per bank chunk per k per step
+    for k in CALIB_KS:
+        key = launch_key("highest", k)
+        expected[key] = expected.get(key, 0) + 20 * bank_geometry(
+            CALIB_N, 32, 32, 3, k, TARGET_BLOCK).nblk
+    banked = sorted(k for k, m in mods.items() if m._bank_cache)
+    print(f"[calibrate] recipe: {len(CALIB_KS)} ELS modules k = {list(CALIB_KS)} at "
+          f"'highest' on one bank ledger, N = {CALIB_N}, {CALIB_SEEDS} seeds, 20 steps, "
+          f"the flagship unconditional at 'highest': wall {wall:.2f} s (bank builds "
+          f"included), peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB, "
+          f"banked k = {banked} ({ledger.used / 1e9:.2f} GB); launches {ran} (expected "
+          f"{expected}); median {res['median'].tolist()}, mode {res['mode'].tolist()}",
+          flush=True)
+    if ran != expected:
+        fail(f"calibrate: launches {ran}, expected {expected}")
+    if res["k_optimals"].shape != (CALIB_SEEDS, 20) or not set(
+            res["k_optimals"].reshape(-1).tolist()) <= set(CALIB_KS):
+        fail("calibrate: k_optimals is not [10, 20] of the candidate k's")
+    worst = recipe_gate(mods, seed)
+    del mods, cnn, images, labels
+    torch.cuda.empty_cache()
+    return ran, worst
+
+
+def recipe_gate(mods, seed):
+    """At the recipe's shapes: one call of the k = 3 and k = 17 modules at
+    t = 0.05 and 0.5 on 10 seeds; every K1 launch of the call against the
+    plain version from the same input state (cloned before the launch), on
+    every eighth 64-row query block (rows are independent), m + log s1 and
+    s2/s1 at TOL. Run after the recipe's launches were read. Returns the
+    worst max abs error of the means by launch key."""
+    x = torch.randn((CALIB_SEEDS, 32, 32, 3), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(seed + 3))
+    inner, worst = tels.flash_score_update, {}
+    for k in (CALIB_KS[0], CALIB_KS[-1]):
+        for t in (0.05, 0.5):
+            errs = []
+
+            def spy(q, qn, *rest, **kw):
+                state = tuple(s_.clone() for s_ in rest[-1])
+                got = inner(q, qn, *rest, **kw)
+                rps = kw.get("rows_per_seed")
+                rows = row_subset(q.shape[0], rps)
+                want = plain_on(rows, (q, qn, *rest[:-1]), state, kw, rps)
+                errs.append(compare(pick(got, rows), want))
+                return got
+
+            tels.flash_score_update = spy
+            try:
+                mods[k](t, x, k=k)
+            finally:
+                tels.flash_score_update = inner
+            key = launch_key("highest", k)
+            e_lse, e_mean, e_abs = (max(e[i] for e in errs) for i in range(3))
+            worst[key] = max(worst.get(key, 0.0), e_abs)
+            print(f"[calibrate] recipe shapes, ELS k={k} t={t} (M = {CALIB_SEEDS} x 1024, "
+                  f"N = {CALIB_N}): {len(errs)} {key} launches against the plain version "
+                  f"on every eighth 64-row block, worst lse rel {e_lse:.2e}, mean rel "
+                  f"{e_mean:.2e} (tol {TOL:g})", flush=True)
+            if not errs or not (e_lse <= TOL and e_mean <= TOL):
+                fail(f"calibrate: K1 disagrees with its plain version at the recipe's "
+                     f"shapes, k={k} t={t}")
+    return worst
+
+
+def png_shape(path):
+    """(height, width, channels) of an 8-bit PNG, its rows decoded with zlib
+    (filter type 0 on every row)."""
+    import struct
+    import zlib
+
+    data = Path(path).read_bytes()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        fail(f"{path} is not a PNG")
+    pos, idat, head = 8, b"", None
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            head = struct.unpack(">IIBB", body[:10])
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h, depth, color = head
+    ch = {0: 1, 2: 3}[color]
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8)
+    if depth != 8 or raw.size != h * (1 + w * ch) or raw.reshape(h, -1)[:, 0].any():
+        fail(f"{path}: the rows do not decode")
+    return h, w, ch
+
+
+def phase_cli_sample():
+    """cli.sample on the card with the conditional reference pickle: the
+    PNG grid and --save_arrays under build/chip_smoke/."""
+    png = SCRATCH / "samples.png"
+    arrays = SCRATCH / "sample_arrays"
+    shutil.rmtree(arrays, ignore_errors=True)
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    out = cli_sample.main(["--modelfile", str(GOLDENS / "pickles" / "backbone_resnet_cond.pt"),
+                           "--conditional", "--out", str(png), "--save_arrays", str(arrays)])
+    wall = time.perf_counter() - t0
+    shape = png_shape(png)
+    print(f"[cli_sample] cli.sample --conditional on the card: {out.shape[0]} samples in "
+          f"{wall:.2f} s; {png.name} decodes to {shape}; {len(list(arrays.iterdir()))} "
+          "arrays", flush=True)
+    if out.shape != (16, 16, 16, 3) or not np.isfinite(out).all():
+        fail("cli_sample: the samples are not a finite [16, 16, 16, 3] array")
+    if shape != (32, 128, 3) or len(list(arrays.iterdir())) != 16:
+        fail("cli_sample: the grid is not 2 x 8 tiles of 16x16 RGB, or arrays are missing")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=RGB_N,
@@ -2245,6 +2668,15 @@ def main(argv=None) -> int:
     phase_devices(args.seed)
     add(phase_devices_prune(args.seed))
     add(phase_devices_wide(args.seed))
+    print(f"[time] {time.perf_counter() - t_start:.1f} s so far", flush=True)
+    phase_neural(args.seed)
+    print(f"[time] {time.perf_counter() - t_start:.1f} s so far", flush=True)
+    ran, worst = phase_calibrate(args.seed)
+    add(ran)
+    for key, e in worst.items():  # the recipe-shape gate's, beside the kernel phase's
+        recs[key]["max_abs_err"] = max(recs[key]["max_abs_err"], e)
+    print(f"[time] {time.perf_counter() - t_start:.1f} s so far", flush=True)
+    phase_cli_sample()
     print(f"[time] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     never = [key for key in recs if not path.get(key) and not keyword_only(key)]
     if never:

@@ -7,12 +7,17 @@ class names and public conventions (NHWC at the API, the score — not epsilon
 so one numpy array feeds both. It imports `torch`, numpy and the standard
 library only, never `jax` and never the JAX package.
 
-Ported so far: the fp32 ELS score machine (`scores.ScheduledScoreMachine`
-driving `scores.LocalEquivScoreModule`) and what it stands on. Entry points
-run on `cuda` unless the caller passes `device="cpu"`; without a card they
-raise. On a CUDA tensor the flash-score sweep launches the hand-written
-Hopper kernel in `ops/csrc/flash_score.cu`; on a CPU tensor it runs the
-kernel's plain PyTorch version.
+Ported so far: the analytic score machines (`scores`: ELS, bbELS, LS and
+IS modules at every precision tier, driven by `ScheduledScoreMachine`),
+`data`, `pipeline` and `cli.els`; and the neural serving half: the
+backbones (`models`), reference pickles and JAX params carried across
+(`convert`), the DDIM/DDPM samplers (`sampling`, `cli.sample`) and scale
+calibration against the CNN (`calibration`, `cli.calibrate`). Training,
+`parallel/` and `analysis/` are not ported yet. Entry points run on `cuda`
+unless the caller passes `device="cpu"`; without a card they raise. On a
+CUDA tensor the flash-score sweep launches the hand-written Hopper kernels
+in `ops/csrc/`; on a CPU tensor it runs their plain PyTorch versions. The
+backbones run cuDNN and cuBLAS (the JAX models have no Pallas kernel).
 
 Submodules are imported explicitly (`from convolutional_diffusion_tpu_torch
 import scores`); importing the package itself loads nothing else.

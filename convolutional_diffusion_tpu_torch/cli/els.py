@@ -61,7 +61,7 @@ def main(argv=None):
     if args.ndevices > 1:
         raise NotImplementedError(
             "--ndevices > 1 (the dataset-sharded score modules) is not "
-            "ported yet (ROADMAP item 14, parallel/)"
+            "ported yet (ROADMAP item 7, parallel/)"
         )
 
     from ..data import get_dataset

@@ -1,15 +1,29 @@
-"""Carrying state across from the JAX package.
+"""Carrying state across from the JAX package and from the reference.
 
 Counterpart of `convolutional_diffusion_tpu/convert.py` (and of the scales
-loader in its `cli/els.py`). Ported so far: the cached patch banks (plain
-and clustered) and the calibrated scales files (`.json`, `.npy`, `.pt`); model pickles come with
-the models slice. Everything crosses as numpy arrays.
+loader in its `cli/els.py`): the cached patch banks (plain and clustered),
+the calibrated scales files (`.json`, `.npy`, `.pt`), the reference's whole
+`backbone_*.pt` pickles (unpickled without its code) and the JAX package's
+flax params. Everything crosses as numpy arrays or CPU tensors.
+
+Layouts: the port's backbones keep the reference's torch layout, so a
+reference state_dict loads as it is; flax params cross through
+`resnet_state_dict_from_jax_params` / `unet_state_dict_from_jax_params`:
+ - flax Conv kernel [kh, kw, I, O]          -> torch Conv2d [O, I, kh, kw]
+ - flax Dense kernel [I, O]                 -> torch Linear [O, I]
+ - flax ConvTranspose (transpose_kernel=True) [kh, kw, O, I]
+                                            -> torch ConvTranspose2d [I, O, kh, kw]
+ - flax GroupNorm / BatchNorm scale, bias   -> weight, bias; batch_stats
+   mean, var -> running_mean, running_var
+ - flax Embed embedding                     -> Embedding weight
 """
 
 from __future__ import annotations
 
 import json
 import pickle
+import re
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -92,3 +106,282 @@ def load_scales(path: str) -> list:
     if isinstance(scales, torch.Tensor):
         scales = scales.reshape(-1).tolist()
     return [int(s.item() if hasattr(s, "item") else s) for s in scales]
+
+
+# ---------------------------------------------------------------------------
+# Reference whole pickles (backbone_*.pt), read without the reference's code
+# ---------------------------------------------------------------------------
+
+
+class _StubModule:
+    """Stand-in for a pickled class of the reference's own (src.models.*).
+    torch.nn classes unpickle as real torch modules, so the tree is mixed:
+    the helpers below read both through `__dict__`."""
+
+    _stub_classname: str = "?"
+
+    def __setstate__(self, state):
+        if isinstance(state, dict):
+            self.__dict__.update(state)
+        else:
+            self.__dict__["_state"] = state
+
+
+def module_children(m) -> Dict[str, Any]:
+    return dict(m.__dict__.get("_modules") or {})
+
+
+def module_attr(m, name, default=None):
+    return m.__dict__.get(name, default)
+
+
+def module_child(m, name):
+    return module_children(m).get(name)
+
+
+def module_state_dict(m, prefix="") -> Dict[str, torch.Tensor]:
+    """Flat state_dict of a mixed tree of stubs and torch modules."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, p in (m.__dict__.get("_parameters") or {}).items():
+        if p is not None:
+            out[prefix + name] = p
+    for name, b in (m.__dict__.get("_buffers") or {}).items():
+        if b is not None:
+            out[prefix + name] = b
+    for name, c in module_children(m).items():
+        if c is not None:
+            out.update(module_state_dict(c, prefix + name + "."))
+    return out
+
+
+_REAL_MODULES = ("collections", "builtins", "__builtin__", "numpy",
+                 "numpy._core.multiarray", "numpy.core.multiarray")
+
+
+class _Unpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        # exactly 'torch' or 'torch.*': a bare startswith('torch') would also
+        # take torchvision and bypass the stubs
+        if module == "torch" or module.startswith("torch.") or module in _REAL_MODULES:
+            return super().find_class(module, name)
+        return type(name, (_StubModule,), {"_stub_classname": f"{module}.{name}"})
+
+
+class _PickleShim:
+    """The pickle-module interface torch.load reads, around `_Unpickler`."""
+
+    __name__ = "pickle_stub_shim"
+    Unpickler = _Unpickler
+
+    @staticmethod
+    def load(f, **kw):
+        return _Unpickler(f, **kw).load()
+
+
+def load_torch_pickle(path: str):
+    """Unpickle a reference `backbone_*.pt` (or any torch.save'd module) on
+    the CPU without the reference's code: every class outside torch, numpy,
+    collections and builtins resolves to a `_StubModule`, so no module of
+    the reference is imported or run. torch refuses an explicit pickle
+    module under weights_only=True, hence weights_only=False here, with
+    the stub resolver in its place."""
+    with open(path, "rb") as f:
+        return torch.load(f, map_location="cpu", pickle_module=_PickleShim,
+                          weights_only=False)
+
+
+def _resnet_from_stub(backbone, sd, in_channels, precision):
+    from .models import MinimalResNet
+
+    num_layers = int(module_attr(backbone, "num_layers", 6))
+    normalization = module_attr(backbone, "normalization", None)
+    down = sd["down_projection.weight" if normalization is None
+              else "down_projection.1.weight"]
+    return MinimalResNet(
+        channels=in_channels,
+        emb_dim=int(module_attr(backbone, "emb_dim", sd["up_projection.weight"].shape[0])),
+        mode=module_attr(backbone, "mode", "circular"),
+        normalization=normalization,
+        conditional=bool(module_attr(backbone, "conditional", False)),
+        num_classes=module_attr(backbone, "num_classes"),
+        kernel_size=int(sd["up_projection.weight"].shape[-1]),
+        num_layers=num_layers,
+        lastksize=int(down.shape[-1]),
+        add_one=len(module_children(module_child(backbone, "embs"))) > num_layers,
+        precision=precision,
+    )
+
+
+def _unet_from_stub(backbone, sd, in_channels, precision):
+    from .models import MinimalUNet
+
+    fsizes = tuple(int(f) for f in module_attr(backbone, "fsizes", (32, 64, 128, 256)))
+    # MinimalUNet stores no normalization: a 1-D `model.N.weight` in a
+    # feature block is a norm, BatchNorm when it has running statistics
+    has_norm = any(
+        re.match(r"feature_blocks\.\d+\.model\.\d+\.weight$", k) and v.ndim == 1
+        for k, v in sd.items()
+    )
+    has_bn = any(k.endswith(".running_mean") for k in sd)
+    normalization = ("BatchNorm" if has_bn else "GroupNorm") if has_norm else None
+    conditional = bool(module_attr(backbone, "conditional", False))
+    # nor its mode: read the padding_mode of its first conv
+    mode = "circular"
+    blocks = module_child(backbone, "feature_blocks")
+    first = module_child(blocks, "0") if blocks is not None else None
+    if first is not None:
+        mode = module_attr(module_child(module_child(first, "model"), "0"),
+                           "padding_mode", "circular")
+    return MinimalUNet(
+        channels=in_channels, fsizes=fsizes, mode=mode, conditional=conditional,
+        num_classes=(int(sd["embedding.class_embeddings.weight"].shape[0])
+                     if conditional else None),
+        emb_dim=int(module_attr(backbone, "emb_dim", 256)),
+        normalization=normalization,
+        last_norm=(bool(module_attr(backbone, "last_norm", False))
+                   and "last_normalizer.weight" in sd),
+        kernel_size=int(module_attr(backbone, "kernel_size", 3)),
+        lastksize=int(module_attr(backbone, "lastksize", 1)),
+        precision=precision,
+    )
+
+
+def diffusion_model_from_torch_pickle(path: str, device=None, precision="highest"):
+    """A reference `backbone_*.pt` (a whole pickled DDIM module, or a bare
+    backbone) -> `models.DiffusionModel` on `device` (default cuda) with the
+    pickle's weights, in eval() mode. The architecture is read from the
+    pickled attributes as the JAX package reads it: the ResNet's add_one
+    from its number of `embs`, its kernel sizes from the conv weights; the
+    UNet's normalization from the 1-D `model.N.weight`s (BatchNorm from
+    `running_mean`), its mode from the first conv's `padding_mode`."""
+    from .models import DiffusionModel
+    from .schedules import cosine_noise_schedule
+
+    dev = resolve_device(device)
+    stub = load_torch_pickle(path)
+    if getattr(stub, "_stub_classname", "").endswith("DDIM"):
+        backbone = module_child(stub, "backbone")
+        in_channels = module_attr(stub, "in_channels", 3)
+        default_imsize = module_attr(stub, "default_imsize", 32)
+    else:
+        backbone, default_imsize = stub, 32
+        in_channels = module_attr(stub, "channels", 3)
+    if backbone is None:
+        raise ValueError(f"no backbone module found in {path}")
+    bcls = getattr(backbone, "_stub_classname", "")
+    sd = module_state_dict(backbone)
+    if bcls.endswith("MinimalResNet"):
+        net = _resnet_from_stub(backbone, sd, in_channels, precision)
+    elif bcls.endswith("MinimalUNet"):
+        net = _unet_from_stub(backbone, sd, in_channels, precision)
+    else:
+        raise ValueError(f"unsupported backbone class {bcls!r} in {path}")
+    model = DiffusionModel(net, noise_schedule=cosine_noise_schedule,
+                           in_channels=int(in_channels),
+                           default_imsize=int(default_imsize), device=dev)
+    model.backbone.load_state_dict(sd, strict=True)
+    return model
+
+
+# ---------------------------------------------------------------------------
+# JAX (flax) params -> the port's state_dict
+# ---------------------------------------------------------------------------
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, np.float32, copy=True))
+
+
+def _put_conv(sd, prefix, entry):
+    """flax Conv [kh, kw, I, O] -> Conv2d [O, I, kh, kw]."""
+    sd[prefix + ".weight"] = _t(np.asarray(entry["kernel"]).transpose(3, 2, 0, 1))
+    sd[prefix + ".bias"] = _t(entry["bias"])
+
+
+def _put_dense(sd, prefix, entry):
+    """flax Dense [I, O] -> Linear [O, I]."""
+    sd[prefix + ".weight"] = _t(np.asarray(entry["kernel"]).T)
+    sd[prefix + ".bias"] = _t(entry["bias"])
+
+
+def _put_norm(sd, prefix, entry, stats=None):
+    sd[prefix + ".weight"] = _t(entry["scale"])
+    sd[prefix + ".bias"] = _t(entry["bias"])
+    if stats is not None:  # BatchNorm running statistics
+        sd[prefix + ".running_mean"] = _t(stats["mean"])
+        sd[prefix + ".running_var"] = _t(stats["var"])
+        sd[prefix + ".num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+
+
+def resnet_state_dict_from_jax_params(
+    params: Mapping[str, Any], *, num_layers: int,
+    normalization: Optional[str] = None, add_one: bool = True,
+    conditional: bool = False,
+) -> Dict[str, torch.Tensor]:
+    """The JAX package's MinimalResNet params (as numpy) -> a state_dict of
+    the port's MinimalResNet (the reference's layout)."""
+    sd: Dict[str, torch.Tensor] = {}
+    if conditional:
+        sd["embedding.class_embeddings.weight"] = _t(
+            params["embedding"]["class_embeddings"]["embedding"])
+    _put_conv(sd, "up_projection", params["up_projection"]["conv"])
+    for i in range(num_layers + int(add_one)):
+        _put_dense(sd, f"embs.{i}.0", params[f"emb_{i}"]["dense"])
+        _put_norm(sd, f"embs.{i}.1", params[f"emb_{i}"]["norm"])
+    for i in range(num_layers):
+        _put_conv(sd, f"convs.{i}.0", params[f"conv_{i}"]["conv"])
+        if normalization is not None:
+            _put_norm(sd, f"convs.{i}.1", params[f"conv_norm_{i}"])
+    if normalization is None:
+        _put_conv(sd, "down_projection", params["down_projection"]["conv"])
+    else:
+        _put_norm(sd, "down_projection.0", params["down_norm"])
+        _put_conv(sd, "down_projection.1", params["down_projection"]["conv"])
+    return sd
+
+
+def _put_ublock(sd, prefix, block, stats, *, normalization, depth):
+    """A UBlock's `emb.1` and `model` = depth x [Conv, (Norm), ReLU]."""
+    _put_dense(sd, f"{prefix}.emb.1", block["emb_dense"])
+    stride = 3 if normalization is not None else 2
+    for i in range(depth):
+        _put_conv(sd, f"{prefix}.model.{i * stride}", block[f"conv_{i}"]["conv"])
+        if normalization is not None:
+            _put_norm(sd, f"{prefix}.model.{i * stride + 1}", block[f"norm_{i}"],
+                      stats.get(f"norm_{i}") if stats else None)
+
+
+def unet_state_dict_from_jax_params(
+    variables: Mapping[str, Any], *, n_feature_blocks: int,
+    normalization: Optional[str] = None, conditional: bool = False,
+    last_norm: bool = False, depth: int = 2,
+) -> Dict[str, torch.Tensor]:
+    """The JAX package's MinimalUNet params, or its variables dict
+    ({'params', 'batch_stats'}: BatchNorm running statistics cross too), as
+    numpy -> a state_dict of the port's MinimalUNet."""
+    if "params" in variables:
+        params, bstats = variables["params"], variables.get("batch_stats", {})
+    else:
+        params, bstats = variables, {}
+    blk = dict(normalization=normalization, depth=depth)
+    sd: Dict[str, torch.Tensor] = {}
+    if conditional:
+        sd["embedding.class_embeddings.weight"] = _t(
+            params["embedding"]["class_embeddings"]["embedding"])
+    for i in range(n_feature_blocks):
+        _put_ublock(sd, f"feature_blocks.{i}", params[f"feature_block_{i}"],
+                    bstats.get(f"feature_block_{i}"), **blk)
+    _put_ublock(sd, "bottleneck", params["bottleneck"], bstats.get("bottleneck"), **blk)
+    for j in range(n_feature_blocks):
+        up = params[f"upsample_{j}"]
+        # flax transpose_kernel=True [kh, kw, O, I] -> torch [I, O, kh, kw]
+        sd[f"upsamples.{j}.weight"] = _t(np.asarray(up["kernel"]).transpose(3, 2, 0, 1))
+        sd[f"upsamples.{j}.bias"] = _t(up["bias"])
+        _put_ublock(sd, f"output_blocks.{j}", params[f"output_block_{j}"],
+                    bstats.get(f"output_block_{j}"), **blk)
+    _put_dense(sd, "last_emb.1", params["last_emb_dense"])
+    _put_conv(sd, "output_conv", params["output_conv"]["conv"])
+    if last_norm and "last_normalizer" in params:
+        _put_norm(sd, "last_normalizer", params["last_normalizer"],
+                  bstats.get("last_normalizer"))
+    return sd

@@ -1,0 +1,107 @@
+"""Shared building blocks of the convolutional diffusion backbones.
+
+Counterpart of `convolutional_diffusion_tpu/models/layers.py`. The backbones
+take and return NHWC tensors, as the JAX package's do; inside, a tensor
+runs as `x.permute(0, 3, 1, 2)`, an NCHW view in channels-last memory that
+cuDNN takes without a copy, and is permuted back on the way out.
+
+Parity notes:
+ - ``nn.Conv2d(padding='same', padding_mode=mode)`` pads k - 1 in all,
+   floor on the left and ceil on the right (asymmetric for even k), in
+   'circular' and 'zeros' alike: the JAX package's `pad_same`.
+ - GroupNorm's eps is torch's default, 1e-5 (the JAX layers set it).
+ - BatchNorm is `nn.BatchNorm2d`, whose running statistics (updated with
+   the unbiased batch variance at momentum 0.1, used in `eval()`) are what
+   the JAX package's `TorchBatchNorm` reproduces.
+
+precision: the backbones take it and run their whole forward in its scope
+(`precision_scope`). 'highest' (the default) runs convolutions and dense
+layers in true fp32 (`ops.fp32.true_fp32`, TF32 off for cuBLAS and cuDNN), the JAX
+models' parity setting. None, the JAX package's single-pass setting, lets
+them run in TF32 on the card (2^-11 relative per product).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..ops.fp32 import tf32_products
+
+DEFAULT_PRECISION = "highest"
+PRECISIONS = ("highest", None)
+GROUPNORM_EPS = 1e-5  # torch nn.GroupNorm default
+
+
+def check_precision(precision) -> None:
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be 'highest' or None, got {precision!r}")
+
+
+def precision_scope(precision):
+    """The context a layer's products run in: true fp32 at 'highest', TF32
+    allowed at None."""
+    return tf32_products(precision is None)
+
+
+def nchw(x: torch.Tensor) -> torch.Tensor:
+    """NHWC -> an NCHW view (channels-last memory, no copy)."""
+    return x.permute(0, 3, 1, 2)
+
+
+def nhwc(x: torch.Tensor) -> torch.Tensor:
+    """NCHW -> an NHWC view."""
+    return x.permute(0, 2, 3, 1)
+
+
+class PaddedConv(nn.Conv2d):
+    """Conv2d with 'same' output size under 'circular' or 'zeros' padding,
+    for every k: the reference's ``nn.Conv2d(..., padding='same',
+    padding_mode=mode)``. NCHW; the backbones permute around it."""
+
+    def __init__(self, in_features: int, features: int, kernel_size: int,
+                 mode: str = "circular"):
+        if mode not in ("circular", "zeros"):
+            raise ValueError(f"mode must be 'circular' or 'zeros', got {mode!r}")
+        super().__init__(in_features, features, kernel_size, padding="same",
+                         padding_mode=mode)
+
+
+class DenseNormAct(nn.Sequential):
+    """Linear -> GroupNorm(8) -> ReLU on a [batch, features] vector: the
+    per-layer embedding MLP of MinimalResNet (reference layout: `0` the
+    Linear, `1` the GroupNorm)."""
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__(
+            nn.Linear(in_features, features),
+            nn.GroupNorm(8, features, eps=GROUPNORM_EPS),
+            nn.ReLU(),
+        )
+
+
+def make_norm(normalization: Optional[str], features: int) -> Optional[nn.Module]:
+    """GroupNorm(min(32, f)), BatchNorm2d, or None (no normalization)."""
+    if normalization == "GroupNorm":
+        return nn.GroupNorm(min(32, features), features, eps=GROUPNORM_EPS)
+    if normalization == "BatchNorm":
+        return nn.BatchNorm2d(features)
+    if normalization is None:
+        return None
+    raise ValueError(f"unknown normalization {normalization!r}")
+
+
+@torch.no_grad()
+def seeded_init(module: nn.Module, seed: int) -> nn.Module:
+    """Redraw every parameter of `module` by each submodule's own
+    `reset_parameters` (PyTorch's default rules) from a generator seeded
+    with `seed`, forked from the global one: the weights depend on the seed
+    alone, and the global generator's state is left as it was."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        for m in module.modules():
+            if hasattr(m, "reset_parameters"):
+                m.reset_parameters()
+    return module

@@ -1,10 +1,14 @@
 """True fp32 products on the card.
 
-PyTorch may run fp32 matrix products through TF32 on the tensor cores
-(`torch.backends.cuda.matmul.allow_tf32`). The score logits are scaled by
-1/(2 beta^2), which turns a TF32 rounding (2^-11 relative) of a dot product
-into a large posterior error, and the prune bounds by tens of log2 units.
-So every product outside the flash-score kernels goes through `true_fp32`.
+PyTorch may run fp32 products through TF32 on the tensor cores: matrix
+products under `torch.backends.cuda.matmul.allow_tf32`, and cuDNN
+convolutions under `torch.backends.cudnn.allow_tf32`, which defaults to on.
+The score logits are scaled by 1/(2 beta^2), which turns a TF32 rounding
+(2^-11 relative) of a dot product into a large posterior error, and the
+prune bounds by tens of log2 units; the backbones at 'highest' are held to
+true fp32 like the JAX models. So every product outside the flash-score
+kernels goes through `true_fp32`. This module is the port's one switch of
+both flags.
 """
 
 from __future__ import annotations
@@ -15,15 +19,23 @@ import torch
 
 
 @contextlib.contextmanager
-def true_fp32():
-    """Within `with`, fp32 matrix products stay fp32: TF32 off, the previous
-    setting restored after."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+def tf32_products(allow: bool):
+    """Within `with`, fp32 matrix products and cuDNN convolutions may run in
+    TF32 (`allow=True`) or stay fp32 (`allow=False`); the previous settings
+    are restored after."""
+    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = allow
+    torch.backends.cudnn.allow_tf32 = allow
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+
+
+def true_fp32():
+    """Within `with`, fp32 matrix products and convolutions stay fp32: TF32
+    off for both, the previous settings restored after."""
+    return tf32_products(False)
 
 
 def fp32_einsum(spec: str, *operands: torch.Tensor) -> torch.Tensor:

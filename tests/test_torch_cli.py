@@ -92,7 +92,7 @@ def test_els_cli_default_precision(tmp_path, kind):
 def test_els_cli_refuses_what_is_not_ported(tmp_path):
     from convolutional_diffusion_tpu_torch.cli import els
 
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="item 7, parallel"):
         els.main(_common(tmp_path) + ["--ndevices", "2"])
     with pytest.raises(ValueError, match="scoremoduletype"):
         els.main(_common(tmp_path) + ["--scoremoduletype", "XYZ"])

@@ -7,6 +7,11 @@ Marked `cuda`; skips (from inside each test) where no CUDA device
 is present. On the card:
 `python -m pytest tests/test_torch_cuda.py -m cuda`.
 
+The neural half's card tests close the file: the backbones at 'highest' on
+the card against the CPU (1e-3 relative to scale), and `ops.fp32`'s
+switch, which must turn cuDNN's TF32 off (a 256-channel conv within 1e-5
+of float64) and restore both flags.
+
 Tolerance: the repo's parity rule on the offset-invariant quantities,
 max|a-b| / max(|a|,|b|,1) <= 1e-3 for the log total weight m + log s1 and
 for the posterior mean s2/s1 (two fp32 summation orders of the same dots;
@@ -657,3 +662,87 @@ def test_moved_variants_logits_are_the_parents(c):
             kw["col0"], vals = (d - c) // 2, None
         m = tfs.sweep_kernel(q, bias, bank, vals, ds, *empty, precision=prec, **kw)[0]
         assert torch.equal(m, ref if prec == "highest" else k2), (precision, fast, strategy)
+
+
+# --- the neural half: backbones on the card ---------------------------------
+
+
+def _rel_scale(a, b):
+    a, b = a.double().cpu(), b.double().cpu()
+    return ((a - b).abs().max() / max(a.abs().max(), b.abs().max(), 1.0)).item()
+
+
+def test_true_fp32_turns_cudnn_tf32_off_and_restores():
+    """Runs anywhere: the flags only."""
+    from convolutional_diffusion_tpu_torch.ops.fp32 import tf32_products, true_fp32
+
+    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    with tf32_products(True):
+        assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+        with true_fp32():
+            assert not torch.backends.cudnn.allow_tf32
+            assert not torch.backends.cuda.matmul.allow_tf32
+        assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+    assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == prev
+
+
+@pytest.mark.cuda
+def test_true_fp32_conv_on_the_card_is_fp32():
+    """A 256-channel conv at 'highest' is within fp32 rounding of float64;
+    with TF32 allowed it is ~2^-11 off (which shows the switch acts)."""
+    from convolutional_diffusion_tpu_torch.ops.fp32 import tf32_products, true_fp32
+
+    dev = _need_cuda()
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(8, 256, 32, 32, generator=g)
+    w = torch.randn(256, 256, 3, 3, generator=g) / 48
+    exact = torch.nn.functional.conv2d(x.double(), w.double(), padding=1)
+    xd, wd = x.to(dev), w.to(dev)
+    with true_fp32():
+        fp32 = torch.nn.functional.conv2d(xd, wd, padding=1)
+    with tf32_products(True):
+        tf32 = torch.nn.functional.conv2d(xd, wd, padding=1)
+    assert _rel_scale(fp32, exact) < 1e-5
+    assert _rel_scale(tf32, exact) > 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["resnet", "unet", "unet_batchnorm"])
+def test_backbone_on_the_card_matches_cpu(kind):
+    """The same seeded weights and NHWC input, forward at 'highest' on the
+    card and on the CPU: within 1e-3 relative to scale (BASELINE.md), and
+    within 1e-5, true fp32 against true fp32. The same backbone with TF32
+    allowed (precision=None) falls outside 1e-5, which shows that the bound
+    sees TF32 reach the backbone's convolutions."""
+    from convolutional_diffusion_tpu_torch.models import (
+        DiffusionModel,
+        MinimalResNet,
+        MinimalUNet,
+    )
+
+    dev = _need_cuda()
+
+    def build(device, precision="highest"):
+        if kind == "resnet":
+            net = MinimalResNet(channels=3, emb_dim=256, num_layers=8, mode="zeros",
+                                conditional=True, num_classes=10, lastksize=3,
+                                precision=precision)
+        else:
+            net = MinimalUNet(channels=3, fsizes=(64, 128, 256), mode="circular",
+                              conditional=True, num_classes=10, lastksize=3,
+                              normalization="BatchNorm" if "batchnorm" in kind else "GroupNorm",
+                              last_norm=True, precision=precision)
+        return DiffusionModel(net, seed=5, device=device)
+
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(4, 32, 32, 3, generator=g)
+    t = torch.rand(4, generator=g)
+    label = torch.randint(0, 10, (4,), generator=g)
+    with torch.no_grad():
+        cpu = build("cpu")(t, x, label)
+        card = build(dev)(t.to(dev), x.to(dev), label.to(dev))
+        tf32 = build(dev, precision=None)(t.to(dev), x.to(dev), label.to(dev))
+    assert card.shape == cpu.shape and torch.isfinite(card).all()
+    assert _rel_scale(card, cpu) <= 1e-3
+    assert _rel_scale(card, cpu) <= 1e-5
+    assert _rel_scale(tf32, cpu) > 1e-5

@@ -47,7 +47,10 @@ def test_port_imports_no_jax_and_no_jax_package():
     )
     res = json.loads(out.stdout.strip().splitlines()[-1])
     for mod in ("scores.els", "scores.bbels", "scores.local", "scores.ideal", "data",
-                "pipeline", "convert", "cli.common", "cli.els"):
+                "pipeline", "convert", "cli.common", "cli.els", "models", "models.ddim",
+                "models.embedding", "models.layers", "models.resnet", "models.unet",
+                "sampling", "calibration", "cli.sample", "cli.calibrate",
+                "utils.visualize"):
         assert f"convolutional_diffusion_tpu_torch.{mod}" in res["imported"]
     for mod in ("ops.flash_score", "ops.prune"):
         assert f"convolutional_diffusion_tpu_torch.{mod}" in res["imported"]
@@ -96,3 +99,33 @@ def test_explicit_cpu_runs_on_cpu(tiny_dataset):
         mod = build_score_module(kind, tiny_dataset, batch_size=4, image_size=8, channels=1,
                                  schedule=cosine_noise_schedule, device="cpu")
         assert mod.images.device.type == "cpu"
+
+
+def test_neural_entry_points_need_a_card_unless_told(monkeypatch, tiny_dataset):
+    """load_model, DiffusionModel, sample and calibrate run on cuda by
+    default: without a card they raise; with device="cpu" they run."""
+    from convolutional_diffusion_tpu_torch.calibration import calibrate
+    from convolutional_diffusion_tpu_torch.cli.common import load_model
+    from convolutional_diffusion_tpu_torch.models import DiffusionModel, MinimalResNet
+    from convolutional_diffusion_tpu_torch.sampling import sample
+
+    pickle_path = "tests/goldens/pickles/backbone_resnet_cond.pt"
+    model = load_model(pickle_path, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    label = torch.zeros(2, dtype=torch.long)
+    assert sample(model, batch_size=2, nsteps=2, label=label, generator=gen,
+                  device="cpu").device.type == "cpu"
+    mods = {3: LocalEquivScoreModule(tiny_dataset, device="cpu")}
+    net = MinimalResNet(channels=1, emb_dim=16, num_layers=1)
+    cnn = DiffusionModel(net, in_channels=1, default_imsize=8, device="cpu")
+    kw = dict(image_size=8, in_channels=1, nsamps=2, nsteps=2)
+    assert calibrate(cnn, mods, generator=gen, device="cpu", **kw)["median"].shape == (2,)
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_model(pickle_path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DiffusionModel(MinimalResNet(channels=1, emb_dim=16, num_layers=1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sample(model, batch_size=2, label=label, generator=gen)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calibrate(cnn, mods, generator=gen, **kw)
