@@ -110,7 +110,7 @@ Phases, each printing its own lines; any failure exits non-zero:
               c = 16 (more than half skipped).
 5. machines — one 20-step ScheduledScoreMachine call each, CIFAR10 scales,
               8 seeds of 32x32x3 (the same seeds for all), over N synthetic
-              bank images (--n, default 25000, cut from the published
+              bank images (--n, default 20000, cut from the published
               50000 to keep the script within its time limit; printed as
               `reduced`): main = ELS 'highest' (the JAX bench's
               els_20step_50kbank fp32 key), bbels = bbELS 'high', els_high =
@@ -132,7 +132,7 @@ Phases, each printing its own lines; any failure exits non-zero:
               (information).
    wide     — the slice's path: 20-step ELS machines at 'highest',
               'high' and 'default' on 8 seeds of 32x32x16 over N images of
-              synthetic_dataset(num_channels=16) (--n-wide, default 10000,
+              synthetic_dataset(num_channels=16) (--n-wide, default 8000,
               for 'highest', half of it for the other two, whose sweeps take
               ~0.7x K1's time each; cut from 50000 and printed as reduced),
               every sweep 'mxu':
@@ -217,6 +217,35 @@ Phases, each printing its own lines; any failure exits non-zero:
 12. cli_sample — cli.sample --conditional on the card with the conditional
               reference pickle: the PNG grid (decoded with zlib: 2 x 8
               tiles of 16x16 RGB) and --save_arrays under build/chip_smoke/.
+13. train    — training (cuDNN, cuBLAS and PyTorch's fused AdamW; the JAX
+              trainer has no Pallas kernel, and the phase fails if a
+              flash-score kernel runs). Gates: (a) one flagship step at
+              batch 8 on the card at 'highest', on the card with TF32, and
+              on the CPU in float32 and float64 from the same weights, t and
+              eps: the card's loss and gradients within 1e-5 of the float64
+              step plus twice the CPU float32's own distance from it (that
+              alone reaches ~1e-5 of the gradients' scale), the TF32 step
+              past that bound (a backward that leaked TF32 shows); (b) the
+              flagship with TF32 over 200 steps on 1280 synthetic images at
+              the recipe's lr: the last epoch's mean loss below 0.9x the
+              first's; (c) under cudnn.deterministic, 10 flagship steps
+              straight against 5, a checkpoint, a restore into a model of
+              other weights and 5 more: weights and AdamW moments bit for
+              bit; (d) as (a) for a BatchNorm UNet of the UNet-64 widths at
+              32x32, running statistics included (conv biases that
+              BatchNorm zeroes left out), and as information the same card
+              step through cuDNN's BatchNorm, which the port's
+              `models.layers.BatchNorm` keeps out; (e) cli.train for one epoch of
+              --dataset synthetic with the flagship's flags, then
+              cli.sample --modelfile on its checkpoint directory (the PNG
+              decoded, finite samples). Then the flagship recipe (batch
+              128, 32x32) at 'highest' and with TF32 and the UNet-64 recipe
+              (batch 64, 64x64) at 'highest': three windows of 20 chained
+              steps after a warm-up, each by CUDA events (median, spread),
+              images/s, TFLOP/s by 3x the forward's conv and dense count,
+              peak memory; and one profiled 20-step train_diffusion epoch:
+              the device-busy share, kernel launches per step, host
+              synchronisations (more than 3 fail the phase).
 
 The kernels line lists every variant checked; the variants no module path
 reaches ('inbank' at 'highest'/'high', the bf16 exponential after fp32
@@ -225,7 +254,7 @@ through keywords or an environment override, carry their path launches
 (0) and are exempt from the rule that each listed variant ran on the
 paths.
 
-Artifacts of phases 7, 8 and 12 go to build/chip_smoke/ (git-ignored). The
+Artifacts of phases 7, 8, 12 and 13 go to build/chip_smoke/ (git-ignored). The
 card's name and power limit print as the first line, the kernels JSON
 record as the second-to-last, and {"ok": true, "device": {...}} as the
 last. Without a CUDA device it exits non-zero and prints no result.
@@ -234,6 +263,8 @@ last. Without a CUDA device it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import itertools
 import json
 import math
@@ -252,10 +283,12 @@ from convolutional_diffusion_tpu_torch import sampling as tsampling
 from convolutional_diffusion_tpu_torch.calibration import calibrate
 from convolutional_diffusion_tpu_torch.cli import els as cli_els
 from convolutional_diffusion_tpu_torch.cli import sample as cli_sample
+from convolutional_diffusion_tpu_torch.cli import train as cli_train
 from convolutional_diffusion_tpu_torch.cli.common import load_model
 from convolutional_diffusion_tpu_torch.cli.common import build_score_module
 from convolutional_diffusion_tpu_torch.data import synthetic_dataset
 from convolutional_diffusion_tpu_torch.models import DiffusionModel, MinimalResNet, MinimalUNet
+from convolutional_diffusion_tpu_torch.models import layers as tlayers
 from convolutional_diffusion_tpu_torch.ops import _build
 from convolutional_diffusion_tpu_torch.ops import flash_score as fs
 from convolutional_diffusion_tpu_torch.ops import prune as pr
@@ -287,12 +320,22 @@ from convolutional_diffusion_tpu_torch.scores.common import (
     image_weights,
 )
 from convolutional_diffusion_tpu_torch.scores.els import _value_kw as els_value_kw
+from convolutional_diffusion_tpu_torch.training import (
+    TrainConfig,
+    TrainState,
+    draw_noise,
+    make_train_step,
+    step_with_noise,
+    train_diffusion,
+)
+from convolutional_diffusion_tpu_torch.utils.checkpoint import restore_checkpoint
 
 CIFAR10_SCALES = [3, 3, 3, 3, 5, 5, 5, 7, 7, 7, 7, 9, 9, 11, 11, 13, 15, 17, 17, 17]
 FULL_N = 50000  # the published bank depth (the JAX bench's 50k CIFAR10 bank)
 # bank images of the RGB machines: cut from FULL_N so that the script, grown
-# by phases variants and wide, stays within its time limit; printed as reduced
-RGB_N = 25000
+# by phases variants, wide, the neural half and train, stays within its time
+# limit; printed as reduced
+RGB_N = 20000
 SEEDS = 8
 TARGET_BLOCK = 65536
 MODULE_BATCH = 256  # the JAX bench's ELS module batch size
@@ -380,6 +423,16 @@ CALIB_KS = (3, 5, 7, 9, 11, 13, 15, 17)
 CALIB_N = 5000
 CALIB_SEEDS = 10
 CALIB_BATCH = 16
+# phase train: the flagship recipe (README cli.train recipe; bench.py:346-367)
+# at batch 128 and the UNet-64 recipe (cli.train_64x64) at batch 64, timed
+# over TRAIN_WINDOWS windows of TRAIN_STEPS chained steps after TRAIN_WARM
+TRAIN_STEPS = 20
+TRAIN_WINDOWS = 3
+TRAIN_WARM = 3
+TRAIN_GATE_BATCH = 8  # gates (a) and (d): the CPU side stays cheap
+# gate (b): 200 steps at the recipe's lr
+LOSS_FALL_N, LOSS_FALL_EPOCHS, LOSS_FALL_LR = 1280, 20, 1e-4
+RESUME_STEPS = 5  # gate (c): 2 x 5 steps straight against 5 + restore + 5
 GOLDENS = Path(__file__).resolve().parent / "tests" / "goldens"
 PICKLE_ATOL, PICKLE_RTOL = 5e-5, 2e-4  # tests/test_convert_pickle.py:39
 
@@ -1300,7 +1353,7 @@ def phase_prune_stress(recs, M=8192, P=65536):
 WIDE_C = 16  # channels of the wide path (phase wide)
 # bank images of the wide 'highest' machine (the 'high' and 'default' ones
 # take half): cut from FULL_N (depth), printed as reduced
-WIDE_N = 10000
+WIDE_N = 8000
 WIDE_T = (0.05, 0.5, 0.95)
 # from this d the plain versions run on a row subset: the split dots' sum
 # step by step, K1's in its own order (both cost seconds a call there)
@@ -2263,7 +2316,8 @@ def device_busy(tag, model, x, label, gen, step_ms, steps=BUSY_STEPS):
     dev_ms = sum(getattr(e, "self_device_time_total", 0) for e in events
                  if e.device_type == DeviceType.CUDA) / 1e3
     launches = sum(e.count for e in events if "LaunchKernel" in e.key) / steps
-    syncs = sum(e.count for e in events if "Synchronize" in e.key)
+    sync_calls = {e.key: e.count for e in events if "Synchronize" in e.key}
+    syncs = sum(sync_calls.values())
     busy = ("not measured (the profiler saw no device time)" if not dev_ms else
             f"{dev_ms / steps:.3f} ms of device time per step over a {span_ms / steps:.3f} "
             f"ms step on the device clock (one profiled {steps}-step window, CUDA events "
@@ -2577,6 +2631,355 @@ def phase_cli_sample():
         fail("cli_sample: the grid is not 2 x 8 tiles of 16x16 RGB, or arrays are missing")
 
 
+# --- phase train -------------------------------------------------------------
+
+
+def conv_dense_flops(model, t, x, label) -> float:
+    """2 x the multiply-adds of every Conv2d, ConvTranspose2d and Linear of
+    one forward, per image, from the shapes their forward hooks see."""
+    total = 0
+
+    def count(m, inp, out):
+        nonlocal total
+        kh, kw = getattr(m, "kernel_size", (1, 1))
+        if isinstance(m, torch.nn.ConvTranspose2d):
+            total += 2 * inp[0].numel() * m.out_channels * kh * kw
+        elif isinstance(m, torch.nn.Conv2d):
+            total += 2 * out.numel() * m.in_channels * kh * kw
+        else:
+            total += 2 * out.numel() * m.in_features
+    kinds = (torch.nn.Conv2d, torch.nn.ConvTranspose2d, torch.nn.Linear)
+    hooks = [m.register_forward_hook(count) for m in model.modules() if isinstance(m, kinds)]
+    with torch.no_grad():
+        model(t, x, label)
+    for h in hooks:
+        h.remove()
+    return total / x.shape[0]
+
+
+def train_data(n, imsize, nlabels, seed, device="cuda"):
+    ds = synthetic_dataset(num_samples=n, image_size=imsize, num_channels=3,
+                           num_classes=nlabels, seed=seed)
+    return (torch.from_numpy(ds.images).to(device),
+            torch.from_numpy(ds.labels.astype(np.int64)).to(device))
+
+
+def train_busy(tag, model, images, labels, step_ms):
+    """One `train_diffusion` epoch of TRAIN_STEPS steps (the loop as a user
+    runs it, the loss read once, at its log step) under torch.profiler,
+    with CUDA events inside: kernel device time over the span (the device-
+    busy share), kernel launches per step, host synchronisations. Fails if
+    more than 3 synchronising calls run in the window (the loss read and
+    the closing synchronise are 2): a sync per step would show."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = images.shape[0] // TRAIN_STEPS
+    config = TrainConfig(epochs=1, batch_size=batch, log_every=TRAIN_STEPS)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        train_diffusion(model, (images, labels), config, conditional=True,
+                        log_fn=lambda s: None)
+        end.record()
+        torch.cuda.synchronize()
+    span_ms = start.elapsed_time(end)
+    events = prof.key_averages()
+    dev_ms = sum(getattr(e, "self_device_time_total", 0) for e in events
+                 if e.device_type == DeviceType.CUDA) / 1e3
+    launches = sum(e.count for e in events if "LaunchKernel" in e.key) / TRAIN_STEPS
+    sync_calls = {e.key: e.count for e in events if "Synchronize" in e.key}
+    syncs = sum(sync_calls.values())
+    busy = ("not measured (the profiler saw no device time)" if not dev_ms else
+            f"{dev_ms / TRAIN_STEPS:.3f} ms of device time per step over a "
+            f"{span_ms / TRAIN_STEPS:.3f} ms step on the device clock (one profiled "
+            f"{TRAIN_STEPS}-step train_diffusion epoch, CUDA events inside it, optimizer "
+            f"set-up included): busy {100 * dev_ms / span_ms:.1f}%; the timed windows' "
+            f"step {step_ms:.3f} ms")
+    print(f"[train] {tag}: {busy}; {launches:.1f} kernel launches per step; {syncs} host "
+          f"synchronisations in the window ({sync_calls}; the log step's loss read and the "
+          f"closing one included)", flush=True)
+    if syncs > 3:
+        fail(f"train: {syncs} host synchronisations in a {TRAIN_STEPS}-step epoch")
+
+
+def train_cell(tag, model, batch, imsize, nlabels, seed):
+    """The recipe's train step at full width: TRAIN_WINDOWS windows of
+    TRAIN_STEPS chained steps (batches of the per-epoch permutation, as
+    train_diffusion takes them) after TRAIN_WARM, each timed by CUDA events:
+    ms per step, images/s, TFLOP/s by 3 x the forward's conv and dense count
+    (the backward's input and weight gradients each cost about one
+    forward), peak memory; then `train_busy`. Returns the median ms."""
+    images, labels = train_data(batch * TRAIN_STEPS, imsize, nlabels, seed)
+    fwd = conv_dense_flops(model, torch.rand(batch, device="cuda"), images[:batch],
+                           labels[:batch])
+    state = TrainState(model, TrainConfig(batch_size=batch, seed=seed))
+    step = make_train_step(state, conditional=True)
+    for _ in range(TRAIN_WARM):
+        step(images[:batch], labels[:batch])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for w in range(TRAIN_WINDOWS):
+        perm = torch.from_numpy(state.rng.permutation(images.shape[0])).cuda()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for i in range(TRAIN_STEPS):
+            idx = perm[i * batch:(i + 1) * batch]
+            loss = step(images[idx], labels[idx])
+        end.record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+        ms.append(start.elapsed_time(end) / TRAIN_STEPS)
+        print(f"[train] {tag} window {w + 1}: {ms[-1]:.3f} ms per step (CUDA events), "
+              f"host wall {wall:.3f} ms per step, last loss {loss.item():.4f}", flush=True)
+        if not torch.isfinite(loss):
+            fail(f"train: {tag}'s loss is not finite")
+    srt = sorted(ms)
+    med = srt[len(srt) // 2]
+    print(f"[train] {tag}, batch {batch}, {imsize}x{imsize}x3: median {med:.3f} ms per step "
+          f"({srt[0]:.3f}-{srt[-1]:.3f}, spread {100 * (srt[-1] - srt[0]) / med:.1f}% of the "
+          f"median), {batch / med * 1e3:.1f} images/s, {3 * fwd * batch / med / 1e9:.2f} "
+          f"TFLOP/s (3 x {fwd / 1e9:.3f} GFLOP per image: the forward's convs and dense "
+          f"layers, counted from their shapes); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    train_busy(tag, model, images, labels, med)
+    return med, fwd
+
+
+def one_step(model, images, labels, t, eps):
+    """Loss, gradients (CPU float64 copies by name) and buffers of one step
+    from the given t and eps, in the model's dtype (images and eps follow
+    it)."""
+    dev, dtype = model.device, next(model.parameters()).dtype
+    state = TrainState(model, TrainConfig())
+    loss = step_with_noise(state, images.to(dev, dtype), labels.to(dev), t.to(dev),
+                           eps.to(dev, dtype), conditional=True)
+    grads = {n: p.grad.detach().double().cpu() for n, p in model.backbone.named_parameters()}
+    bufs = {k: v.detach().cpu() for k, v in model.backbone.named_buffers()}
+    return loss.detach().double().cpu(), grads, bufs
+
+
+def null_biases(backbone) -> set:
+    """Conv biases that a per-channel normalisation right after removes
+    (BatchNorm2d, or GroupNorm with one channel per group): their gradient
+    is zero, so what a step computes for them is rounding noise."""
+    names = set()
+    for name, m in backbone.named_modules():
+        kids = list(m.named_children()) if isinstance(m, torch.nn.Sequential) else []
+        for (a, conv), (_, norm) in zip(kids, kids[1:]):
+            per_channel = isinstance(norm, torch.nn.BatchNorm2d) or (
+                isinstance(norm, torch.nn.GroupNorm) and norm.num_groups == norm.num_channels)
+            if isinstance(conv, torch.nn.Conv2d) and per_channel:
+                names.add(f"{name}.{a}.bias" if name else f"{a}.bias")
+    return names
+
+
+def grad_rel(a: dict, b: dict, skip=()) -> float:
+    """max|a-b| / max|b| over all gradients but `skip` (no floor of 1: they
+    are small)."""
+    keys = [k for k in b if k not in skip]
+    err = max((a[k] - b[k]).abs().max().item() for k in keys)
+    return err / max(b[k].abs().max().item() for k in keys)
+
+
+def step_inputs(n, imsize, nlabels, seed):
+    images, labels = train_data(n, imsize, nlabels, seed, device="cpu")
+    t, eps = draw_noise(images, torch.Generator().manual_seed(seed), 1000)
+    return images, labels, t, eps
+
+
+def step_gate(tag, build, inputs, stats=False):
+    """One train step of `build(device, precision)` on the card at
+    'highest', on the card with TF32 allowed, and on the CPU in float32 and
+    float64, from the same weights, images, t and eps. Float32's own
+    rounding of these gradients reaches ~1e-5 of their scale on the CPU
+    (the flagship's 1.1e-5 against float64, BatchNorm's 6.4e-5), and the
+    card's is a draw of the same size, not the same draw: so the card is
+    held to the float64 step within FP32_TOL plus twice the CPU float32's
+    own distance from it (loss, gradients, and with `stats` the running
+    statistics), and the TF32 step must fall outside that bound; the card
+    against the CPU's float32 prints too. Null conv biases (`null_biases`) are left out of
+    the gradients and printed apart."""
+    ref = one_step(build("cpu", "highest").double(), *inputs)
+    cpu = one_step(build("cpu", "highest"), *inputs)
+    card = one_step(build("cuda", "highest"), *inputs)
+    tf32 = one_step(build("cuda", None), *inputs)
+    skip = null_biases(build("cpu", "highest").backbone)
+
+    def errs(x):
+        e = [rel(x[0], ref[0]), grad_rel(x[1], ref[1], skip)]
+        if stats:
+            e.append(max(rel(x[2][k].double(), ref[2][k].double()) for k in ref[2]
+                         if k.endswith(("running_mean", "running_var"))))
+        return e
+
+    own, got, t32 = errs(cpu), errs(card), errs(tf32)
+    names = ("loss", "gradients", "running statistics")[:len(own)]
+    noise = (max(card[1][k].abs().max().item() for k in skip)
+             / max(ref[1][k].abs().max().item() for k in ref[1]) if skip else 0.0)
+    print(f"[train] {tag}, batch {TRAIN_GATE_BATCH}, against the CPU's float64 step, rel to "
+          f"scale: " + "; ".join(
+              f"{n} card 'highest' {g:.2e} (bound {FP32_TOL:g} + 2 x the CPU float32's own "
+              f"{o:.2e}), TF32 {x:.2e} (must exceed the bound)"
+              for n, g, o, x in zip(names, got, own, t32))
+          + f"; card vs CPU float32: loss {rel(card[0], cpu[0]):.2e}, gradients "
+          f"{grad_rel(card[1], cpu[1], skip):.2e}; {len(skip)} null conv biases left out (the "
+          f"card's rounding noise on them {noise:.2e} of scale)", flush=True)
+    if not all(g <= FP32_TOL + 2 * o for g, o in zip(got, own)):
+        fail(f"train {tag}: the card's 'highest' step is not fp32: past the bound")
+    if not max(x - FP32_TOL - 2 * o for x, o in zip(t32, own)) > 0:
+        fail(f"train {tag}: the TF32 step is within the bound: the gate cannot tell TF32 "
+             "from fp32")
+    return card
+
+
+def gate_step_card_vs_cpu(seed):
+    """(a) The flagship's step (`step_gate`): a backward that leaked TF32
+    at 'highest' would be ~1e-3 off."""
+    step_gate("(a) flagship step",
+              lambda dev, prec: flagship(dev, precision=prec, seed=seed),
+              step_inputs(TRAIN_GATE_BATCH, 32, 10, seed + 7))
+
+
+def gate_loss_falls(seed):
+    """(b) The flagship with TF32 over LOSS_FALL_EPOCHS epochs of
+    LOSS_FALL_N // 128 steps: the last epoch's mean loss below 0.9 x the
+    first's."""
+    images, labels = train_data(LOSS_FALL_N, 32, 10, seed + 6)
+    config = TrainConfig(epochs=LOSS_FALL_EPOCHS, batch_size=128, lr=LOSS_FALL_LR,
+                         log_every=2, seed=seed)
+    t0 = time.perf_counter()
+    state, hist = train_diffusion(flagship("cuda", precision=None, seed=seed),
+                                  (images, labels), config, conditional=True,
+                                  log_fn=lambda s: None)
+    print(f"[train] (b) flagship TF32, {state.step} steps of batch 128 over {LOSS_FALL_N} "
+          f"images, lr {LOSS_FALL_LR:g}, in {time.perf_counter() - t0:.2f} s: epoch mean "
+          f"losses {hist[0]:.4f} -> {hist[-1]:.4f} (must fall below 0.9x)", flush=True)
+    if not (np.isfinite(hist).all() and hist[-1] < 0.9 * hist[0]):
+        fail(f"train (b): the loss did not fall: {hist}")
+
+
+def gate_resume(seed):
+    """(c) Under cudnn.deterministic: 2 x RESUME_STEPS flagship steps at
+    'highest' straight against RESUME_STEPS, a checkpoint, a restore into a
+    model of other weights and RESUME_STEPS more: weights and AdamW state
+    bit for bit."""
+    images, labels = train_data(128 * RESUME_STEPS, 32, 10, seed + 8)
+    root = SCRATCH / "train_resume"
+    shutil.rmtree(root, ignore_errors=True)
+    prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        cfg = dict(batch_size=128, save_interval=1, seed=seed)
+        run = functools.partial(train_diffusion, dataset=(images, labels), conditional=True,
+                                log_fn=lambda s: None)
+        whole, _ = run(flagship("cuda", seed=seed), config=TrainConfig(epochs=2, **cfg))
+        run(flagship("cuda", seed=seed), config=TrainConfig(epochs=1, **cfg),
+            checkpoint_dir=str(root))
+        resumed, _ = run(flagship("cuda", seed=seed + 1), config=TrainConfig(epochs=1, **cfg),
+                         resume_from=str(root))
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev
+    a, b = resumed.model.backbone.state_dict(), whole.model.backbone.state_dict()
+    worst = max((a[k].double() - b[k].double()).abs().max().item() for k in a)
+    oa, ob = resumed.optimizer.state_dict()["state"], whole.optimizer.state_dict()["state"]
+    same = all(torch.equal(a[k], b[k]) for k in a) and all(
+        torch.equal(oa[i][k], ob[i][k]) for i in ob for k in ob[i])
+    print(f"[train] (c) resume under cudnn.deterministic: {2 * RESUME_STEPS} flagship steps "
+          f"straight against {RESUME_STEPS} + checkpoint + restore + {RESUME_STEPS} (step "
+          f"{resumed.step}): weights and AdamW moments bit-equal {same} (max |diff| "
+          f"{worst:.3e})", flush=True)
+    if not same:
+        fail("train (c): the resumed run is not the unbroken one bit for bit")
+
+
+def gate_batchnorm(seed):
+    """(d) One step of the UNet-64 recipe's widths with BatchNorm (32x32)
+    through `step_gate`, running statistics included; every
+    num_batches_tracked 1 on the card."""
+
+    def net(dev, precision):
+        return DiffusionModel(MinimalUNet(**dict(UNET64, normalization="BatchNorm",
+                                                 precision=precision)),
+                              in_channels=3, default_imsize=32, seed=seed, device=dev)
+
+    inputs = step_inputs(TRAIN_GATE_BATCH, 32, 2, seed + 9)
+    card = step_gate(f"(d) BatchNorm UNet (fsizes {UNET64['fsizes']}, 32x32) step", net,
+                     inputs, stats=True)
+    if not all(int(v) == 1 for k, v in card[2].items() if k.endswith("num_batches_tracked")):
+        fail("train (d): BatchNorm's num_batches_tracked is not 1 after one step")
+    # information: the same step with cuDNN's BatchNorm, which models.layers
+    # .BatchNorm keeps out
+    ref = one_step(net("cpu", "highest").double(), *inputs)
+    inner, tlayers.without_cudnn = tlayers.without_cudnn, contextlib.nullcontext
+    try:
+        cudnn_bn = one_step(net("cuda", "highest"), *inputs)
+    finally:
+        tlayers.without_cudnn = inner
+    skip = null_biases(net("cpu", "highest").backbone)
+    print(f"[train] (d) information: the same card step through cuDNN's BatchNorm: "
+          f"gradients rel {grad_rel(cudnn_bn[1], ref[1], skip):.2e} from the float64 step "
+          f"(PyTorch's own kernel, above: {grad_rel(card[1], ref[1], skip):.2e})", flush=True)
+
+
+def gate_cli(seed):
+    """(e) cli.train (the flagship recipe's flags) for one epoch of
+    --dataset synthetic with a checkpoint, then cli.sample --modelfile on
+    that directory: the checkpoint's step, the PNG grid and finite
+    samples."""
+    home = SCRATCH / "train_cli"
+    shutil.rmtree(home, ignore_errors=True)
+    t0 = time.perf_counter()
+    state = cli_train.main(["--dataset", "synthetic", "--epochs", "1", "--resnet", "--layers",
+                            "8", "--mode", "zeros", "--conditional", "--saveinterval", "1",
+                            "--seed", str(seed), "--homedir", str(home), "--suppress"])
+    (ckpt,) = home.iterdir()
+    blob = restore_checkpoint(str(ckpt))
+    png = SCRATCH / "train_cli_samples.png"
+    out = cli_sample.main(["--modelfile", str(ckpt), "--conditional", "--out", str(png)])
+    shape = png_shape(png)
+    print(f"[train] (e) cli.train --dataset synthetic --epochs 1 --resnet --layers 8 --mode "
+          f"zeros --conditional: {state.step} steps, checkpoint {ckpt.name}/step_"
+          f"{blob['meta']['step']}; cli.sample --modelfile on it: {out.shape[0]} samples, "
+          f"{png.name} decodes to {shape}; {time.perf_counter() - t0:.2f} s", flush=True)
+    if not blob["meta"]["step"] == state.step == 2:
+        fail("train (e): the checkpoint's step is not the run's (2)")
+    if out.shape != (16, 32, 32, 3) or not np.isfinite(out).all() or shape != (64, 256, 3):
+        fail("train (e): the samples are not a finite [16, 32, 32, 3] array in a 2 x 8 grid")
+
+
+def phase_train(seed):
+    """Training on the card (cuDNN, cuBLAS and PyTorch's fused AdamW: the
+    JAX trainer has no Pallas kernel, and no flash-score kernel may run):
+    gates (a)-(e), then the flagship recipe's step at 'highest' and with
+    TF32, and the UNet-64 recipe's at 'highest'."""
+    reset_launches()
+    gate_step_card_vs_cpu(seed)
+    gate_loss_falls(seed)
+    gate_resume(seed)
+    gate_batchnorm(seed)
+    gate_cli(seed)
+    ms = {}
+    for precision in ("highest", None):
+        tag = "flagship 'highest'" if precision else "flagship TF32"
+        ms[precision], fwd = train_cell(tag, flagship("cuda", precision=precision, seed=seed),
+                                        128, 32, 10, seed)
+    print(f"[train] the bench's forward count {FLAGSHIP_FLOPS_PER_IMG_STEP / 1e9:.3f} GFLOP "
+          f"per image against the hooks' {fwd / 1e9:.3f}; TF32 against 'highest': "
+          f"{ms['highest'] / ms[None]:.2f}x images/s", flush=True)
+    unet = DiffusionModel(MinimalUNet(**UNET64), in_channels=3, default_imsize=64, seed=seed,
+                          device="cuda")
+    train_cell("UNet-64 'highest'", unet, 64, 64, 2, seed)
+    del unet
+    torch.cuda.empty_cache()
+    ran = {key: n for key, n in fs.flash_score_update.launches.items() if n}
+    print(f"[train] flash-score launches in the phase: {ran or 0}", flush=True)
+    if ran:
+        fail(f"train: the training path launched flash-score kernels: {ran}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=RGB_N,
@@ -2677,6 +3080,8 @@ def main(argv=None) -> int:
         recs[key]["max_abs_err"] = max(recs[key]["max_abs_err"], e)
     print(f"[time] {time.perf_counter() - t_start:.1f} s so far", flush=True)
     phase_cli_sample()
+    print(f"[time] {time.perf_counter() - t_start:.1f} s so far", flush=True)
+    phase_train(args.seed)
     print(f"[time] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     never = [key for key in recs if not path.get(key) and not keyword_only(key)]
     if never:

@@ -12,12 +12,14 @@ IS modules at every precision tier, driven by `ScheduledScoreMachine`),
 `data`, `pipeline` and `cli.els`; and the neural serving half: the
 backbones (`models`), reference pickles and JAX params carried across
 (`convert`), the DDIM/DDPM samplers (`sampling`, `cli.sample`) and scale
-calibration against the CNN (`calibration`, `cli.calibrate`). Training,
-`parallel/` and `analysis/` are not ported yet. Entry points run on `cuda`
-unless the caller passes `device="cpu"`; without a card they raise. On a
-CUDA tensor the flash-score sweep launches the hand-written Hopper kernels
-in `ops/csrc/`; on a CPU tensor it runs their plain PyTorch versions. The
-backbones run cuDNN and cuBLAS (the JAX models have no Pallas kernel).
+calibration against the CNN (`calibration`, `cli.calibrate`); and training
+(`training`, resumable checkpoints in `utils.checkpoint`, `cli.train`,
+`cli.train_64x64`). `parallel/` and `analysis/` are not ported yet. Entry
+points run on `cuda` unless the caller passes `device="cpu"`; without a card
+they raise. On a CUDA tensor the flash-score sweep launches the hand-written
+Hopper kernels in `ops/csrc/`; on a CPU tensor it runs their plain PyTorch
+versions. The backbones and their training run cuDNN, cuBLAS and PyTorch's
+fused AdamW (the JAX models and trainer have no Pallas kernel).
 
 Submodules are imported explicitly (`from convolutional_diffusion_tpu_torch
 import scores`); importing the package itself loads nothing else.

@@ -1,12 +1,16 @@
 """Shared CLI helpers. Counterpart of `convolutional_diffusion_tpu/cli/common.py`:
-the score-module factory, backbone construction from the training flags and
-model loading from reference `.pt` pickles. Checkpoint names, config
-metadata and the torch state_dict export come with the training slice."""
+the score-module factory, backbone construction from the training flags,
+checkpoint names and architecture metadata, model loading from reference
+`.pt` pickles and from this package's checkpoint directories, and the torch
+state_dict export."""
 
 from __future__ import annotations
 
+import json
 import os
 from typing import Optional
+
+import torch
 
 
 def build_backbone_from_flags(metadata, *, resnet: bool, mode: str, mult: int,
@@ -26,24 +30,105 @@ def build_backbone_from_flags(metadata, *, resnet: bool, mode: str, mult: int,
     return MinimalUNet(fsizes=tuple(mult * 32 * (2**i) for i in range(layers)), **common)
 
 
+def checkpoint_name_from_flags(metadata, args, subset_flag: bool) -> str:
+    """The reference's auto-generated checkpoint filename
+    (scripts/training_script.py:46-61)."""
+    fname = "MinimalResNet_" if args.resnet else "MinimalUNet_"
+    fname += (
+        metadata["name"]
+        + f"_{args.mode}_lr_{args.lr}_batchsize_{args.batchsize}_wd_{args.wd}"
+    )
+    if subset_flag:
+        fname += f"_maxsamps_{args.maxsamps}"
+    if args.conditional:
+        fname += "_conditional"
+    if args.nonorm:
+        fname += "_nonorm"
+    if args.mult != 1:
+        fname += f"_mult_{args.mult}"
+    return fname
+
+
 def load_model(path: str, device=None):
     """A trained `models.DiffusionModel` on `device` (default cuda; without
-    a card that is an error) from a reference `.pt` whole pickle. The JAX
-    package's Orbax checkpoint directories are not read: the port's own
-    checkpoint format comes with the training slice (ROADMAP item 4)."""
+    a card that is an error), in eval() mode, from a reference `.pt` whole
+    pickle or from one of this package's checkpoint directories (a
+    `step_N` directory or the directory holding them: the latest step),
+    which store the architecture in their metadata. The JAX package's Orbax
+    directories are not read."""
     from ..convert import diffusion_model_from_torch_pickle
+    from ..models import DiffusionModel, MinimalResNet, MinimalUNet
+    from ..schedules import cosine_noise_schedule
     from ..scores.base import resolve_device
+    from ..utils.checkpoint import restore_checkpoint
 
     dev = resolve_device(device)
-    if os.path.isdir(path):
-        raise ValueError(
-            f"{path} is a checkpoint directory (the JAX package's Orbax format); "
-            "the port reads reference .pt pickles, and its own checkpoints come "
-            "with the training slice (ROADMAP item 4)"
+    if not os.path.isdir(path):
+        if not path.endswith(".pt"):
+            raise ValueError(f"{path}: expected a reference .pt whole pickle or a "
+                             "checkpoint directory")
+        return diffusion_model_from_torch_pickle(path, device=dev)
+    blob = restore_checkpoint(path)
+    cfg = blob.get("meta", {}).get("model_config")
+    if cfg is None:
+        raise ValueError(f"{path} has no model_config metadata; re-save with cli.train or "
+                         "pass a reference .pt file")
+    cfg = json.loads(cfg) if isinstance(cfg, str) else dict(cfg)
+    kind = cfg.pop("kind")
+    in_channels = cfg.pop("in_channels")
+    imsize = cfg.pop("default_imsize")
+    net = MinimalResNet(**cfg) if kind == "MinimalResNet" else MinimalUNet(**cfg)
+    model = DiffusionModel(net, noise_schedule=cosine_noise_schedule,
+                           in_channels=in_channels, default_imsize=imsize, device=dev)
+    model.backbone.load_state_dict(blob["state"]["params"], strict=True)
+    return model
+
+
+def model_config_meta(backbone, in_channels: int, imsize: int) -> str:
+    """The architecture as checkpoint metadata (JSON), as the JAX package
+    writes it."""
+    from ..models import MinimalResNet
+
+    if isinstance(backbone, MinimalResNet):
+        cfg = dict(
+            kind="MinimalResNet",
+            channels=backbone.channels,
+            emb_dim=backbone.emb_dim,
+            mode=backbone.mode,
+            normalization=backbone.normalization,
+            conditional=backbone.conditional,
+            num_classes=backbone.num_classes,
+            kernel_size=backbone.kernel_size,
+            num_layers=backbone.num_layers,
+            lastksize=backbone.lastksize,
+            add_one=backbone.add_one,
         )
-    if not path.endswith(".pt"):
-        raise ValueError(f"{path}: expected a reference .pt whole pickle")
-    return diffusion_model_from_torch_pickle(path, device=dev)
+    else:
+        cfg = dict(
+            kind="MinimalUNet",
+            channels=backbone.channels,
+            fsizes=list(backbone.fsizes) if backbone.fsizes else None,
+            mode=backbone.mode,
+            conditional=backbone.conditional,
+            num_classes=backbone.num_classes,
+            emb_dim=backbone.emb_dim,
+            normalization=backbone.normalization,
+            last_norm=backbone.last_norm,
+            kernel_size=backbone.kernel_size,
+            lastksize=backbone.lastksize,
+        )
+    cfg["in_channels"] = in_channels
+    cfg["default_imsize"] = imsize
+    return json.dumps(cfg)
+
+
+def export_torch_state_dict(backbone, *, path: str, log=print):
+    """Save the trained backbone's weights as a reference-loadable torch
+    state_dict (`backbone.load_state_dict(torch.load(path))` in the
+    reference). The port's backbones keep the reference's layout, so this
+    is their own state_dict, on the CPU."""
+    torch.save({k: v.detach().cpu() for k, v in backbone.state_dict().items()}, path)
+    log(f"exported torch state_dict to {path}")
 
 
 def build_score_module(kind: str, dataset_tuple, *, batch_size: int,

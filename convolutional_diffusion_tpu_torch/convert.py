@@ -3,8 +3,9 @@
 Counterpart of `convolutional_diffusion_tpu/convert.py` (and of the scales
 loader in its `cli/els.py`): the cached patch banks (plain and clustered),
 the calibrated scales files (`.json`, `.npy`, `.pt`), the reference's whole
-`backbone_*.pt` pickles (unpickled without its code) and the JAX package's
-flax params. Everything crosses as numpy arrays or CPU tensors.
+`backbone_*.pt` pickles (unpickled without its code), the JAX package's
+flax params and its optax AdamW state. Everything crosses as numpy arrays
+or CPU tensors.
 
 Layouts: the port's backbones keep the reference's torch layout, so a
 reference state_dict loads as it is; flax params cross through
@@ -289,7 +290,10 @@ def diffusion_model_from_torch_pickle(path: str, device=None, precision="highest
 
 
 def _t(a) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, np.float32, copy=True))
+    """A float32 CPU tensor in C order: a transposed view's strides would
+    otherwise carry over, and the fused optimizer takes its moments
+    contiguous."""
+    return torch.from_numpy(np.array(a, np.float32, copy=True, order="C"))
 
 
 def _put_conv(sd, prefix, entry):
@@ -385,3 +389,61 @@ def unet_state_dict_from_jax_params(
         _put_norm(sd, "last_normalizer", params["last_normalizer"],
                   bstats.get("last_normalizer"))
     return sd
+
+
+# ---------------------------------------------------------------------------
+# JAX (optax) optimizer state -> the port's AdamW and ExponentialLR
+# ---------------------------------------------------------------------------
+
+
+def _entries(tree):
+    """The parts of an optax chain state: a tuple of namedtuples, or what
+    Orbax restores without a target (lists, dicts keyed '0', '1', ...)."""
+    if isinstance(tree, Mapping):
+        return [tree[k] for k in sorted(tree, key=int)]
+    return list(tree)
+
+
+def _field(entry, name):
+    if isinstance(entry, Mapping):
+        return entry.get(name)
+    return getattr(entry, name, None)
+
+
+def adamw_state_from_jax(opt_state, optimizer, scheduler, backbone,
+                         to_state_dict) -> int:
+    """Load the JAX package's optimizer state (optax `adamw` with an
+    exponential schedule, `training.make_optimizer`; leaves as numpy
+    arrays) into the port's AdamW `optimizer` over `backbone`'s parameters
+    and its ExponentialLR `scheduler` (both from the port's
+    `training.make_optimizer`), so that a JAX run resumes in the port.
+    `to_state_dict` maps a tree shaped like the flax params to the port's
+    state_dict, e.g. `functools.partial(resnet_state_dict_from_jax_params,
+    num_layers=8, conditional=True)`: the moments mu and nu take the
+    params' layout moves (conv and dense transposes, the ConvTranspose
+    flip). The schedule moves to lr * gamma^count. Returns count, the step."""
+    adam = next((e for e in _entries(opt_state)
+                 if _field(e, "mu") is not None and _field(e, "nu") is not None), None)
+    if adam is None:
+        raise ValueError("no optax ScaleByAdamState (count, mu, nu) in the optimizer state")
+    count = int(np.asarray(_field(adam, "count")))
+    mu, nu = to_state_dict(_field(adam, "mu")), to_state_dict(_field(adam, "nu"))
+    names = {id(p): n for n, p in backbone.named_parameters()}
+    sd = optimizer.state_dict()
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    if set(names) != {id(p) for p in params}:
+        raise ValueError("the optimizer does not hold exactly the backbone's parameters")
+    sd["state"] = {
+        i: {"step": torch.tensor(float(count)), "exp_avg": mu[names[id(p)]].reshape(p.shape),
+            "exp_avg_sq": nu[names[id(p)]].reshape(p.shape)}
+        for i, p in enumerate(params)
+    }
+    optimizer.load_state_dict(sd)
+    gamma = scheduler.gamma
+    lrs = [base * gamma ** count for base in scheduler.base_lrs]
+    for group, lr in zip(optimizer.param_groups, lrs):
+        group["lr"] = lr
+    sched = scheduler.state_dict()
+    sched.update(last_epoch=count, _last_lr=lrs)
+    scheduler.load_state_dict(sched)
+    return count

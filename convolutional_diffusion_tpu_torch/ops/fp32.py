@@ -8,7 +8,8 @@ The score logits are scaled by 1/(2 beta^2), which turns a TF32 rounding
 prune bounds by tens of log2 units; the backbones at 'highest' are held to
 true fp32 like the JAX models. So every product outside the flash-score
 kernels goes through `true_fp32`. This module is the port's one switch of
-both flags.
+both flags, and of cuDNN itself where its fp32 kernels lose precision
+(`without_cudnn`).
 """
 
 from __future__ import annotations
@@ -36,6 +37,19 @@ def true_fp32():
     """Within `with`, fp32 matrix products and convolutions stay fp32: TF32
     off for both, the previous settings restored after."""
     return tf32_products(False)
+
+
+@contextlib.contextmanager
+def without_cudnn():
+    """Within `with`, PyTorch's own CUDA kernels run in place of cuDNN's;
+    the previous setting is restored after. An op's backward is the one of
+    the kernel its forward ran, so this need not cover the backward."""
+    prev = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.enabled = prev
 
 
 def fp32_einsum(spec: str, *operands: torch.Tensor) -> torch.Tensor:

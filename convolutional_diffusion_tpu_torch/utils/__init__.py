@@ -1,1 +1,1 @@
-"""Utilities: image grids (`visualize`)."""
+"""Utilities: image grids (`visualize`) and resumable checkpoints (`checkpoint`)."""

@@ -10,7 +10,10 @@ is present. On the card:
 The neural half's card tests close the file: the backbones at 'highest' on
 the card against the CPU (1e-3 relative to scale), and `ops.fp32`'s
 switch, which must turn cuDNN's TF32 off (a 256-channel conv within 1e-5
-of float64) and restore both flags.
+of float64) and restore both flags; then training: one train step card
+against CPU within 1e-5 (loss, gradients, BatchNorm statistics; TF32 must
+exceed it), the TF32 flags as the step's backward sees them, and a resumed
+run bit-equal to an unbroken one under cudnn.deterministic.
 
 Tolerance: the repo's parity rule on the offset-invariant quantities,
 max|a-b| / max(|a|,|b|,1) <= 1e-3 for the log total weight m + log s1 and
@@ -746,3 +749,139 @@ def test_backbone_on_the_card_matches_cpu(kind):
     assert _rel_scale(card, cpu) <= 1e-3
     assert _rel_scale(card, cpu) <= 1e-5
     assert _rel_scale(tf32, cpu) > 1e-5
+
+
+# --- the training half on the card ---------------------------------------------
+
+
+def _train_model(device, precision="highest", normalization=None, seed=3):
+    from convolutional_diffusion_tpu_torch.models import (
+        DiffusionModel,
+        MinimalResNet,
+        MinimalUNet,
+    )
+
+    if normalization == "BatchNorm":
+        net = MinimalUNet(channels=3, fsizes=(64, 128, 256), mode="zeros", conditional=True,
+                          num_classes=10, lastksize=3, normalization="BatchNorm",
+                          precision=precision)
+    else:
+        net = MinimalResNet(channels=3, emb_dim=128, num_layers=3, mode="zeros",
+                            conditional=True, num_classes=10, lastksize=3, precision=precision)
+    return DiffusionModel(net, seed=seed, device=device)
+
+
+def _train_inputs(b=4, seed=4):
+    from convolutional_diffusion_tpu_torch.training import draw_noise
+
+    g = torch.Generator().manual_seed(seed)
+    images = torch.rand(b, 32, 32, 3, generator=g) * 2 - 1
+    labels = torch.randint(0, 10, (b,), generator=g)
+    return (images, labels, *draw_noise(images, g, 1000))
+
+
+def _one_step(model, images, labels, t, eps):
+    """Loss, gradients by name and buffers (CPU float64) of one step in the
+    model's dtype."""
+    from convolutional_diffusion_tpu_torch.training import (
+        TrainConfig,
+        TrainState,
+        step_with_noise,
+    )
+
+    dev, dtype = model.device, next(model.parameters()).dtype
+    loss = step_with_noise(TrainState(model, TrainConfig()), images.to(dev, dtype),
+                           labels.to(dev), t.to(dev), eps.to(dev, dtype), conditional=True)
+    grads = {n: p.grad.double().cpu() for n, p in model.backbone.named_parameters()}
+    return loss.double().cpu(), grads, {k: v.double().cpu()
+                                        for k, v in model.backbone.named_buffers()}
+
+
+def _grad_rel(a, b, skip=()):
+    keys = [k for k in b if k not in skip]
+    return (max((a[k] - b[k]).abs().max().item() for k in keys)
+            / max(b[k].abs().max().item() for k in keys))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("normalization", [None, "BatchNorm"])
+def test_train_step_on_the_card_matches_cpu(normalization):
+    """One train step at 'highest' on the card and on the CPU from the same
+    weights, images, t and eps, each against the CPU's float64 step: the
+    card's loss, gradients (and BatchNorm's running statistics) within 1e-5
+    of it plus twice the CPU float32's own distance from it (float32's
+    rounding of these gradients alone reaches ~1e-5 of their scale, and
+    the card's is a draw of that size, not the same draw); with TF32
+    allowed the step falls outside that bound. The BatchNorm UNet's conv
+    biases, whose gradient BatchNorm zeroes, are left out."""
+    dev = _need_cuda()
+    inputs = _train_inputs()
+    ref = _one_step(_train_model("cpu", normalization=normalization).double(), *inputs)
+    cpu = _one_step(_train_model("cpu", normalization=normalization), *inputs)
+    card = _one_step(_train_model(dev, normalization=normalization), *inputs)
+    tf32 = _one_step(_train_model(dev, None, normalization), *inputs)
+    skip = ({n for n in ref[1] if n.endswith(("model.0.bias", "model.3.bias"))}
+            if normalization else set())
+
+    def errs(x):
+        stats = [_rel_scale(x[2][k], ref[2][k]) for k in ref[2] if "running" in k]
+        return [_rel_scale(x[0], ref[0]), _grad_rel(x[1], ref[1], skip), max(stats, default=0)]
+
+    own, got, t32 = errs(cpu), errs(card), errs(tf32)
+    assert all(e <= 1e-5 + 2 * o for e, o in zip(got, own)), (got, own)
+    assert any(e > 1e-5 + 2 * o for e, o in zip(t32, own)), (t32, own)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision,allowed", [("highest", False), (None, True)])
+def test_tf32_flags_inside_the_backward_on_the_card(precision, allowed):
+    """The flags as a conv's gradient hook reads them while autograd runs
+    the step's backward on the card (its own thread)."""
+    from convolutional_diffusion_tpu_torch.training import (
+        TrainConfig,
+        TrainState,
+        step_with_noise,
+    )
+
+    dev = _need_cuda()
+    model = _train_model(dev, precision)
+    seen = []
+
+    def on_forward(module, args, out):
+        out.register_hook(lambda g: seen.append(
+            (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)))
+
+    model.backbone.up_projection.register_forward_hook(on_forward)
+    images, labels, t, eps = (x.to(dev) for x in _train_inputs())
+    step_with_noise(TrainState(model, TrainConfig()), images, labels, t, eps, conditional=True)
+    assert seen == [(allowed, allowed)]
+
+
+@pytest.mark.cuda
+def test_resume_on_the_card_is_bit_for_bit(tmp_path):
+    """Under cudnn.deterministic, 2 epochs straight against 1 epoch, a
+    checkpoint, a restore into a model of other weights and 1 more: the
+    same weights and AdamW moments, bit for bit."""
+    from convolutional_diffusion_tpu_torch.training import TrainConfig, train_diffusion
+
+    dev = _need_cuda()
+    g = torch.Generator().manual_seed(5)
+    data = (torch.rand(64, 32, 32, 3, generator=g) * 2 - 1, torch.randint(0, 10, (64,),
+                                                                          generator=g))
+    cfg = dict(batch_size=16, save_interval=1, seed=2)
+    kw = dict(conditional=True, log_fn=lambda s: None)
+    prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        whole, _ = train_diffusion(_train_model(dev), data, TrainConfig(epochs=2, **cfg), **kw)
+        train_diffusion(_train_model(dev), data, TrainConfig(epochs=1, **cfg),
+                        checkpoint_dir=str(tmp_path), **kw)
+        resumed, _ = train_diffusion(_train_model(dev, seed=8), data,
+                                     TrainConfig(epochs=1, **cfg), resume_from=str(tmp_path),
+                                     **kw)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev
+    a, b = resumed.model.backbone.state_dict(), whole.model.backbone.state_dict()
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    oa, ob = resumed.optimizer.state_dict()["state"], whole.optimizer.state_dict()["state"]
+    assert all(torch.equal(oa[i][k], ob[i][k]) for i in ob for k in ob[i])

@@ -50,7 +50,8 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "pipeline", "convert", "cli.common", "cli.els", "models", "models.ddim",
                 "models.embedding", "models.layers", "models.resnet", "models.unet",
                 "sampling", "calibration", "cli.sample", "cli.calibrate",
-                "utils.visualize"):
+                "utils.visualize", "training", "utils.checkpoint", "cli.train",
+                "cli.train_64x64"):
         assert f"convolutional_diffusion_tpu_torch.{mod}" in res["imported"]
     for mod in ("ops.flash_score", "ops.prune"):
         assert f"convolutional_diffusion_tpu_torch.{mod}" in res["imported"]
