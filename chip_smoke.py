@@ -246,6 +246,31 @@ Phases, each printing its own lines; any failure exits non-zero:
               peak memory; and one profiled 20-step train_diffusion epoch:
               the device-busy share, kernel launches per step, host
               synchronisations (more than 3 fail the phase).
+14. parallel — parallel/ over torch.distributed (after train). (a) NCCL with
+              one rank, in this process: the sharded ELS module (N = 2000)
+              at k = 3, 9, 17 and one data-parallel flagship step at batch
+              128 (cudnn.deterministic) equal the unsharded ones bit for
+              bit. (b) Two gloo ranks sharing cuda:0 (this script, started
+              twice with --parallel-worker; NCCL refuses two ranks on one
+              device), each with half the 48 GiB bank ledger, against one
+              process on the same card and data: the sharded ELS 'highest'
+              machine (N = 4000) and bbELS 'high' machine (N = 2000), 20
+              steps, 8 seeds, CIFAR10 scales, at 1e-3 (printed beside one
+              score call's distance); one IS and one LS call at the devices
+              phase's sizes at 1e-5; three data-parallel flagship steps
+              (batch 128 as 2 x 64) and one BatchNorm UNet step (UNet-64
+              widths, 32x32, batch 16 as 2 x 8): losses at 1e-5, the first
+              step's averaged gradients within 1e-5 + 2x the one-process
+              float32's own distance of a float64 step, weights (running
+              statistics included) after 1 and 3 steps at 1e-5 of scale,
+              the components without a gradient AdamW resolves (float64
+              gradient within float32's error, or a float64 or float32
+              gradient within 1e-6) within AdamW's step bound and counted; sample_sharded of the flagship's 20-step
+              DDIM, 8 seeds over 2 ranks, against sample at 1e-5. A rank
+              that fails or outlives 600 s fails the run. Information: the
+              sharded walls beside the one-process walls, all-reduces and
+              bytes per score call, each rank's launches (added to the path
+              counts) and peak memory, the phase's seconds.
 
 The kernels line lists every variant checked; the variants no module path
 reaches ('inbank' at 'highest'/'high', the bf16 exponential after fp32
@@ -254,7 +279,7 @@ through keywords or an environment override, carry their path launches
 (0) and are exempt from the rule that each listed variant ran on the
 paths.
 
-Artifacts of phases 7, 8, 12 and 13 go to build/chip_smoke/ (git-ignored). The
+Artifacts of phases 7, 8, 12, 13 and 14 go to build/chip_smoke/ (git-ignored). The
 card's name and power limit print as the first line, the kernels JSON
 record as the second-to-last, and {"ok": true, "device": {...}} as the
 last. Without a CUDA device it exits non-zero and prints no result.
@@ -293,6 +318,7 @@ from convolutional_diffusion_tpu_torch.ops import _build
 from convolutional_diffusion_tpu_torch.ops import flash_score as fs
 from convolutional_diffusion_tpu_torch.ops import prune as pr
 from convolutional_diffusion_tpu_torch.ops.fp32 import true_fp32
+from convolutional_diffusion_tpu_torch.parallel import mesh as pm
 from convolutional_diffusion_tpu_torch.ops.patches import (
     center_index,
     extract_patches,
@@ -324,6 +350,7 @@ from convolutional_diffusion_tpu_torch.training import (
     TrainConfig,
     TrainState,
     draw_noise,
+    global_loss,
     make_train_step,
     step_with_noise,
     train_diffusion,
@@ -333,8 +360,8 @@ from convolutional_diffusion_tpu_torch.utils.checkpoint import restore_checkpoin
 CIFAR10_SCALES = [3, 3, 3, 3, 5, 5, 5, 7, 7, 7, 7, 9, 9, 11, 11, 13, 15, 17, 17, 17]
 FULL_N = 50000  # the published bank depth (the JAX bench's 50k CIFAR10 bank)
 # bank images of the RGB machines: cut from FULL_N so that the script, grown
-# by phases variants, wide, the neural half and train, stays within its time
-# limit; printed as reduced
+# by phases variants, wide, the neural half, train and parallel, stays within
+# its time limit; printed as reduced
 RGB_N = 20000
 SEEDS = 8
 TARGET_BLOCK = 65536
@@ -2980,6 +3007,388 @@ def phase_train(seed):
         fail(f"train: the training path launched flash-score kernels: {ran}")
 
 
+# phase parallel: parallel/ over torch.distributed. A one-card machine runs
+# NCCL with one rank only (it refuses two ranks on one device), so (a) is
+# NCCL in this process with one rank, and (b) two gloo ranks sharing cuda:0
+# (gloo stages CUDA tensors through the host) run the multi-rank logic with
+# the real kernels, each rank with half the bank ledger
+PAR_ELS_N = 4000  # the sharded ELS 'highest' machine's bank images (of 50000)
+PAR_BBELS_N = 2000  # the sharded bbELS 'high' machine's
+PAR_TRAIN_BATCH = 128  # the flagship recipe's batch, 64 + 64 over the ranks
+PAR_BN_BATCH = 16  # the BatchNorm UNet step's, 8 + 8
+PAR_TRAIN_STEPS = 3
+PAR_TOL = 1e-5  # score calls, train steps and samples against one process
+PAR_TIMEOUT = 600  # seconds the worker pair may take
+
+
+def par_data(seed):
+    ds = synthetic_dataset(num_samples=PAR_ELS_N, image_size=32, num_channels=3,
+                           seed=seed + 11)
+    x = torch.randn((SEEDS, 32, 32, 3), generator=torch.Generator().manual_seed(seed + 12))
+    return ds, x
+
+
+def par_machines(ds, x, mesh, ledger_bytes):
+    """The ELS 'highest' machine over PAR_ELS_N images and the bbELS 'high'
+    machine over PAR_BBELS_N, 20 steps, CIFAR10 scales, 8 seeds: one process
+    (mesh None) or sharded over the mesh. Returns outputs (and each module's
+    one call at t = 0.5, k = 9 before), walls and all-reduces (calls, bytes)
+    per score call."""
+    outs, walls, per_call = {}, {}, {}
+    for tag, kind, precision, n in (("els", "ELS", "highest", PAR_ELS_N),
+                                    ("bbels", "bbELS", "high", PAR_BBELS_N)):
+        mod = build_score_module(kind, (ds.images[:n], ds.labels[:n]),
+                                 batch_size=MODULE_BATCH, image_size=32, channels=3,
+                                 schedule=cosine_noise_schedule, precision=precision,
+                                 target_block=TARGET_BLOCK, bank_ledger=BankLedger(ledger_bytes),
+                                 device=None if mesh else "cuda", mesh=mesh)
+        machine = ScheduledScoreMachine(mod, in_channels=3, imsize=32, scales=CIFAR10_SCALES)
+        outs[f"{tag} call"] = mod(0.5, x.cuda(), k=9).cpu()
+        pm.reset_collectives()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[tag] = machine(x.cuda()).cpu()
+        walls[tag] = time.perf_counter() - t0
+        calls = len(CIFAR10_SCALES) - 1
+        per_call[tag] = (pm.COLLECTIVES["all_reduce"] / calls,
+                         pm.COLLECTIVES["all_reduce_bytes"] / calls)
+        del mod, machine
+        torch.cuda.empty_cache()
+    return outs, walls, per_call
+
+
+def par_scores(seed, mesh):
+    """One IS and one LS (k = 5, order pinned) call at the devices phase's
+    sizes."""
+    small = synthetic_dataset(num_samples=64, image_size=16, num_channels=3, seed=seed + 1)
+    x = np.random.RandomState(seed).normal(size=(2, 16, 16, 3)).astype(np.float32)
+    out = {}
+    for kind in ("IS", "LS"):
+        mod = build_score_module(kind, (small.images, small.labels), batch_size=16,
+                                 image_size=16, channels=3, schedule=cosine_noise_schedule,
+                                 device=None if mesh else "cuda", mesh=mesh)
+        out[kind] = mod(0.5, x, k=5, order=np.arange(64)).cpu()
+    return out
+
+
+def par_steps(build, batch, nlabels, steps, seed, mesh):
+    """`steps` train steps of `build()` at `batch` ('highest', conditional)
+    from seeded weights, images, t and eps, data-parallel over the mesh or
+    in one process: the losses, the weights before each step and after the
+    last, the (averaged) gradients of each step, and the draws."""
+    images, labels = train_data(batch, 32, nlabels, seed + 13)
+    g = torch.Generator(device="cuda").manual_seed(seed + 14)
+    model = build()
+    state = TrainState(model, TrainConfig(batch_size=batch, seed=seed))
+    out = {"losses": [], "weights": [], "grads": [], "draws": [],
+           "data": (images.cpu(), labels.cpu())}
+    for _ in range(steps):
+        t, eps = draw_noise(images, g, 1000)
+        out["weights"].append({k: v.detach().cpu().clone()
+                               for k, v in model.backbone.state_dict().items()})
+        out["draws"].append((t.cpu(), eps.cpu()))
+        loss = step_with_noise(state, images, labels, t, eps, conditional=True, mesh=mesh)
+        out["losses"].append(global_loss(loss, mesh).item())
+        out["grads"].append({n: p.grad.detach().cpu().clone()
+                             for n, p in model.backbone.named_parameters()})
+    out["weights"].append({k: v.detach().cpu().clone()
+                           for k, v in model.backbone.state_dict().items()})
+    return out
+
+
+def bn_unet():
+    return DiffusionModel(MinimalUNet(**dict(UNET64, normalization="BatchNorm")),
+                          in_channels=3, default_imsize=32, seed=0, device="cuda")
+
+
+def par_train(seed, mesh):
+    """PAR_TRAIN_STEPS flagship steps at batch PAR_TRAIN_BATCH, and one
+    BatchNorm UNet step (the UNet-64 widths at 32x32) at batch
+    PAR_BN_BATCH (`par_steps`)."""
+    return {"flagship": par_steps(lambda: flagship("cuda", seed=seed), PAR_TRAIN_BATCH, 10,
+                                  PAR_TRAIN_STEPS, seed, mesh),
+            "bn": par_steps(bn_unet, PAR_BN_BATCH, 2, 1, seed + 1, mesh)}
+
+
+def grad64(build, weights, images, labels, t, eps) -> dict:
+    """The float64 gradients (CPU, by name) of `build()` at `weights` on the
+    card, from the given images, t and eps."""
+    m64 = build().double()
+    m64.backbone.load_state_dict(weights)
+    grads = one_step(m64, images, labels, t, eps)[1]
+    del m64
+    return grads
+
+
+def steps_gate(tag, build, got, want, lr=TrainConfig.lr):
+    """A data-parallel run against the one-process run from the same
+    weights, images, t and eps. The losses within PAR_TOL. At every step,
+    each tensor of averaged gradients within PAR_TOL of its largest float64
+    gradient (of the same weights) + twice the one-process float32
+    gradients' own distance from float64 on that tensor (float32's
+    rounding of a BatchNorm net's gradients alone reaches ~5e-5 of their
+    scale; phase train's rule, tensor by tensor; null conv biases left
+    out). The weights after the first and the last step (running
+    statistics included) within PAR_TOL of scale. A weight whose float64
+    gradient lies within its tensor's bound may take an AdamW step of
+    either sign (+-lr, whatever the gradient's size): those components,
+    found from the one-process run and float64 alone, are left out of the
+    weights gate, counted, and held only to the most AdamW moves a weight
+    (2 lr a step apart)."""
+    images, labels = want["data"]
+    start = got["weights"][0], want["weights"][0]
+    if not (all(torch.equal(a, b) for dg, dw in zip(got["draws"], want["draws"])
+                for a, b in zip(dg, dw))
+            and all(torch.equal(start[0][k], v) for k, v in start[1].items())):
+        fail(f"parallel: the {tag} did not start from the one-process run's weights and draws")
+    skip = null_biases(build().backbone)
+
+    def gap(grads, ref, n):
+        return (grads[n].double() - ref[n]).abs().max().item()
+
+    steps = len(want["losses"])
+    ratios, worst_grad, rels, masks, mask = [], [], [], [], {}
+    for i, (t, eps) in enumerate(want["draws"]):
+        ref = grad64(build, want["weights"][i], images, labels, t, eps)
+        live = [n for n in ref if n not in skip]
+        bound = {n: PAR_TOL * ref[n].abs().max().item() + 2 * gap(want["grads"][i], ref, n)
+                 for n in live}
+        ref_dp = ref if i == 0 else grad64(build, got["weights"][i], images, labels, t, eps)
+        ratio = {n: gap(got["grads"][i], ref_dp, n) / max(bound[n], 1e-30) for n in live}
+        worst_grad.append(max(ratio, key=ratio.get))
+        ratios.append(ratio[worst_grad[-1]])
+        rels.append(grad_rel({n: v.double() for n, v in got["grads"][i].items()}, ref_dp, skip))
+        mask = {n: mask.get(n, torch.zeros_like(g, dtype=torch.bool)) | (
+            g.abs() <= bound[n] if n in bound else torch.ones_like(g, dtype=torch.bool))
+            for n, g in ref.items()}
+        masks.append(mask)
+    loss_e = max(abs(a - b) / max(abs(b), 1.0) for a, b in zip(got["losses"], want["losses"]))
+    errs, noise = [], 0.0
+    for i in sorted({1, steps}):
+        a, b, m = got["weights"][i], want["weights"][i], masks[i - 1]
+        live = [k for k in b if not k.endswith("num_batches_tracked")]
+        scale = max(max(b[k].double().abs().max().item() for k in live), 1.0)
+        diff = {k: (a[k].double() - b[k].double()).abs() for k in live}
+        live_diff = {k: (d.masked_fill(m[k], 0) if k in m else d).max().item()
+                     for k, d in diff.items()}
+        worst = max(live_diff, key=live_diff.get)
+        errs.append(live_diff[worst] / scale)
+        noise = max([noise] + [d.masked_fill(~m[k], 0).max().item()
+                               for k, d in diff.items() if k in m])
+    n_null = sum(int(v.sum()) for v in mask.values())
+    n_all = sum(v.numel() for v in mask.values())
+    print(f"[parallel] (b) {tag} against one process: losses "
+          f"{[round(v, 6) for v in got['losses']]}, rel {loss_e:.2e} (tol {PAR_TOL:g}); each "
+          f"step's averaged gradients against the float64 step, per tensor over its bound "
+          f"({PAR_TOL:g} of its largest gradient + 2 x the one-process float32's own "
+          f"distance; must be <= 1): worst {', '.join(f'{r:.3f}' for r in ratios)} "
+          f"({', '.join(worst_grad)}), over all {', '.join(f'{e:.2e}' for e in rels)} of "
+          f"scale ({len(skip)} null conv biases left out); weights after "
+          f"{' and '.join(str(i) for i in sorted({1, steps}))} step(s) rel "
+          f"{', '.join(f'{e:.2e}' for e in errs)} (tol {PAR_TOL:g}; the last's worst "
+          f"{worst}), {n_null} of {n_all} weight components left out (float64 gradient "
+          f"within its tensor's bound at some step of the one-process run: AdamW may step "
+          f"them either way; moved apart by up to {noise:.2e}, the most AdamW moves them "
+          f"{2 * lr * steps:.2e})", flush=True)
+    if not (loss_e <= PAR_TOL and max(ratios) <= 1 and max(errs) <= PAR_TOL
+            and noise <= 2 * lr * steps):
+        fail(f"parallel: the {tag} is not the one-process run")
+
+
+def par_sample(seed, mesh):
+    """The flagship's 20-step DDIM of 8 conditional seeds: `sample`, or
+    `sample_sharded` over the mesh."""
+    model = flagship("cuda", seed=seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 16)
+    label = torch.arange(SEEDS, device="cuda") % 10
+    if mesh is None:
+        return tsampling.sample(model, batch_size=SEEDS, nsteps=20, label=label,
+                                generator=g, device="cuda").cpu()
+    return tsampling.sample_sharded(model, mesh, batch_size=SEEDS, nsteps=20, label=label,
+                                    generator=g).cpu()
+
+
+def parallel_worker(rank, store, out, seed):
+    """One of the two gloo ranks on cuda:0 (`chip_smoke.py --parallel-worker
+    RANK STORE OUT SEED`): every case of phase parallel (b), sharded or
+    data-parallel, its results to OUT.RANK."""
+    rank, seed = int(rank), int(seed)
+    pm.init_distributed("gloo", init_method=f"file://{store}", world_size=2, rank=rank)
+    mesh = pm.make_mesh(2, device="cuda:0")
+    reset_launches()
+    ds, x = par_data(seed)
+    res = {}
+    res["machines"] = par_machines(ds, x, mesh, tels.DEFAULT_BANK_BUDGET // 2)
+    res["scores"] = par_scores(seed, mesh)
+    train = par_train(seed, mesh)
+    res["train"] = train if rank == 0 else {"losses": train["flagship"]["losses"]}
+    res["sample"] = par_sample(seed, mesh)
+    res["launches"] = {k: n for k, n in fs.flash_score_update.launches.items() if n}
+    res["peak"] = torch.cuda.max_memory_allocated()
+    torch.save(res, f"{out}.{rank}")
+    pm.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def run_parallel_pair(seed):
+    """Start the two gloo ranks (this script, one process each), wait for
+    both within PAR_TIMEOUT; a rank that fails or hangs fails the run.
+    Returns their results."""
+    root = SCRATCH / "parallel"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    store, out = root / "store", root / "out"
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               "--parallel-worker", str(r), str(store), str(out), str(seed)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    logs = [None, None]
+    try:
+        deadline = time.perf_counter() + PAR_TIMEOUT
+        for r, p in enumerate(procs):
+            logs[r] = p.communicate(timeout=max(1.0, deadline - time.perf_counter()))[0]
+    except subprocess.TimeoutExpired:
+        fail(f"parallel: the gloo pair outlived its {PAR_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    rcs = [p.returncode for p in procs]
+    if rcs != [0, 0]:
+        fail(f"parallel: the gloo ranks exited {rcs}\n--- rank 0 ---\n{logs[0][-3000:]}"
+             f"\n--- rank 1 ---\n{logs[1][-3000:]}")
+    return [torch.load(f"{out}.{r}", weights_only=False) for r in range(2)]
+
+
+def phase_parallel_nccl(seed):
+    """(a) NCCL with one rank, in this process: the sharded ELS module at
+    k = 3, 9, 17 and one data-parallel flagship step at batch 128 (under
+    cudnn.deterministic) equal the unsharded ones bit for bit. Returns the
+    sharded calls' launches."""
+    store = SCRATCH / f"nccl_store_{os.getpid()}"
+    store.unlink(missing_ok=True)
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    pm.init_distributed("nccl", init_method=f"file://{store}", world_size=1, rank=0)
+    prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        mesh = pm.make_mesh(1, device="cuda")
+        ds, x = par_data(seed)
+        kw = dict(batch_size=MODULE_BATCH, image_size=32, channels=3,
+                  schedule=cosine_noise_schedule, target_block=TARGET_BLOCK)
+        data = (ds.images[:PAR_BBELS_N], ds.labels[:PAR_BBELS_N])
+        one = build_score_module("ELS", data, device="cuda", **kw)
+        sharded = build_score_module("ELS", data, mesh=mesh, **kw)
+        reset_launches()
+        pm.reset_collectives()
+        same = []
+        for k in (3, 9, 17):
+            a = one(0.5, x, k=k)
+            b = sharded(0.5, x, k=k)
+            same.append(torch.equal(a, b))
+        launches = {key: n // 2 for key, n in fs.flash_score_update.launches.items() if n}
+        calls = dict(pm.COLLECTIVES)
+        del one, sharded
+        images, labels = train_data(PAR_TRAIN_BATCH, 32, 10, seed + 13)
+        t, eps = draw_noise(images, torch.Generator(device="cuda").manual_seed(seed + 14), 1000)
+        a, b = flagship("cuda", seed=seed), flagship("cuda", seed=seed)
+        la = step_with_noise(TrainState(a, TrainConfig()), images, labels, t, eps,
+                             conditional=True)
+        lb = step_with_noise(TrainState(b, TrainConfig()), images, labels, t, eps,
+                             conditional=True, mesh=mesh)
+        sa, sb = a.backbone.state_dict(), b.backbone.state_dict()
+        step_same = torch.equal(la, lb) and all(torch.equal(sa[k], sb[k]) for k in sa)
+        backend = torch.distributed.get_backend()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev
+        torch.distributed.destroy_process_group()
+        store.unlink(missing_ok=True)
+    print(f"[parallel] (a) {backend} world of one: the sharded ELS module (N = "
+          f"{PAR_BBELS_N}, {SEEDS} seeds) at k = 3, 9, 17 bit-equal to the unsharded: {same} "
+          f"({calls['all_reduce']} all-reduces, {calls['all_reduce_bytes']} bytes); one "
+          f"data-parallel flagship step at batch {PAR_TRAIN_BATCH} (cudnn.deterministic) "
+          f"bit-equal to the one-process step, loss and weights: {step_same}", flush=True)
+    if backend != "nccl" or not all(same) or not step_same:
+        fail("parallel (a): the NCCL world of one is not the unsharded path bit for bit")
+    return launches
+
+
+def phase_parallel(seed):
+    """parallel/ on the card: (a) `phase_parallel_nccl`; (b) two gloo
+    ranks sharing cuda:0 against one process on the same card and data:
+    the sharded ELS 'highest' and bbELS 'high' machines (TOL), IS and LS
+    calls, the data-parallel flagship steps (loss, weights after 1 and 3
+    steps), the BatchNorm UNet step (weights, running statistics) and
+    `sample_sharded` (PAR_TOL). Returns the launches of the paths it ran:
+    (a)'s sharded calls, this process's machines, and both ranks'."""
+    t_phase = time.perf_counter()
+    launches = phase_parallel_nccl(seed)
+
+    def add(counts):
+        for key, n in counts.items():
+            launches[key] = launches.get(key, 0) + n
+
+    for tag, n in (("els", PAR_ELS_N), ("bbels", PAR_BBELS_N)):
+        print(f"[parallel] reduced: the sharded {tag} machine runs {n} of {FULL_N} bank "
+              "images (depth cut; widths, scales and seeds as published)", flush=True)
+    ds, x = par_data(seed)
+    reset_launches()
+    outs, walls, _ = par_machines(ds, x, None, tels.DEFAULT_BANK_BUDGET)
+    add({k: n for k, n in fs.flash_score_update.launches.items() if n})
+    scores = par_scores(seed, None)
+    train = par_train(seed, None)
+    samples = par_sample(seed, None)
+    torch.cuda.empty_cache()
+    t_pair = time.perf_counter()
+    ranks = run_parallel_pair(seed)
+    pair_s = time.perf_counter() - t_pair
+    for r in ranks:
+        add(r["launches"])
+    got_outs, got_walls, per_call = ranks[0]["machines"]
+    for r in range(2):
+        if not torch.equal(ranks[r]["machines"][0]["els"], got_outs["els"]):
+            fail("parallel: the two ranks' sharded ELS outputs differ")
+    for tag, what in (("els", "ELS 'highest'"), ("bbels", "bbELS 'high'")):
+        e = rel(got_outs[tag], outs[tag])
+        calls, nbytes = per_call[tag]
+        print(f"[parallel] (b) sharded {what} machine over 2 gloo ranks on cuda:0 against "
+              f"one process on the same card and data: rel {e:.2e} (tol {TOL:g}); one score "
+              f"call (t = 0.5, k = 9) rel {rel(got_outs[tag + ' call'], outs[tag + ' call']):.2e}"
+              f" (a reorder of two partial sums); wall {got_walls[tag]:.2f} s on 2 ranks "
+              f"sharing the card against {walls[tag]:.2f} s in one process (information: "
+              f"no speed-up expected on one card); {calls:g} all-reduces and {nbytes:.0f} "
+              "bytes per score call", flush=True)
+        if not e <= TOL or not torch.isfinite(got_outs[tag]).all():
+            fail(f"parallel: the sharded {what} machine is not the one-process machine")
+    for kind in ("IS", "LS"):
+        e = rel(ranks[0]["scores"][kind], scores[kind])
+        print(f"[parallel] (b) sharded {kind} call (N = 64, 16x16x3, 2 seeds) against one "
+              f"process: rel {e:.2e} (tol {PAR_TOL:g})", flush=True)
+        if not e <= PAR_TOL:
+            fail(f"parallel: the sharded {kind} call is not the one-process call")
+    got = ranks[0]["train"]
+    if ranks[1]["train"]["losses"] != got["flagship"]["losses"]:
+        fail("parallel: the two ranks' losses differ")
+    steps_gate(f"data-parallel flagship steps (batch {PAR_TRAIN_BATCH} as 2 x "
+               f"{PAR_TRAIN_BATCH // 2}, 'highest')", lambda: flagship("cuda", seed=seed),
+               got["flagship"], train["flagship"])
+    steps_gate(f"data-parallel BatchNorm UNet step (UNet-64 widths, 32x32, batch "
+               f"{PAR_BN_BATCH} as 2 x {PAR_BN_BATCH // 2}, global batch statistics)",
+               bn_unet, got["bn"], train["bn"])
+    e = rel(ranks[0]["sample"], samples)
+    same = torch.equal(ranks[0]["sample"], ranks[1]["sample"])
+    print(f"[parallel] (b) sample_sharded: the flagship's 20-step DDIM, {SEEDS} seeds over 2 "
+          f"ranks, against sample of {SEEDS} seeds: rel {e:.2e} (tol {PAR_TOL:g}); both ranks "
+          f"gathered the same {same}", flush=True)
+    if not (e <= PAR_TOL and same):
+        fail("parallel: sample_sharded is not sample seed for seed")
+    print(f"[parallel] ranks' flash-score launches {[r['launches'] for r in ranks]}; peak "
+          f"memory per rank {[round(r['peak'] / 1e9, 2) for r in ranks]} GB; the pair took "
+          f"{pair_s:.1f} s, the phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=RGB_N,
@@ -2988,7 +3397,11 @@ def main(argv=None) -> int:
                     help="bank images of the 16-channel ELS 'highest' machine "
                          "(the 'high' and 'default' ones take half)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--parallel-worker", nargs=4, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.parallel_worker:
+        parallel_worker(*args.parallel_worker)
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to drive", file=sys.stderr)
         return 2
@@ -3082,6 +3495,8 @@ def main(argv=None) -> int:
     phase_cli_sample()
     print(f"[time] {time.perf_counter() - t_start:.1f} s so far", flush=True)
     phase_train(args.seed)
+    print(f"[time] {time.perf_counter() - t_start:.1f} s so far", flush=True)
+    add(phase_parallel(args.seed))
     print(f"[time] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     never = [key for key in recs if not path.get(key) and not keyword_only(key)]
     if never:

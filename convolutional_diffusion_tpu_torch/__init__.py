@@ -14,9 +14,10 @@ backbones (`models`), reference pickles and JAX params carried across
 (`convert`), the DDIM/DDPM samplers (`sampling`, `cli.sample`) and scale
 calibration against the CNN (`calibration`, `cli.calibrate`); and training
 (`training`, resumable checkpoints in `utils.checkpoint`, `cli.train`,
-`cli.train_64x64`). `parallel/` and `analysis/` are not ported yet. Entry
-points run on `cuda` unless the caller passes `device="cpu"`; without a card
-they raise. On a CUDA tensor the flash-score sweep launches the hand-written
+`cli.train_64x64`); and `parallel` over `torch.distributed` (dataset-sharded
+score modules, data-parallel training, seed-sharded sampling, one process
+per device). `analysis/` is not ported yet. Entry points run on `cuda`
+unless the caller passes `device="cpu"`; without a card they raise. On a CUDA tensor the flash-score sweep launches the hand-written
 Hopper kernels in `ops/csrc/`; on a CPU tensor it runs their plain PyTorch
 versions. The backbones and their training run cuDNN, cuBLAS and PyTorch's
 fused AdamW (the JAX models and trainer have no Pallas kernel).

@@ -6,10 +6,13 @@ state_dict export."""
 
 from __future__ import annotations
 
+import importlib
 import json
 import os
+import sys
 from typing import Optional
 
+import numpy as np
 import torch
 
 
@@ -136,7 +139,7 @@ def build_score_module(kind: str, dataset_tuple, *, batch_size: int,
                        max_samples: Optional[int] = None, kernel_size: int = 3,
                        precision: str = "highest", shuffle: bool = False,
                        bank_ledger=None, target_block: Optional[int] = None,
-                       device=None):
+                       device=None, mesh=None):
     """Score-module factory matching the reference els_script (and its
     calibration script): kind 'ELS', 'bbELS', 'LS' or 'IS'. `shuffle`
     reaches only the ELS module, as the reference passes --shuffle to it
@@ -144,8 +147,11 @@ def build_score_module(kind: str, dataset_tuple, *, batch_size: int,
     only ELS and bbELS, and LS and IS run with batch_size = len(dataset),
     as there. `image_size` and `channels` (the JAX factory's arguments)
     are not needed: the modules read both from the images. `device`
-    defaults to cuda. The JAX factory's `mesh` (dataset-sharded modules) is
-    not ported yet (ROADMAP item 7)."""
+    defaults to cuda (to the mesh's device with `mesh`).
+
+    mesh: a `parallel.make_mesh` mesh with a 'data' axis shards the training
+    set over its ranks (every kind; `parallel.sharded_score`); each rank
+    holds its shard, and `bank_ledger` is that rank's."""
     from ..scores import (
         IdealScoreModule,
         LocalEquivBordersScoreModule,
@@ -153,27 +159,90 @@ def build_score_module(kind: str, dataset_tuple, *, batch_size: int,
         LocalScoreModule,
     )
 
+    classes = {"ELS": LocalEquivScoreModule, "bbELS": LocalEquivBordersScoreModule,
+               "LS": LocalScoreModule, "IS": IdealScoreModule}
+    common = dict(schedule=schedule, precision=precision)
+    if device is not None:
+        common["device"] = device
+    if mesh is not None:
+        from ..parallel.sharded_score import (
+            ShardedIdealScoreModule,
+            ShardedLocalEquivBordersScoreModule,
+            ShardedLocalEquivScoreModule,
+            ShardedLocalScoreModule,
+        )
+
+        classes = {"ELS": ShardedLocalEquivScoreModule,
+                   "bbELS": ShardedLocalEquivBordersScoreModule,
+                   "LS": ShardedLocalScoreModule, "IS": ShardedIdealScoreModule}
+        common["mesh"] = mesh
     del image_size, channels
     n = len(dataset_tuple[0])
     blk = {} if target_block is None else {"target_block": target_block}
-    common = dict(schedule=schedule, precision=precision, device=device)
     if kind == "ELS":
-        return LocalEquivScoreModule(
+        return classes["ELS"](
             dataset_tuple, kernel_size=kernel_size, batch_size=batch_size,
             max_samples=max_samples, shuffle=shuffle, bank_ledger=bank_ledger,
             **blk, **common,
         )
     if kind == "bbELS":
-        return LocalEquivBordersScoreModule(
+        return classes["bbELS"](
             dataset_tuple, kernel_size=kernel_size, batch_size=batch_size,
             max_samples=max_samples, bank_ledger=bank_ledger, **blk, **common,
         )
     # max_samples below n would FILTER-exclude the single batch of LS/IS
     # (all-zero weights, NaN scores), so the reference never passes it
     if kind == "LS":
-        return LocalScoreModule(
+        return classes["LS"](
             dataset_tuple, kernel_size=kernel_size, batch_size=n, **common,
         )
     if kind == "IS":
-        return IdealScoreModule(dataset_tuple, batch_size=n, **common)
+        return classes["IS"](dataset_tuple, batch_size=n, **common)
     raise ValueError(f"Unknown scoremoduletype: {kind}")
+
+
+def spawn_ranks(module: str, argv, ndevices: int, *, cpu: bool, zero_is_all: bool,
+                batch: Optional[int] = None) -> tuple:
+    """(True, rank 0's result) after running the CLI `module` (`main(argv)`)
+    on the ranks `--ndevices` asks this run to start itself, or (False,
+    None) where the run stays in this process. Under a launcher
+    (`torchrun`) the run joins its group (gloo with `cpu`), whose size
+    `--ndevices` must match (0 matches where `zero_is_all`). Outside any
+    group `--ndevices N > 1` starts N ranks, one per card over NCCL or gloo
+    ranks on the CPU with `cpu` (0: every visible card where `zero_is_all`,
+    one CPU rank with `cpu`), unless `batch` does not divide over them
+    (`cli.sample`'s fallback to one process). Rank 0's result comes back
+    where it is a number or an array (None otherwise)."""
+    import torch.distributed as dist
+
+    from ..parallel.mesh import init_distributed, spawn
+
+    world = init_distributed("gloo" if cpu else None)
+    if dist.is_initialized():
+        if not (ndevices == world or (ndevices == 0 and zero_is_all)
+                or (world == 1 and ndevices <= 1)):
+            raise ValueError(f"--ndevices {ndevices} does not match the launcher's group "
+                             f"of {world} ranks")
+        return False, None
+    n = ndevices or ((1 if cpu else torch.cuda.device_count()) if zero_is_all else 1)
+    if n <= 1 or (batch is not None and batch % n):
+        return False, None
+    argv = list(sys.argv[1:] if argv is None else argv)
+    return True, spawn(_run_main, n, module, argv, cpu=cpu)
+
+
+def cli_mesh(cpu: bool):
+    """The 'data' mesh over the joined group (None for one process)."""
+    import torch.distributed as dist
+
+    from ..parallel.mesh import make_mesh
+
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return None
+    return make_mesh(device="cpu" if cpu else None)
+
+
+def _run_main(module: str, argv):
+    """`<module>.main(argv)` in a rank `spawn_ranks` started."""
+    out = importlib.import_module(module).main(argv)
+    return out if isinstance(out, (int, float, np.ndarray)) else None

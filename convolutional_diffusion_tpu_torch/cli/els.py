@@ -2,12 +2,16 @@
 `convolutional_diffusion_tpu/cli/els.py` (the reference's `els_script.py`):
 the same flags and defaults, the same <results>/<expname>/{seeds,
 <idealname>,labels}/%04d layout, resume and --fill. Runs on cuda; --cpu runs
-the plain PyTorch path on the CPU instead. --ndevices > 1 (a device mesh)
-is not ported yet.
+the plain PyTorch path on the CPU instead. --ndevices N > 1 shards the
+training set over N ranks (`parallel.sharded_score`): under `torchrun
+--nproc_per_node N` the run joins that group; outside one it starts N ranks
+itself (one per card, or gloo ranks on the CPU with --cpu). Rank 0 writes.
 
 Example:
     python -m convolutional_diffusion_tpu_torch.cli.els --dataset cifar10 \\
         --conditional --scoremoduletype ELS --batch 8 --numiters 100
+    torchrun --nproc_per_node 4 -m convolutional_diffusion_tpu_torch.cli.els \\
+        --dataset cifar10 --scoremoduletype ELS --ndevices 4
 """
 
 import argparse
@@ -54,15 +58,19 @@ def main(argv=None):
     parser.add_argument("--target_block", type=int, default=None,
                         help="patches per sweep chunk (default 65536)")
     parser.add_argument("--ndevices", type=int, default=1,
-                        help=">1 shards the training set over devices (not "
-                             "ported yet)")
+                        help=">1 shards the training set over that many ranks "
+                             "(one per card; gloo ranks with --cpu)")
     args = parser.parse_args(argv)
 
-    if args.ndevices > 1:
-        raise NotImplementedError(
-            "--ndevices > 1 (the dataset-sharded score modules) is not "
-            "ported yet (ROADMAP item 7, parallel/)"
-        )
+    from ..parallel.mesh import is_writer
+    from .common import cli_mesh, spawn_ranks
+
+    spawned, result = spawn_ranks(__spec__.name, argv, args.ndevices, cpu=args.cpu,
+                                  zero_is_all=False)
+    if spawned:
+        return result
+    mesh = cli_mesh(args.cpu)
+    log = print if is_writer() else (lambda *a: None)
 
     from ..data import get_dataset
     from ..pipeline import auto_detect_scales, generate_els_samples
@@ -93,13 +101,14 @@ def main(argv=None):
         shuffle=args.shuffle,
         target_block=args.target_block,
         device="cpu" if args.cpu else None,
+        mesh=mesh,
     )
 
     scalesfile = args.scalesfile or auto_detect_scales(
         args.checkpoints, metadata["name"]
     )
     scales = load_scales_any(scalesfile)
-    print(f"scales ({scalesfile}): {scales}")
+    log(f"scales ({scalesfile}): {scales}")
 
     machine = ScheduledScoreMachine(
         mod,
@@ -124,8 +133,10 @@ def main(argv=None):
         batch=args.batch,
         fmt=args.fmt,
         seed=args.seed,
+        log_fn=log,
+        writer=is_writer(),
     )
-    print(f"generated {n} samples under {out_dir}")
+    log(f"generated {n} samples under {out_dir}")
     return n
 
 

@@ -2,9 +2,13 @@
 `convolutional_diffusion_tpu/cli/sample.py`, with the same flags: draw
 samples from a trained model, save an image grid (PNG) and, with
 --save_arrays, one [1, h, w, c] .npy per sample. Runs on cuda; --cpu runs
-on the CPU instead. --ndevices > 1 (seeds sharded over devices) is not
-ported yet. The seeds are draws of a torch.Generator seeded with --seed,
-not the JAX CLI's PRNG stream.
+on the CPU instead. --ndevices N (0, the default: every visible card)
+shards the seeds over N ranks (`sampling.sample_sharded`) where N divides
+--nsamples, else samples on one: under `torchrun --nproc_per_node N` the
+run joins that group; outside one it starts N ranks itself (one per card,
+or gloo ranks on the CPU with --cpu). Rank 0 writes. The seeds are draws of
+a torch.Generator seeded with --seed, not the JAX CLI's PRNG stream; they
+are the same however many ranks run.
 
 Example:
     python -m convolutional_diffusion_tpu_torch.cli.sample \\
@@ -33,23 +37,27 @@ def main(argv=None):
     parser.add_argument("--clip", action=argparse.BooleanOptionalAction, default=True,
                         help="clip samples to [-1, 1] (--no-clip disables)")
     parser.add_argument("--ndevices", type=int, default=0,
-                        help=">1 shards the seeds over devices (not ported yet)")
+                        help="ranks to shard the seeds over (0: every visible card; "
+                             "gloo ranks with --cpu)")
     parser.add_argument("--cpu", action="store_true", default=False,
                         help="run on the CPU instead of cuda")
     args = parser.parse_args(argv)
 
-    if args.ndevices > 1:
-        raise NotImplementedError(
-            "--ndevices > 1 (seeds sharded over devices, sample_sharded) is not "
-            "ported yet (ROADMAP item 7, parallel/)"
-        )
+    from ..parallel.mesh import is_writer
+    from .common import cli_mesh, spawn_ranks
 
-    from ..sampling import sample
+    spawned, result = spawn_ranks(__spec__.name, argv, args.ndevices, cpu=args.cpu,
+                                  zero_is_all=True, batch=args.nsamples)
+    if spawned:
+        return result
+    mesh = cli_mesh(args.cpu)
+
+    from ..sampling import sample, sample_sharded
     from ..scores.base import resolve_device
     from ..utils.visualize import save_image_grid
     from .common import load_model
 
-    dev = resolve_device("cpu" if args.cpu else None)
+    dev = mesh.device if mesh is not None else resolve_device("cpu" if args.cpu else None)
     model = load_model(args.modelfile, device=dev)
     generator = torch.Generator(device=dev).manual_seed(args.seed)
     label = None
@@ -59,11 +67,17 @@ def main(argv=None):
         else:
             label = torch.randint(0, args.nlabels, (args.nsamples,), generator=generator,
                                   device=dev)
-    out = sample(model, batch_size=args.nsamples, nsteps=args.nsteps, label=label,
-                 generator=generator, ddpm=args.ddpm, device=dev)
+    if mesh is not None and args.nsamples % mesh.size == 0:
+        out = sample_sharded(model, mesh, batch_size=args.nsamples, nsteps=args.nsteps,
+                             label=label, generator=generator, ddpm=args.ddpm)
+    else:
+        out = sample(model, batch_size=args.nsamples, nsteps=args.nsteps, label=label,
+                     generator=generator, ddpm=args.ddpm, device=dev)
     out = out.cpu().numpy()
     if args.clip:
         out = np.clip(out, -1, 1)
+    if not is_writer():
+        return out
     save_image_grid(out, args.out)
     print(f"wrote {args.out} ({args.nsamples} samples, {args.nsteps} steps)")
     if args.save_arrays:

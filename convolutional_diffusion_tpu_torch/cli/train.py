@@ -1,8 +1,12 @@
 """DDPM training CLI. Counterpart of `convolutional_diffusion_tpu/cli/train.py`
 (the reference's `scripts/training_script.py`), with the same flags,
 defaults and recipe. Runs on cuda; --cpu runs on the CPU instead.
---ndevices > 1 (data-parallel training) is not ported yet. Checkpoints go
-to `<homedir>/<name>/step_N/checkpoint.pt` (`utils.checkpoint`).
+--ndevices N (0, the default: every visible card) trains data-parallel over
+N ranks (`training.train_diffusion(mesh=...)`): under `torchrun
+--nproc_per_node N` the run joins that group; outside one it starts N ranks
+itself (one per card, or gloo ranks on the CPU with --cpu). Checkpoints go
+to `<homedir>/<name>/step_N/checkpoint.pt` (`utils.checkpoint`), written by
+rank 0.
 
 Example (the README's CIFAR10 recipe):
     python -m convolutional_diffusion_tpu_torch.cli.train --epochs 300 \\
@@ -16,7 +20,7 @@ import os
 def parse_train_args(argv, *, description: str, batchsize: int, dataset, mode: str,
                      layers: int, homedir: str):
     """The flags both train CLIs share, parsed; the defaults that differ are
-    arguments. --ndevices > 1 raises."""
+    arguments."""
     parser = argparse.ArgumentParser(description=description)
     parser.add_argument("--epochs", type=int, default=300)
     parser.add_argument("--batchsize", type=int, default=batchsize)
@@ -37,19 +41,15 @@ def parse_train_args(argv, *, description: str, batchsize: int, dataset, mode: s
     parser.add_argument("--dataroot", type=str, default="./data")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--ndevices", type=int, default=0,
-                        help=">1 trains data-parallel over devices (not ported yet)")
+                        help="ranks to train data-parallel over (0: every visible "
+                             "card; gloo ranks with --cpu)")
     parser.add_argument("--export_torch", type=str, default=None,
                         help="also export the trained weights as a torch state_dict "
                              ".pt, loadable by the reference via "
                              "backbone.load_state_dict(torch.load(path))")
     parser.add_argument("--cpu", action="store_true", default=False,
                         help="run on the CPU instead of cuda")
-    args = parser.parse_args(argv)
-    if args.ndevices > 1:
-        raise NotImplementedError(
-            "--ndevices > 1 (data-parallel training) is not ported yet (ROADMAP §1 "
-            "item 7, parallel/)")
-    return args
+    return parser.parse_args(argv)
 
 
 def subset(ds, maxsamps: int):
@@ -63,17 +63,20 @@ def subset(ds, maxsamps: int):
 
 
 def run(args, backbone, ds, factor: int, ckpt_dir: str, imsize: int):
-    """Train `backbone` on `ds` with the recipe of `args`, save the final
-    checkpoint (step epochs * (N // batch)) and, with --export_torch, the
-    state_dict. Returns the TrainState."""
+    """Train `backbone` on `ds` with the recipe of `args` (data-parallel over
+    the joined group's ranks), save the final checkpoint (step epochs * (N //
+    batch)) and, with --export_torch, the state_dict (rank 0). Returns the
+    TrainState."""
     from ..models import DiffusionModel
+    from ..parallel.mesh import barrier, is_writer
     from ..schedules import cosine_noise_schedule
     from ..scores.base import resolve_device
     from ..training import TrainConfig, train_diffusion
     from ..utils.checkpoint import save_checkpoint
-    from .common import export_torch_state_dict, model_config_meta
+    from .common import cli_mesh, export_torch_state_dict, model_config_meta
 
-    dev = resolve_device("cpu" if args.cpu else None)
+    mesh = cli_mesh(args.cpu)
+    dev = mesh.device if mesh is not None else resolve_device("cpu" if args.cpu else None)
     channels = ds.images.shape[-1]
     model = DiffusionModel(backbone, noise_schedule=cosine_noise_schedule,
                            in_channels=channels, default_imsize=imsize, seed=args.seed,
@@ -83,18 +86,20 @@ def run(args, backbone, ds, factor: int, ckpt_dir: str, imsize: int):
         weight_decay=args.wd, gamma=args.gamma, max_t=1000,
         save_interval=args.saveinterval * factor, seed=args.seed,
     )
-    log = (lambda s: None) if args.suppress else print
+    log = (lambda s: None) if args.suppress or not is_writer() else print
     meta_cfg = {"model_config": model_config_meta(backbone, channels, imsize)}
     state, _ = train_diffusion(
-        model, (ds.images, ds.labels), config, conditional=args.conditional,
+        model, (ds.images, ds.labels), config, conditional=args.conditional, mesh=mesh,
         checkpoint_dir=ckpt_dir, checkpoint_extra=meta_cfg, log_fn=log,
     )
-    save_checkpoint(ckpt_dir, **state.payload(),
-                    step=config.epochs * (ds.num_samples // config.batch_size),
-                    extra=meta_cfg)
-    log(f"saved final checkpoint under {ckpt_dir}")
-    if args.export_torch:
-        export_torch_state_dict(model.backbone, path=args.export_torch, log=log)
+    if is_writer():
+        save_checkpoint(ckpt_dir, **state.payload(),
+                        step=config.epochs * (ds.num_samples // config.batch_size),
+                        extra=meta_cfg)
+        log(f"saved final checkpoint under {ckpt_dir}")
+        if args.export_torch:
+            export_torch_state_dict(model.backbone, path=args.export_torch, log=log)
+    barrier()
     return state
 
 
@@ -102,6 +107,12 @@ def main(argv=None):
     args = parse_train_args(argv, description="DDIM training", batchsize=128,
                             dataset=None, mode="circular", layers=3,
                             homedir="./model_checkpoints")
+    from .common import spawn_ranks
+
+    spawned, result = spawn_ranks(__spec__.name, argv, args.ndevices, cpu=args.cpu,
+                                  zero_is_all=True)
+    if spawned:
+        return result
 
     from ..data import get_dataset
     from .common import build_backbone_from_flags, checkpoint_name_from_flags

@@ -3,11 +3,12 @@
 `scripts/training_script_64x64.py`): the same recipe at 64x64 (UNet fsizes
 [64, 128, 256, 512][:layers], default mode zeros, batch 64, at most 4
 layers; the ResNet unchanged). Checkpoint names carry the _64x64 marker.
-Runs on cuda; --cpu runs on the CPU instead.
+Runs on cuda; --cpu runs on the CPU instead; --ndevices as `cli.train`.
 """
 
 import os
 
+from .common import spawn_ranks
 from .train import parse_train_args, run, subset
 
 
@@ -16,6 +17,10 @@ def main(argv=None):
                             dataset="celeba", mode="zeros", layers=4,
                             homedir="./checkpoints")
     args.layers = min(args.layers, 4)  # reference caps at 4 (64 -> 8 pools)
+    spawned, result = spawn_ranks(__spec__.name, argv, args.ndevices, cpu=args.cpu,
+                                  zero_is_all=True)
+    if spawned:
+        return result
 
     from ..data import get_dataset
     from ..models import MinimalResNet, MinimalUNet

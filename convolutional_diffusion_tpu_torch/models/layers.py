@@ -24,9 +24,11 @@ them run in TF32 on the card (2^-11 relative per product).
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..ops.fp32 import tf32_products, without_cudnn
@@ -89,11 +91,69 @@ class BatchNorm(nn.BatchNorm2d):
     input, the gradients of the convs before it lie further from a float64
     step than fp32 rounding explains, past what 'highest' promises
     (`tests/test_torch_cuda.py::test_train_step_on_the_card_matches_cpu`
-    fails with it on an H100; `chip_smoke.py` gate (d) prints both)."""
+    fails with it on an H100; `chip_smoke.py` gate (d) prints both).
+
+    Under data-parallel training (`batch_statistics_over`) the batch
+    statistics in training are those of the GLOBAL batch, as under the JAX
+    trainer's jit: count, sum and sum of squares all-reduced over the group
+    (differentiably, so the backward crosses ranks too) in float64, where
+    the variance E[x^2] - mean^2 does not cancel away, the running mean and
+    unbiased running variance updated from the global count. In a group of
+    one it is the one-process layer."""
+
+    process_group = None  # set by batch_statistics_over
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        group = self.process_group
+        if self.training and group is not None and dist.get_world_size(group) > 1:
+            return self._global_forward(x, group)
         with without_cudnn():
             return super().forward(x)
+
+    def _global_forward(self, x: torch.Tensor, group) -> torch.Tensor:
+        from torch.distributed.nn.functional import all_reduce
+
+        from ..parallel.mesh import count_collective
+
+        dims = (0, 2, 3)
+        xd = x.double()
+        count = torch.full((1,), x.numel() // x.shape[1], dtype=xd.dtype, device=x.device)
+        stats = torch.cat([xd.sum(dim=dims), (xd * xd).sum(dim=dims), count])
+        count_collective("all_reduce", stats)
+        stats = all_reduce(stats, group=group)
+        c = x.shape[1]
+        n = stats[-1]
+        mean = stats[:c] / n
+        var = stats[c:2 * c] / n - mean * mean
+        mean, var = mean.to(x.dtype), var.to(x.dtype)
+        scale = torch.rsqrt(var + self.eps)
+        if self.affine:
+            scale = scale * self.weight
+        with torch.no_grad():
+            self.num_batches_tracked.add_(1)
+            f = (1.0 / float(self.num_batches_tracked) if self.momentum is None
+                 else self.momentum)
+            self.running_mean.mul_(1 - f).add_(f * mean.detach())
+            self.running_var.mul_(1 - f).add_(f * var.detach() * (n / (n - 1)).to(x.dtype))
+        # centred before scaling, as PyTorch's kernel: x * scale - mean * scale
+        # would lose eps32 * |mean| / std of a channel in the forward and in
+        # the weight's gradient
+        y = (x - mean[None, :, None, None]) * scale[None, :, None, None]
+        return y + self.bias[None, :, None, None] if self.affine else y
+
+
+@contextlib.contextmanager
+def batch_statistics_over(module: nn.Module, group):
+    """Within the context every `BatchNorm` of `module` takes its training
+    statistics over the process group `group` (None: each process its own)."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.process_group = group
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.process_group = None
 
 
 def make_norm(normalization: Optional[str], features: int) -> Optional[nn.Module]:

@@ -128,6 +128,7 @@ def generate_els_samples(
     fmt: str = "npy",
     seed: int = 0,
     log_fn: Callable[[str], None] = print,
+    writer: bool = True,
 ) -> int:
     """Generate machine outputs under `out_dir` in the reference layout,
     `batch` seeds per machine call; returns the number of NEW samples.
@@ -136,7 +137,9 @@ def generate_els_samples(
     output. Fill: reuse the seeds (and labels) already saved to produce
     outputs under `idealname` for another score module. force_overwrite
     deletes `out_dir` first. Conditional runs draw one label per seed from
-    [0, nlabels); see `_run` for how labels reach the machine."""
+    [0, nlabels); see `_run` for how labels reach the machine. Every rank of
+    a sharded machine runs this with the same calls; only the one with
+    `writer` (rank 0) writes or deletes anything."""
     seed_dir = os.path.join(out_dir, "seeds")
     out_path = os.path.join(out_dir, idealname)
     lab_dir = os.path.join(out_dir, "labels")
@@ -145,7 +148,8 @@ def generate_els_samples(
     if fill:
         if not os.path.isdir(out_dir) or not os.path.isdir(seed_dir):
             raise FileNotFoundError(f"required directories missing: {seed_dir}")
-        os.makedirs(out_path, exist_ok=True)
+        if writer:
+            os.makedirs(out_path, exist_ok=True)
         todo = []
         i = 0
         while _exists(os.path.join(seed_dir, f"{i:04d}")):
@@ -169,7 +173,8 @@ def generate_els_samples(
             out = _run(machine, [s for _, s, _ in chunk],
                        [l for _, _, l in chunk] if conditional else None)
             for row, (j, _, _) in enumerate(chunk):
-                save_array(os.path.join(out_path, f"{j:04d}"), out[row : row + 1], fmt)
+                if writer:
+                    save_array(os.path.join(out_path, f"{j:04d}"), out[row : row + 1], fmt)
         return len(todo)
 
     min_iter = 0
@@ -181,12 +186,13 @@ def generate_els_samples(
                 break
         else:
             min_iter = numiters
-    elif os.path.isdir(out_dir):
+    elif os.path.isdir(out_dir) and writer:
         shutil.rmtree(out_dir)
-    os.makedirs(seed_dir, exist_ok=True)
-    os.makedirs(out_path, exist_ok=True)
-    if conditional:
-        os.makedirs(lab_dir, exist_ok=True)
+    if writer:
+        os.makedirs(seed_dir, exist_ok=True)
+        os.makedirs(out_path, exist_ok=True)
+        if conditional:
+            os.makedirs(lab_dir, exist_ok=True)
 
     def draw(j):
         rng = np.random.default_rng([seed, j])
@@ -200,7 +206,7 @@ def generate_els_samples(
         drawn = [draw(j) for j in range(idx, idx + n)]
         labels = [lab for _, lab in drawn] if conditional else None
         out = _run(machine, [s for s, _ in drawn], labels)
-        for o, (x, lab) in enumerate(drawn):
+        for o, (x, lab) in enumerate(drawn if writer else ()):
             j = idx + o
             save_array(os.path.join(seed_dir, f"{j:04d}"), x, fmt)
             save_array(os.path.join(out_path, f"{j:04d}"), out[o : o + 1], fmt)

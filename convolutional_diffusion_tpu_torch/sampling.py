@@ -66,9 +66,12 @@ def step_betas(noise_schedule, nsteps: int, device):
 @torch.no_grad()
 def sample_scan(model: EpsFn, noise_schedule, x, *, nsteps: int, label=None,
                 generator: Optional[torch.Generator] = None, ddpm: bool = False,
-                breakstep: int = -1):
+                breakstep: int = -1, seed_rows: Optional[tuple] = None):
     """Run the reverse loop i = nsteps .. 1 from x ([b, h, w, c] NHWC) on
-    x's device. DDPM draws its noise from `generator` (on that device)."""
+    x's device. DDPM draws its noise from `generator` (on that device).
+    seed_rows = (n, rows): x holds seeds `rows` (a slice) of an n-seed
+    batch, and each DDPM step draws the noise of all n and takes those
+    rows, so every seed gets the noise it gets in one n-seed call."""
     if ddpm and generator is None:
         raise ValueError("ddpm=True requires a torch.Generator")
     if breakstep > nsteps:
@@ -83,8 +86,11 @@ def sample_scan(model: EpsFn, noise_schedule, x, *, nsteps: int, label=None,
         beta_t, beta_prev = betas[s].expand(b), prevs[s].expand(b)
         eps = model(ts[s].expand(b), x, label)
         if ddpm:
-            noise = torch.randn(x.shape, generator=generator, device=x.device,
+            shape = x.shape if seed_rows is None else (seed_rows[0], *x.shape[1:])
+            noise = torch.randn(shape, generator=generator, device=x.device,
                                 dtype=x.dtype)
+            if seed_rows is not None:
+                noise = noise[seed_rows[1]]
             x = ddpm_step(x, eps, beta_t, beta_prev, noise)
         else:
             x = ddim_step(x, eps, beta_t, beta_prev)
@@ -129,6 +135,35 @@ def sample(model, *, batch_size: int = 1, x: Optional[torch.Tensor] = None,
         label = torch.as_tensor(label).to(dev)
     return sample_scan(model, model.noise_schedule, x, nsteps=nsteps, label=label,
                        generator=generator, ddpm=ddpm, breakstep=breakstep)
+
+
+def sample_sharded(model, mesh, *, batch_size: int, nsteps: int = 20, label=None,
+                   generator: Optional[torch.Generator] = None, ddpm: bool = False):
+    """`sample` with the seeds sharded over the mesh's 'data' axis (the JAX package's
+    `sample_sharded`): every rank draws the WHOLE batch's initial noise from
+    `generator` (the same stream on every rank), takes its slice of the
+    seeds (and labels), runs the reverse loop with no collective (DDPM draws
+    each step's noise for the whole batch, `seed_rows`), and the slices are
+    gathered onto every rank. So seed i is the same image however many
+    ranks run, to the backbone's batch-size-dependent rounding. `model` lies
+    on the rank's device; batch_size must divide over the axis."""
+    n, r = mesh.axis_size("data"), mesh.axis_rank("data")
+    if batch_size % n:
+        raise ValueError(f"batch_size {batch_size} does not divide over the {n} ranks "
+                         "of mesh axis 'data'")
+    if generator is None:
+        raise ValueError("need a torch.Generator to draw the initial noise")
+    from .parallel.mesh import all_gather
+
+    dev = model.device
+    x = torch.randn((batch_size, model.default_imsize, model.default_imsize,
+                     model.in_channels), generator=generator, device=dev)
+    rows = slice(r * (batch_size // n), (r + 1) * (batch_size // n))
+    if label is not None:
+        label = torch.as_tensor(label).to(dev)[rows]
+    out = sample_scan(model, model.noise_schedule, x[rows], nsteps=nsteps, label=label,
+                      generator=generator, ddpm=ddpm, seed_rows=(batch_size, rows))
+    return all_gather(out, mesh.group("data"))
 
 
 def q_sample(x0, eps, beta_t):

@@ -243,6 +243,16 @@ class BankCacheMixin:
         )
         self._bank_cache = {}
 
+    @property
+    def bank_budget_bytes(self) -> int:
+        """The budget of the module's ledger (shared with every module of
+        that ledger); setting it retunes the ledger."""
+        return self.bank_ledger.budget
+
+    @bank_budget_bytes.setter
+    def bank_budget_bytes(self, v: int) -> None:
+        self.bank_ledger.budget = v
+
     def _bank(self, k: int):
         """The cached Bank (a ClusteredBank with `prune`) for kernel size k,
         or None if it does not fit the remaining ledger budget (the caller

@@ -112,8 +112,9 @@ class ScoreModuleBase:
 
     def _stream_order(self, order=None) -> torch.Tensor:
         """The per-call stream order: an explicit `order` wins; else a fresh
-        permutation when self.shuffle; else the identity."""
-        n = self.images.shape[0]
+        permutation when self.shuffle; else the identity. Over the whole
+        image set (the labels), also where a module holds a shard of it."""
+        n = self.labels.shape[0]
         if order is None and self.shuffle:
             order = torch.randperm(
                 n, generator=self._generator, device=self._generator.device
@@ -140,6 +141,19 @@ class ScoreModuleBase:
 
     def _score(self, k, x, label, at, bt, order):
         raise NotImplementedError
+
+    # The sharding hooks (`parallel.sharded_score`): a module holding one
+    # rank's shard of the images slices the global per-image weights to it
+    # and merges its partial softmax states over the mesh. On one device
+    # both are the identity.
+    def _local_weights(self, w: torch.Tensor) -> torch.Tensor:
+        """Per-image weights ([n] or [S, n]) of the images this module holds."""
+        return w
+
+    def _merge(self, states) -> list:
+        """Partial (m, s1, s2) states of this module's images -> the states
+        of the whole image set."""
+        return states
 
     def __call__(self, t, x, label=None, k=None, order=None):
         k = self._check_k(k)

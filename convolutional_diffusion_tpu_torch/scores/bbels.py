@@ -110,8 +110,7 @@ class LocalEquivBordersScoreModule(BankCacheMixin, ScoreModuleBase):
         it shares this module's image and label tensors and its
         generator."""
         if self._local_fallback_cache is None:
-            self._local_fallback_cache = LocalScoreModule(
-                (self.images, self.labels),
+            self._local_fallback_cache = self._make_local_fallback(
                 kernel_size=self.kernel_size,
                 batch_size=self.batch_size,
                 schedule=self.schedule,
@@ -121,6 +120,9 @@ class LocalEquivBordersScoreModule(BankCacheMixin, ScoreModuleBase):
                 device=self.device,
             )
         return self._local_fallback_cache
+
+    def _make_local_fallback(self, **kw) -> LocalScoreModule:
+        return LocalScoreModule((self.images, self.labels), **kw)
 
     def __call__(self, t, x, label=None, k=None, order=None):
         k = self._check_k(k)
@@ -133,29 +135,14 @@ class LocalEquivBordersScoreModule(BankCacheMixin, ScoreModuleBase):
             return self._local_fallback(t, x, label=label, k=k, order=order)
         return super().__call__(t, x, label=label, k=k, order=order)
 
-    @torch.no_grad()
-    def _score(self, k, x, label, at, bt, order):
+    def _border_states(self, x, k, w_img, at, bt, g):
+        """The border regions' states (rows, columns, corners), the images
+        streamed chunk by chunk."""
         n, h, w, c = self.images.shape
         b = x.shape[0]
         p = k // 2
         hc, wc = h - 2 * p, w - 2 * p
-        g = bank_geometry(n, h, w, c, k, self.target_block)
         ctr = center_index(k, c)
-        w_img = image_weights(
-            self.labels, label,
-            batch_size=self.batch_size, max_samples=self.max_samples,
-            cutoff=CutoffRule.BATCH_QUOTA, weighting=Weighting.SUM, order=order,
-        )
-
-        # center: the ELS sweep over the valid patches
-        qc = extract_patches(x, k).reshape(b * hc * wc, g.d)
-        _, s1, s2 = patch_sweep(self, k, qc, (qc * qc).sum(dim=-1), w_img, at, bt)
-        mean = torch.empty_like(x)
-        mean[:, p : h - p, p : w - p] = (s2 / s1[:, None]).reshape(b, hc, wc, c)
-        if p == 0:
-            return -(x - at * mean) / (bt**2)
-
-        # border regions, streamed chunk by chunk
         q_rows, q_cols, q_corners = _border_windows(
             pad_image(x, p, "zeros"), h, w, p, k
         )  # [2p, b, wc, d], [2p, b, hc, d], [4p^2, b, d]
@@ -191,6 +178,31 @@ class LocalEquivBordersScoreModule(BankCacheMixin, ScoreModuleBase):
                         at, beta2, "rbd,rpd->rbp"),
                 w_c, corners[..., ctr],
             )
+        return [st_rows, st_cols, st_corners]
+
+    @torch.no_grad()
+    def _score(self, k, x, label, at, bt, order):
+        n, h, w, c = self.images.shape
+        b = x.shape[0]
+        p = k // 2
+        hc, wc = h - 2 * p, w - 2 * p
+        g = bank_geometry(n, h, w, c, k, self.target_block)
+        w_img = self._local_weights(image_weights(
+            self.labels, label,
+            batch_size=self.batch_size, max_samples=self.max_samples,
+            cutoff=CutoffRule.BATCH_QUOTA, weighting=Weighting.SUM, order=order,
+        ))
+
+        # center: the ELS sweep over the valid patches
+        qc = extract_patches(x, k).reshape(b * hc * wc, g.d)
+        center = patch_sweep(self, k, qc, (qc * qc).sum(dim=-1), w_img, at, bt)
+        borders = self._border_states(x, k, w_img, at, bt, g) if p else []
+        (_, s1, s2), *borders = self._merge([center, *borders])
+        mean = torch.empty_like(x)
+        mean[:, p : h - p, p : w - p] = (s2 / s1[:, None]).reshape(b, hc, wc, c)
+        if p == 0:
+            return -(x - at * mean) / (bt**2)
+        st_rows, st_cols, st_corners = borders
 
         def mean_of(st):
             return st.s2 / st.s1[..., None]

@@ -290,11 +290,11 @@ class LocalEquivScoreModule(BankCacheMixin, ScoreModuleBase):
         n, h, w, c = self.images.shape
         b = x.shape[0]
         g = bank_geometry(n, h, w, c, k, self.target_block)
-        w_img = self._image_weights(label, b, g.per_img, order)
+        w_img = self._local_weights(self._image_weights(label, b, g.per_img, order))
         xq = extract_patches(pad_image(x, k // 2, "circular"), k)
         xq = xq.reshape(b * h * w, g.d)
         qn = (xq * xq).sum(dim=-1)
-        _, s1, s2 = patch_sweep(self, k, xq, qn, w_img, at, bt)
+        ((_, s1, s2),) = self._merge([patch_sweep(self, k, xq, qn, w_img, at, bt)])
         mean_center = (s2 / s1[:, None]).reshape(b, h * w, c)
         score = -(x.reshape(b, h * w, c) - at * mean_center) / (bt**2)
         return score.reshape(x.shape)

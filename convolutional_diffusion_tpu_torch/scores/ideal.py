@@ -40,6 +40,7 @@ class IdealScoreModule(ScoreModuleBase):
             batch_size=self.batch_size, max_samples=self.max_samples,
             cutoff=CutoffRule.FILTERED, weighting=Weighting.MEAN, order=order,
         )
+        w = self._local_weights(w)
         imgs = self.images.reshape(n, -1)
         xf = x.reshape(b, -1)
         xn = (xf * xf).sum(dim=-1)
@@ -53,5 +54,6 @@ class IdealScoreModule(ScoreModuleBase):
             ) / beta2
             state = update_state(state, logits, w[None, i0 : i0 + self.chunk_size],
                                  imgs_c)
-        mean = state.s2 / state.s1[:, None]
+        ((_, s1, s2),) = self._merge([state])
+        mean = s2 / s1[:, None]
         return (-(xf - at * mean) / (bt**2)).reshape(x.shape)

@@ -71,6 +71,7 @@ class LocalScoreModule(ScoreModuleBase):
             batch_size=self.batch_size, max_samples=self.max_samples,
             cutoff=CutoffRule.FILTERED, weighting=Weighting.MEAN, order=order,
         )
+        w_img = self._local_weights(w_img)
         beta2 = 2.0 * bt**2
         state = init_state((b, h, w), c, device=self.device)
         for i0 in range(0, n, cs):
@@ -83,5 +84,6 @@ class LocalScoreModule(ScoreModuleBase):
                 state, logits, w_img[i0 : i0 + cs],
                 diffs.permute(0, 2, 3, 1, 4),  # [b, h, w, cs, c]
             )
+        ((_, s1, s2),) = self._merge([state])
         # the values are the differences, so s2/s1 is the mean difference
-        return -(state.s2 / state.s1[..., None]) / (bt**2)
+        return -(s2 / s1[..., None]) / (bt**2)

@@ -18,6 +18,17 @@ model's device; each epoch's batch order is JAX's,
 `np.random.RandomState(seed).permutation(n)`, uploaded once per epoch; t and
 eps are drawn from a `torch.Generator` on the device (not JAX's PRNG
 stream), and nothing is read back to the host between log steps.
+
+Data-parallel training (`train_diffusion(mesh=...)`, one process per
+device, `parallel.mesh`): the parameters start as rank 0's (broadcast), and
+every rank draws the GLOBAL batch's permutation, t and eps from the same
+streams, then takes its slice of the batch; BatchNorm takes the global
+batch's statistics (`models.layers.batch_statistics_over`), and the
+gradients are averaged over the 'data' axis with one all-reduce over a flat
+buffer before each rank's identical AdamW step. A ragged tail batch
+(`drop_last=False`) runs whole on every rank, as JAX replicates it. So a DP
+step equals a one-process step over the whole batch, to the reduction
+order. Only rank 0 writes checkpoints.
 """
 
 from __future__ import annotations
@@ -30,7 +41,8 @@ import numpy as np
 import torch
 
 from .models.ddim import DiffusionModel
-from .models.layers import precision_scope
+from .models.layers import batch_statistics_over, precision_scope
+from .parallel.mesh import all_reduce, barrier, is_writer, replicate, shard_batch
 from .sampling import q_sample
 
 
@@ -121,23 +133,49 @@ def draw_noise(images: torch.Tensor, generator: torch.Generator, max_t: int):
     return t, eps
 
 
+def average_gradients(params, mesh) -> None:
+    """Average the parameters' gradients over the mesh's 'data' axis in place: one
+    all-reduce over a flat buffer of every gradient (parameters without
+    one, the same on every rank, are left out)."""
+    grads = [p.grad for p in params if p.grad is not None]
+    flat = all_reduce(torch.cat([g.reshape(-1) for g in grads]), "sum", mesh.group("data"))
+    flat /= mesh.axis_size("data")
+    off = 0
+    for g in grads:
+        g.copy_(flat[off:off + g.numel()].view_as(g))
+        off += g.numel()
+
+
 def step_with_noise(state: TrainState, images, labels, t, eps, *,
-                    conditional: bool = False) -> torch.Tensor:
+                    conditional: bool = False, mesh=None) -> torch.Tensor:
     """One train step from given t and eps: the loss's forward and backward
     in the backbone's precision scope, then AdamW and the schedule's step.
     The model runs in train() mode for the step (BatchNorm updates its
     running statistics from the batch) and is put back in the mode it was
     in. Returns the loss as a 0-d tensor on the device (not read back);
-    the gradients stay in the parameters' `.grad`."""
+    the gradients stay in the parameters' `.grad`.
+
+    With `mesh`, images, labels, t and eps are the global batch's: a batch
+    that divides over the 'data' axis is cut to this rank's slice, with
+    BatchNorm statistics over the axis's group (a ragged one runs whole),
+    and the gradients are averaged over the axis before AdamW. The loss returned is
+    this rank's (`global_loss` averages it)."""
     model, optimizer = state.model, state.optimizer
+    group = None
+    if mesh is not None and images.shape[0] % mesh.axis_size("data") == 0:
+        images, labels, t, eps = shard_batch((images, labels, t, eps), mesh)
+        group = mesh.group("data")
     was_training = model.training
     model.train()
     optimizer.zero_grad(set_to_none=True)
-    with precision_scope(model.backbone.precision):
+    with precision_scope(model.backbone.precision), \
+            batch_statistics_over(model.backbone, group):
         x_noised = q_sample(images, eps, model.noise_schedule(t))
         pred = model(t, x_noised, labels if conditional else None)
         loss = torch.mean((pred - eps) ** 2)
         loss.backward()
+    if mesh is not None:
+        average_gradients(model.backbone.parameters(), mesh)
     optimizer.step()
     state.scheduler.step()
     model.train(was_training)
@@ -145,27 +183,36 @@ def step_with_noise(state: TrainState, images, labels, t, eps, *,
     return loss.detach()
 
 
-def make_train_step(state: TrainState, *, max_t: int = 1000, conditional: bool = False):
+def global_loss(loss: torch.Tensor, mesh=None) -> torch.Tensor:
+    """A step's loss over the whole batch: the ranks' slice losses
+    averaged over the mesh's 'data' axis (their slices are equal; a ragged tail's
+    loss is the same on every rank); the loss itself without a mesh."""
+    if mesh is None:
+        return loss
+    return all_reduce(loss.clone(), "sum", mesh.group("data")) / mesh.axis_size("data")
+
+
+def make_train_step(state: TrainState, *, max_t: int = 1000, conditional: bool = False,
+                    mesh=None):
     """The train step: (images, labels) -> loss (a 0-d device tensor), t and
     eps drawn from `state.generator`. With BatchNorm in the backbone its
     running statistics update (the unbiased batch variance at momentum
-    0.1, which the JAX package's `TorchBatchNorm` reproduces)."""
+    0.1, which the JAX package's `TorchBatchNorm` reproduces). With `mesh`
+    the step is data-parallel (`step_with_noise`): t and eps are drawn for
+    the whole batch on every rank, the same draws as one process's."""
 
     def train_step(images, labels):
         t, eps = draw_noise(images, state.generator, max_t)
-        return step_with_noise(state, images, labels, t, eps, conditional=conditional)
+        return step_with_noise(state, images, labels, t, eps, conditional=conditional,
+                               mesh=mesh)
 
     return train_step
 
 
-def _not_ported(mesh, use_native_loader, native_loader):
-    if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel training over a mesh is not ported yet (ROADMAP §1 item 7, "
-            "parallel/)")
+def _not_ported(use_native_loader, native_loader):
     if use_native_loader or native_loader is not None:
         raise NotImplementedError(
-            "the native C++ loader is not ported yet (ROADMAP §1 item 8, "
+            "the native C++ loader is not ported yet (ROADMAP §1 item 3, "
             "utils/native_loader.py); pass the dataset as arrays")
 
 
@@ -188,10 +235,19 @@ def train_diffusion(
     losses read at log steps (the last loss where an epoch has none). A
     checkpoint goes to `checkpoint_dir` every `save_interval` epochs;
     `resume_from` restores weights, AdamW moments, the schedule's position,
-    the step and the random streams, and runs `config.epochs` more epochs.
-    `mesh`, `use_native_loader` and `native_loader` are not ported yet and
-    raise."""
-    _not_ported(mesh, use_native_loader, native_loader)
+    the step and the random streams (on every rank), and runs
+    `config.epochs` more epochs. `mesh` (a `parallel.make_mesh` mesh with a
+    'data' axis, the model on the mesh's device) trains data-parallel: the
+    batch size must divide over the axis, every rank holds the dataset, and
+    only rank 0 writes checkpoints while the others wait.
+    `use_native_loader` and `native_loader` are not ported yet and raise."""
+    _not_ported(use_native_loader, native_loader)
+    if mesh is not None:
+        if config.batch_size % mesh.axis_size("data"):
+            raise ValueError(
+                f"batch_size={config.batch_size} must divide over the "
+                f"{mesh.axis_size('data')} ranks of the mesh's 'data' axis")
+        replicate(model.backbone, mesh)
     dev = model.device
     images = torch.as_tensor(dataset[0], dtype=torch.float32, device=dev)
     labels = torch.as_tensor(dataset[1], device=dev).long()
@@ -209,7 +265,8 @@ def train_diffusion(
 
         state.load(restore_checkpoint(resume_from))
         log_fn(f"resumed from {resume_from} at step {state.step}")
-    train_step = make_train_step(state, max_t=config.max_t, conditional=conditional)
+    train_step = make_train_step(state, max_t=config.max_t, conditional=conditional,
+                                 mesh=mesh)
     history = []
     for epoch in range(config.epochs):
         perm = torch.from_numpy(state.rng.permutation(n))
@@ -221,8 +278,9 @@ def train_diffusion(
             idx = perm[i * bs: (i + 1) * bs]
             loss = train_step(images[idx], labels[idx])
             if state.step % config.log_every == 0:
-                epoch_losses.append(float(loss))
-        mean_loss = float(np.mean(epoch_losses)) if epoch_losses else float(loss)
+                epoch_losses.append(float(global_loss(loss, mesh)))
+        mean_loss = (float(np.mean(epoch_losses)) if epoch_losses
+                     else float(global_loss(loss, mesh)))
         dt = time.time() - t0
         history.append(mean_loss)
         log_fn(
@@ -232,6 +290,8 @@ def train_diffusion(
         if checkpoint_dir and (epoch + 1) % config.save_interval == 0:
             from .utils.checkpoint import save_checkpoint
 
-            save_checkpoint(checkpoint_dir, **state.payload(), step=state.step,
-                            epoch=epoch + 1, extra=checkpoint_extra)
+            if is_writer():
+                save_checkpoint(checkpoint_dir, **state.payload(), step=state.step,
+                                epoch=epoch + 1, extra=checkpoint_extra)
+            barrier()
     return state, history

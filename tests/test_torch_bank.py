@@ -87,6 +87,21 @@ def test_ledger_cumulative_and_misses_not_cached(tiny_dataset):
     assert mod.bank_ledger.used == need3 + need5
 
 
+def test_misses_are_not_poisoned():
+    """tests/test_scores.py's TestBankBudgetAccounting case: a miss is not
+    cached, and `bank_budget_bytes` set after construction retunes the
+    module's ledger (a property onto `bank_ledger.budget`, as in JAX)."""
+    imgs = np.zeros((64, 32, 32, 3), np.float32)
+    labs = np.zeros((64,), np.int32)
+    mod = LocalEquivScoreModule((imgs, labs), batch_size=256, bank_budget_bytes=0,
+                                device="cpu")
+    assert mod._bank(3) is None
+    assert 3 not in mod._bank_cache  # retried next call
+    mod.bank_budget_bytes = 1 << 30
+    assert mod.bank_ledger.budget == mod.bank_budget_bytes == 1 << 30
+    assert mod._bank(3) is not None
+
+
 def test_shared_ledger_and_release_on_failed_build(tiny_dataset, monkeypatch):
     imgs, labs = tiny_dataset
     need = tb.bank_nbytes(16, 8, 8, 1, 3, 65536)

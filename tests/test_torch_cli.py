@@ -92,8 +92,11 @@ def test_els_cli_default_precision(tmp_path, kind):
 def test_els_cli_refuses_what_is_not_ported(tmp_path):
     from convolutional_diffusion_tpu_torch.cli import els
 
-    with pytest.raises(NotImplementedError, match="item 7, parallel"):
-        els.main(_common(tmp_path) + ["--ndevices", "2"])
+    # --ndevices 2 outside a group starts one rank per card: more than the
+    # visible cards (none here) is refused before anything runs
+    no_cpu = [a for a in _common(tmp_path) if a != "--cpu"]
+    with pytest.raises(ValueError, match="2 ranks need 2 CUDA devices"):
+        els.main(no_cpu + ["--ndevices", "2"])
     with pytest.raises(ValueError, match="scoremoduletype"):
         els.main(_common(tmp_path) + ["--scoremoduletype", "XYZ"])
 

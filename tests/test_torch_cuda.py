@@ -21,6 +21,8 @@ for the posterior mean s2/s1 (two fp32 summation orders of the same dots;
 at 'high' and 'default' of the same bf16 parts, at 'default' with the same
 bf16 roundings of the exponential and the values)."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -885,3 +887,76 @@ def test_resume_on_the_card_is_bit_for_bit(tmp_path):
     assert all(torch.equal(a[k], b[k]) for k in a)
     oa, ob = resumed.optimizer.state_dict()["state"], whole.optimizer.state_dict()["state"]
     assert all(torch.equal(oa[i][k], ob[i][k]) for i in ob for k in ob[i])
+
+
+@pytest.mark.cuda
+def test_gloo_pair_on_one_card(tmp_path):
+    """Two gloo ranks sharing cuda:0 (`tests/torch_multihost_worker.py`,
+    suite `parallel`): the sharded ELS (K1 on each rank's shard), bbELS, IS
+    and LS against the one-process modules on the card, 1e-5 relative to
+    scale (a merge reorders two partial sums); the collective merge with an
+    all-excluded shard exactly rank 0's state."""
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_multihost_worker as W
+
+    from convolutional_diffusion_tpu_torch.cli.common import build_score_module
+    from convolutional_diffusion_tpu_torch.schedules import cosine_noise_schedule
+
+    _need_cuda()
+    ranks = W.run_pair("parallel", str(tmp_path), device="cuda")
+    images, labels, x = W.parallel_data()
+    order = np.arange(48)
+    for kind in ("IS", "LS", "ELS", "bbELS"):
+        name, dev, got = ranks[0]["routing"][kind]
+        assert name.startswith("Sharded") and dev == "cuda"
+        one = build_score_module(kind, (images, labels), batch_size=12, image_size=8,
+                                 channels=3, schedule=cosine_noise_schedule)
+        assert _rel_scale(got, one(0.5, x, order=order).cpu()) <= 1e-5, kind
+    _, (m, s1, s2) = W.merge_inputs()
+    mg, s1g, s2g = ranks[1]["merge_excluded"]
+    assert torch.equal(mg[:4], m[0, :4]) and torch.equal(s1g, s1[0]) and torch.equal(s2g, s2[0])
+
+
+@pytest.mark.cuda
+def test_nccl_world_of_one_is_bit_equal(tmp_path):
+    """A world of one over NCCL, in process: the sharded ELS module and a DP
+    train step equal the unsharded ones bit for bit (the collectives run,
+    and are the identity)."""
+    import torch.distributed as dist
+
+    from convolutional_diffusion_tpu_torch.cli.common import build_score_module
+    from convolutional_diffusion_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    from convolutional_diffusion_tpu_torch.schedules import cosine_noise_schedule
+    from convolutional_diffusion_tpu_torch.training import (
+        TrainConfig,
+        TrainState,
+        step_with_noise,
+    )
+
+    dev = _need_cuda()
+    init_distributed("nccl", init_method=f"file://{tmp_path}/store", world_size=1, rank=0)
+    prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        mesh = make_mesh(1)
+        g = np.random.RandomState(3)
+        images = g.uniform(-1, 1, (64, 16, 16, 3)).astype(np.float32)
+        labels = g.randint(0, 3, 64)
+        x = torch.from_numpy(g.normal(size=(4, 16, 16, 3)).astype(np.float32))
+        kw = dict(batch_size=16, image_size=16, channels=3, schedule=cosine_noise_schedule)
+        one = build_score_module("ELS", (images, labels), **kw)
+        sharded = build_score_module("ELS", (images, labels), mesh=mesh, **kw)
+        assert torch.equal(sharded(0.5, x), one(0.5, x))
+        inputs = [a.to(dev) for a in _train_inputs()]
+        a, b = _train_model(dev), _train_model(dev)
+        la = step_with_noise(TrainState(a, TrainConfig()), *inputs, conditional=True)
+        lb = step_with_noise(TrainState(b, TrainConfig()), *inputs, conditional=True,
+                             mesh=mesh)
+        assert torch.equal(la, lb)
+        sa, sb = a.backbone.state_dict(), b.backbone.state_dict()
+        assert all(torch.equal(sa[k], sb[k]) for k in sa)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev
+        dist.destroy_process_group()

@@ -51,7 +51,7 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "models.embedding", "models.layers", "models.resnet", "models.unet",
                 "sampling", "calibration", "cli.sample", "cli.calibrate",
                 "utils.visualize", "training", "utils.checkpoint", "cli.train",
-                "cli.train_64x64"):
+                "cli.train_64x64", "parallel", "parallel.mesh", "parallel.sharded_score"):
         assert f"convolutional_diffusion_tpu_torch.{mod}" in res["imported"]
     for mod in ("ops.flash_score", "ops.prune"):
         assert f"convolutional_diffusion_tpu_torch.{mod}" in res["imported"]

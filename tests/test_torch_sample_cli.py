@@ -83,8 +83,12 @@ def test_sample_cli_cpu_end_to_end(tmp_path, extra, nsamples):
 
 
 def test_sample_cli_refuses_several_devices(tmp_path):
-    with pytest.raises(NotImplementedError, match="ndevices"):
-        sample_cli.main(["--modelfile", PICKLE, "--cpu", "--ndevices", "2",
+    """--ndevices 2 outside a group starts one rank per card: more ranks
+    than visible cards (none here) is refused, naming their count."""
+    if torch.cuda.device_count() >= 2:
+        pytest.skip("two cards are visible: --ndevices 2 runs")
+    with pytest.raises(ValueError, match=f"{torch.cuda.device_count()} visible"):
+        sample_cli.main(["--modelfile", PICKLE, "--ndevices", "2",
                          "--out", str(tmp_path / "g.png")])
 
 

@@ -415,9 +415,8 @@ def test_too_small_dataset_raises(tiny_dataset):
                                   ttraining.TrainConfig(batch_size=32), log_fn=lambda s: None)
 
 
-@pytest.mark.parametrize("kw,item", [({"mesh": object()}, "item 7"),
-                                     ({"use_native_loader": True}, "item 8"),
-                                     ({"native_loader": object()}, "item 8")])
+@pytest.mark.parametrize("kw,item", [({"use_native_loader": True}, "item 3"),
+                                     ({"native_loader": object()}, "item 3")])
 def test_unported_keywords_raise(tiny_dataset, kw, item):
     with pytest.raises(NotImplementedError, match=item):
         ttraining.train_diffusion(_tiny_model(), tiny_dataset, ttraining.TrainConfig(),
