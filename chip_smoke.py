@@ -110,7 +110,7 @@ Phases, each printing its own lines; any failure exits non-zero:
               c = 16 (more than half skipped).
 5. machines — one 20-step ScheduledScoreMachine call each, CIFAR10 scales,
               8 seeds of 32x32x3 (the same seeds for all), over N synthetic
-              bank images (--n, default 20000, cut from the published
+              bank images (--n, default 10000, cut from the published
               50000 to keep the script within its time limit; printed as
               `reduced`): main = ELS 'highest' (the JAX bench's
               els_20step_50kbank fp32 key), bbels = bbELS 'high', els_high =
@@ -271,6 +271,40 @@ Phases, each printing its own lines; any failure exits non-zero:
               sharded walls beside the one-process walls, all-reduces and
               bytes per score call, each rank's launches (added to the path
               counts) and peak memory, the phase's seconds.
+15. analysis — analysis/ and cli.analyze_ed's loop (after parallel; the
+              flash-score kernel has no backward: the analysis
+              differentiates the plain sweep, use_pallas=False). (a) a
+              bbELS field on the kernel route raises under jacrev; with
+              use_pallas=False its Jacobian is non-zero and no kernel
+              launches; (b) the flagship's full Jacobian at 32x32x3 (n =
+              3072, label 3) at 'highest' within 1e-5 of the same Jacobian
+              in float64 (max abs over max |J64|), the TF32 model outside
+              it; wall and peak; (c) cli.analyze_ed's realization loop at
+              --image_size 16, 20 steps, one realization: the flagship
+              (unconditional) and bbELS (k = 5, max_samples 1000) over a
+              50000-image synthetic set, seconds per step, no kernel launch;
+              then one step's df card against CPU on the same x at 1e-3
+              (bbELS at max_samples 64); (d) one bbELS Jacobian at 32x32x3
+              with max_samples cut to 256; (e) the IS field's ||J - J^T|| /
+              ||J|| <= 1e-5 at 16x16 (bbELS's printed beside it); (f)
+              analyze_patch_distances at the CLI defaults (patch sizes 3, 6,
+              10, 200 samples) over sets of MNIST's, CIFAR10's and CelebA's
+              shapes and train-split sizes on the card: d^2 within 32
+              float32 ulps of ||a||^2 + ||b||^2 of float64 on the same
+              patches, the TF32 gram outside it.
+16. loader   — the native C++ loader built from native/loader.cpp here
+              (build seconds); from_arrays over 50000 uint8 32x32x3 images,
+              from_idx and from_cifar_bins over temporary files: batches
+              (next and the pinned next_device) bit-equal to the
+              normalisation of the images their labels name; 20 flagship
+              steps at batch 128 fed by the loader, by the arrays, and by
+              the loader again (CUDA events, images/s);
+              train_diffusion(use_native_loader=True) and (native_loader=,
+              no dataset) take their batches from the loader.
+17. profiling — utils/profiling.py: a trace of one small ELS machine call
+              (CIFAR10 scales) and 3 train steps holds machine_step_k{k}
+              for each step's k and train_step 3 times; Timer within 2% of
+              CUDA events (the flagship forward at batch 64).
 
 The kernels line lists every variant checked; the variants no module path
 reaches ('inbank' at 'highest'/'high', the bf16 exponential after fp32
@@ -279,7 +313,7 @@ through keywords or an environment override, carry their path launches
 (0) and are exempt from the rule that each listed variant ran on the
 paths.
 
-Artifacts of phases 7, 8, 12, 13 and 14 go to build/chip_smoke/ (git-ignored). The
+Artifacts of phases 7, 8, 12, 13, 14 and 17 go to build/chip_smoke/ (git-ignored). The
 card's name and power limit print as the first line, the kernels JSON
 record as the second-to-last, and {"ok": true, "device": {...}} as the
 last. Without a CUDA device it exits non-zero and prints no result.
@@ -360,9 +394,12 @@ from convolutional_diffusion_tpu_torch.utils.checkpoint import restore_checkpoin
 CIFAR10_SCALES = [3, 3, 3, 3, 5, 5, 5, 7, 7, 7, 7, 9, 9, 11, 11, 13, 15, 17, 17, 17]
 FULL_N = 50000  # the published bank depth (the JAX bench's 50k CIFAR10 bank)
 # bank images of the RGB machines: cut from FULL_N so that the script, grown
-# by phases variants, wide, the neural half, train and parallel, stays within
-# its time limit; printed as reduced
-RGB_N = 20000
+# by phases variants, wide, the neural half, train, parallel and the
+# analysis, stays within its time limit (with phases analysis, loader and
+# profiling, 20000 took 1146.3 s and 15000 1198.7 s of 1200 on a host
+# whose CPU phases ran slower: the host's share of a run varies by ~100 s
+# between machines); printed as reduced
+RGB_N = 10000
 SEEDS = 8
 TARGET_BLOCK = 65536
 MODULE_BATCH = 256  # the JAX bench's ELS module batch size
@@ -3389,6 +3426,499 @@ def phase_parallel(seed):
     return launches
 
 
+# phase analysis: analysis/ and cli.analyze_ed on the card. The flash-score
+# kernel has no backward (in JAX or here): the analysis differentiates the
+# plain sweep (use_pallas=False), and the kernel route refuses inputs that
+# require grad
+AN_IMSIZE = 16  # cli.analyze_ed --image_size (the JAX CLI's tractability option)
+AN_STEPS = 20
+AN_K = 5  # cli.analyze_ed's default --kernel_size
+AN_MAX_SAMPLES = 1000  # its default --max_samples
+AN_BATCH = 64  # its default --scorebatchsize
+AN_CPU_MAX_SAMPLES = 64  # the card-against-CPU step's bbELS: 128 images (CPU time)
+AN_BIG_MAX_SAMPLES = 256  # (d): bbELS at 32x32, 320 images
+AN_T = 0.5  # the step of gates (c) and (e)
+JAC_TOL = 1e-5  # (b): max|J32 - J64| / max|J64|
+CLOSED_TOL = 1e-5  # (e): ||J - J^T||_F / ||J||_F of the IS field
+# (f): the sets' shapes (the published train splits' sizes) and the d^2
+# bound, in float32 ulps (2^-24) of ||a||^2 + ||b||^2: the CPU's float32
+# reaches up to 11 at d = 300
+PATCH_SETS = {"mnist": (60000, 28, 1), "cifar10": (FULL_N, 32, 3),
+              "celeba": (162770, 64, 3)}
+PATCH_SIZES = (3, 6, 10)  # cli.patch_stats defaults
+PATCH_SAMPLES = 200
+D2_ULPS = 32
+
+
+def an_x(images16, seed):
+    """A point of the reverse trajectory at t = AN_T: a set image noised as
+    the forward process does, [1, 16, 16, 3] on the card."""
+    beta = cosine_noise_schedule(torch.tensor(AN_T))
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    img = torch.as_tensor(images16[:1], device="cuda")
+    return torch.sqrt(1 - beta) * img + torch.sqrt(beta) * torch.randn(
+        img.shape, generator=g, device="cuda")
+
+
+def an_repair(images16, labels, seed):
+    """(a) A bbELS field on the kernel route raises under jacrev; with
+    use_pallas=False its Jacobian is non-zero and no kernel launches."""
+    from convolutional_diffusion_tpu_torch.analysis.exterior_derivative import jacobian_nd
+
+    x = an_x(images16, seed)
+    kw = dict(kernel_size=3, batch_size=16, device="cuda")
+    routed = LocalEquivBordersScoreModule((images16[:64], labels[:64]), **kw)
+    reset_launches()
+    routed(AN_T, x)  # eager, bank cached: the kernel
+    eager = sum(fs.flash_score_update.launches.values())
+    try:
+        jacobian_nd(x, lambda xb: routed(AN_T, xb))
+    except RuntimeError as e:
+        if "no backward" not in str(e):
+            raise
+        refusal = str(e).split(":")[0]
+    else:
+        fail("analysis (a): jacrev through the kernel route did not raise")
+    plain = LocalEquivBordersScoreModule((images16[:64], labels[:64]), use_pallas=False, **kw)
+    plain(AN_T, x)
+    before = dict(fs.flash_score_update.launches)
+    J = jacobian_nd(x, lambda xb: plain(AN_T, xb))
+    ran = {k_: n - before[k_] for k_, n in fs.flash_score_update.launches.items()
+           if n != before[k_]}
+    norm = J.norm().item()
+    print(f"[analysis] (a) bbELS k=3, 64 images 16x16: the kernel route's eager call "
+          f"launched {eager} kernel(s); under jacrev it raised ({refusal!r}); "
+          f"use_pallas=False: ||J||_F {norm:.4e}, kernel launches in the Jacobian "
+          f"{ran or 0}", flush=True)
+    if not eager or ran or not (norm > 0 and math.isfinite(norm)):
+        fail(f"analysis (a): eager launches {eager}, Jacobian launches {ran}, ||J|| {norm}")
+
+
+def an_timed(fn):
+    """(result, wall seconds, peak GB) of fn() on the card."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 1e9
+
+
+def an_flagship_jacobian(seed):
+    """(b) One full-width Jacobian of the flagship CNN (conditional, label 3:
+    its float64 copy then runs in float64 past the float32 time embedding;
+    seeded weights) at 32x32x3, n = 3072, at 'highest' against the same
+    Jacobian in float64 on the card; the TF32 model must miss the gate."""
+    from convolutional_diffusion_tpu_torch.analysis.exterior_derivative import (
+        jacobian_chunk,
+        jacobian_nd,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((1, 32, 32, 3), generator=g, device="cuda")
+    label = torch.full((1,), 3, device="cuda")
+    model = flagship("cuda", seed=seed)
+    field = lambda xb: model(AN_T, xb, label)  # noqa: E731
+    chunk = jacobian_chunk(lambda xf: field(xf.reshape(1, 32, 32, 3)).reshape(-1),
+                           x.reshape(-1))
+    J32, wall, peak = an_timed(lambda: jacobian_nd(x, field))
+    model64 = flagship("cuda", seed=seed).double()
+    J64, wall64, peak64 = an_timed(lambda: jacobian_nd(
+        x.double(), lambda xb: model64(AN_T, xb, label)))
+    tf32 = flagship("cuda", precision=None, seed=seed)
+    Jtf, wall_tf, _ = an_timed(lambda: jacobian_nd(x, lambda xb: tf32(AN_T, xb, label)))
+    scale = J64.abs().max().item()
+    err = (J32.double() - J64).abs().max().item() / scale
+    err_tf = (Jtf.double() - J64).abs().max().item() / scale
+    print(f"[analysis] (b) flagship Jacobian 3072 x 3072 at t={AN_T}, label 3: 'highest' "
+          f"{wall:.3f} s, peak {peak:.2f} GB, {chunk} lanes a chunk; float64 {wall64:.3f} s, "
+          f"peak {peak64:.2f} GB; TF32 {wall_tf:.3f} s. max|J - J64| / max|J64| "
+          f"(= {scale:.4e}): 'highest' {err:.3e}, TF32 {err_tf:.3e} (gate {JAC_TOL:g}; TF32 "
+          f"must miss it)", flush=True)
+    if not err <= JAC_TOL or not err_tf > JAC_TOL:
+        fail(f"analysis (b): 'highest' {err:.3e}, TF32 {err_tf:.3e} against {JAC_TOL}")
+    del J32, J64, Jtf, model, model64, tf32
+
+
+def an_realizations(ds50, images16, seed):
+    """(c) cli.analyze_ed's realization loop at --image_size 16: the
+    flagship and bbELS (k = 5, max_samples 1000 over the 50000-image set),
+    20 steps, one realization, no flash-score launch; then one step's ED
+    card against CPU on the same x (bbELS at max_samples 64, as the devices
+    phase's small machines)."""
+    from convolutional_diffusion_tpu_torch.analysis.exterior_derivative import (
+        compute_exterior_derivative_nd,
+    )
+    from convolutional_diffusion_tpu_torch.cli import analyze_ed as ed
+
+    def fields(device, max_samples, net):
+        return {"resnet": (ed.model_field(net), False),
+                "bbels": (ed.bbels_field(images16, ds50.labels, kernel_size=AN_K,
+                                         batch_size=AN_BATCH, max_samples=max_samples,
+                                         device=device), True)}
+
+    shape = (1, AN_IMSIZE, AN_IMSIZE, 3)
+    model = flagship("cuda", conditional=False, seed=seed)
+    card = ed.warm(fields("cuda", AN_MAX_SAMPLES, model), shape, "cuda", log=print)
+    if len(card) != 2:
+        fail(f"analysis (c): warm-up dropped a field: {list(card)}")
+    reset_launches()
+    (results, finals, secs), wall, peak = an_timed(lambda: ed.realizations(
+        card, image_size=AN_IMSIZE, channels=3, nsteps=AN_STEPS, n_real=1, seed=seed,
+        device="cuda", log=lambda s: None))
+    ran = {k_: n for k_, n in fs.flash_score_update.launches.items() if n}
+    ok = all(np.isfinite(v).all() and (v > 0).all() for v in results.values()) and all(
+        np.isfinite(f).all() and f.shape == (AN_IMSIZE, AN_IMSIZE, 3) for f in finals.values())
+    print(f"[analysis] (c) analyze_ed loop, {AN_IMSIZE}x{AN_IMSIZE}x3, {AN_STEPS} steps, 1 "
+          f"realization, bbELS k={AN_K} over {ed.quota_images(FULL_N, AN_BATCH, AN_MAX_SAMPLES)}"
+          f" of {FULL_N} images (max_samples {AN_MAX_SAMPLES}): "
+          + ", ".join(f"{n} {s:.3f} s per step (ED first / middle / last "
+                      f"{v[0, 0]:.4e} / {v[0, AN_STEPS // 2]:.4e} / {v[0, -1]:.4e})"
+                      for (n, v), s in zip(results.items(), secs.values()))
+          + f"; {wall:.2f} s in all, peak {peak:.2f} GB; flash-score launches {ran or 0}",
+          flush=True)
+    if not ok or ran:
+        fail(f"analysis (c): finite and positive {ok}, launches {ran}")
+    x = an_x(images16, seed)
+    cpu_net = flagship("cpu", conditional=False, seed=seed)
+    worst = {}
+    for (name, (fn_card, _)), (fn_cpu, _) in zip(
+            ed.warm(fields("cuda", AN_CPU_MAX_SAMPLES, model), shape, "cuda").items(),
+            ed.warm(fields("cpu", AN_CPU_MAX_SAMPLES, cpu_net), shape, "cpu").values()):
+        dfs = [compute_exterior_derivative_nd(x.to(dev), lambda xb, f=f: f(AN_T, xb)).cpu()
+               for f, dev in ((fn_card, "cuda"), (fn_cpu, "cpu"))]
+        mags = [d.norm().item() for d in dfs]
+        worst[name] = rel(*dfs)
+        print(f"[analysis] (c) {name} ED at t={AN_T}, card against CPU on one x: df rel "
+              f"{worst[name]:.2e}, ||df||_F {mags[0]:.6e} / {mags[1]:.6e} (gate {TOL:g})",
+              flush=True)
+    if not max(worst.values()) <= TOL:
+        fail(f"analysis (c): card against CPU {worst}")
+
+
+def an_bbels_big(ds50, seed):
+    """(d) One bbELS Jacobian at 32x32x3 (n = 3072), max_samples cut to 256."""
+    from convolutional_diffusion_tpu_torch.analysis.exterior_derivative import (
+        compute_exterior_derivative_nd,
+        exterior_derivative_magnitude,
+    )
+    from convolutional_diffusion_tpu_torch.cli import analyze_ed as ed
+
+    fn = ed.bbels_field(ds50.images, ds50.labels, kernel_size=AN_K, batch_size=AN_BATCH,
+                        max_samples=AN_BIG_MAX_SAMPLES, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed + 2)
+    x = torch.randn((1, 32, 32, 3), generator=g, device="cuda")
+    with torch.no_grad():
+        fn(AN_T, x)
+    df, wall, peak = an_timed(lambda: compute_exterior_derivative_nd(
+        x, lambda xb: fn(AN_T, xb)))
+    mag = exterior_derivative_magnitude(df)[0].item()
+    print(f"[analysis] (d) bbELS Jacobian 3072 x 3072, k={AN_K}, t={AN_T}, max_samples cut to "
+          f"{AN_BIG_MAX_SAMPLES} ({ed.quota_images(FULL_N, AN_BATCH, AN_BIG_MAX_SAMPLES)} "
+          f"images; the CLI's default is {AN_MAX_SAMPLES}): {wall:.3f} s, peak {peak:.2f} GB, "
+          f"||df||_F {mag:.4e}", flush=True)
+    if not (math.isfinite(mag) and mag > 0):
+        fail(f"analysis (d): ||df|| = {mag}")
+
+
+def an_closed(ds50, images16, seed):
+    """(e) The IS field is a gradient field: ||J - J^T|| / ||J|| at 16x16,
+    beside bbELS's (information)."""
+    from convolutional_diffusion_tpu_torch.analysis.exterior_derivative import jacobian_nd
+    from convolutional_diffusion_tpu_torch.cli import analyze_ed as ed
+
+    x = an_x(images16, seed)
+    ideal = IdealScoreModule((images16, ds50.labels), batch_size=len(images16),
+                             device="cuda")
+    bb = ed.bbels_field(images16, ds50.labels, kernel_size=AN_K, batch_size=AN_BATCH,
+                        max_samples=AN_MAX_SAMPLES, device="cuda")
+    ratios = {}
+    for name, fn in (("IS", lambda xb: ideal(AN_T, xb)), ("bbELS", lambda xb: bb(AN_T, xb))):
+        with torch.no_grad():
+            fn(x)  # eager first: bbELS caches its bank
+        (J,), wall, _ = an_timed(lambda: jacobian_nd(x, fn))
+        ratios[name] = ((J - J.T).norm() / J.norm()).item()
+        print(f"[analysis] (e) {name} at {AN_IMSIZE}x{AN_IMSIZE}x3, t={AN_T}: ||J - J^T||_F / "
+              f"||J||_F {ratios[name]:.3e} ({wall:.3f} s)", flush=True)
+    if not ratios["IS"] <= CLOSED_TOL:
+        fail(f"analysis (e): the IS field's ratio {ratios['IS']:.3e} > {CLOSED_TOL}")
+
+
+def an_patch_stats(ds50, seed):
+    """(f) analyze_patch_distances at the CLI defaults over sets of MNIST's,
+    CIFAR10's (the synthetic 50000) and CelebA's shapes on the card; d^2
+    held to float64 on the same patches within D2_ULPS float32 ulps of
+    ||a||^2 + ||b||^2, which the gram product in TF32 must miss."""
+    from convolutional_diffusion_tpu_torch.analysis import patch_statistics as ps
+    from convolutional_diffusion_tpu_torch.ops.fp32 import tf32_products
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    sets = {}
+    for name, (n, size, c) in PATCH_SETS.items():
+        sets[name] = (torch.from_numpy(ds50.images).cuda() if name == "cifar10" else
+                      torch.rand((n, size, size, c), generator=g, device="cuda") * 2 - 1)
+    res, wall, _ = an_timed(lambda: ps.analyze_multiple_datasets(
+        sets, patch_sizes=PATCH_SIZES, num_samples=PATCH_SAMPLES, make_plots=False,
+        generator=torch.Generator(device="cuda").manual_seed(seed), device="cuda",
+        log_fn=lambda s: None))
+    redraw = torch.Generator(device="cuda").manual_seed(seed)  # the same draws, in order
+    worst, worst_tf = 0.0, math.inf
+    iu = torch.triu_indices(PATCH_SAMPLES, PATCH_SAMPLES, 1, device="cuda")
+    for name, images in sets.items():
+        for k in PATCH_SIZES:
+            if k not in res[name]:
+                fail(f"analysis (f): {name} k={k} failed")
+            flat = ps.random_patches(images, k, PATCH_SAMPLES, redraw).reshape(PATCH_SAMPLES, -1)
+            f64 = flat.double()
+            sq = (f64 * f64).sum(1)
+            norms = sq[iu[0]] + sq[iu[1]]
+            d2 = ((f64[:, None] - f64[None]) ** 2).sum(-1)[iu[0], iu[1]]
+            got = torch.as_tensor(res[name][k]["_distances"], device="cuda").double() ** 2
+            worst = max(worst, ((got - d2).abs() / norms).max().item() / 2**-24)
+            with tf32_products(True):
+                gram = flat @ flat.T
+            sq32 = (flat * flat).sum(1)
+            tf = torch.clamp(sq32[:, None] - 2 * gram + sq32[None], min=0)[iu[0], iu[1]]
+            worst_tf = min(worst_tf, ((tf.double() - d2).abs() / norms).max().item() / 2**-24)
+    print(f"[analysis] (f) analyze_patch_distances, patch sizes {PATCH_SIZES}, "
+          f"{PATCH_SAMPLES} samples, on the card over "
+          + ", ".join(f"{n} {tuple(v.shape)}" for n, v in sets.items())
+          + f": {wall:.2f} s for the {len(sets) * len(PATCH_SIZES)} configurations (fits "
+          f"included); best fits "
+          + ", ".join(f"{n} " + "/".join(str(r[k]["fits"].get("best_fit")) for k in PATCH_SIZES)
+                      for n, r in res.items())
+          + f"; d^2 against float64: worst {worst:.2f} float32 ulps of ||a||^2 + ||b||^2 "
+          f"(bound {D2_ULPS}), the TF32 gram's least worst {worst_tf:.1f} (must miss)",
+          flush=True)
+    if not worst <= D2_ULPS or not worst_tf > D2_ULPS:
+        fail(f"analysis (f): d^2 {worst:.2f} ulps, TF32 {worst_tf:.1f}, bound {D2_ULPS}")
+
+
+def phase_analysis(seed):
+    """analysis/ and cli.analyze_ed's loop on the card: gates (a)-(f)."""
+    from convolutional_diffusion_tpu_torch.cli.analyze_ed import resize_images
+
+    t0 = time.perf_counter()
+    ds50 = synthetic_dataset(num_samples=FULL_N, image_size=32, num_channels=3, seed=seed)
+    images16 = resize_images(ds50.images, AN_IMSIZE)
+    print(f"[analysis] the {FULL_N}-image synthetic 32x32x3 set and its {AN_IMSIZE}x"
+          f"{AN_IMSIZE} resize: {time.perf_counter() - t0:.1f} s (set-up)", flush=True)
+    an_repair(images16, ds50.labels, seed)
+    an_flagship_jacobian(seed)
+    an_realizations(ds50, images16, seed)
+    an_bbels_big(ds50, seed)
+    an_closed(ds50, images16, seed)
+    an_patch_stats(ds50, seed)
+    torch.cuda.empty_cache()
+    print(f"[analysis] phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+# phase loader: the native C++ loader built from native/loader.cpp on this
+# machine, its batches exact, and the flagship recipe's steps fed from it
+LOADER_N = FULL_N
+LOADER_FILES_N = 256  # IDX and CIFAR-bin records: labels 0..255 name them
+LOADER_STEPS = 20
+
+
+def loader_expect(u8, labels):
+    """The loader's normalisation of the images its labels name, in float32
+    as the C++ computes it: (u8 / 255 - 0.5) / 0.5."""
+    return (u8[labels].astype(np.float32) / np.float32(255.0) - np.float32(0.5)) / np.float32(0.5)
+
+
+def loader_exact(tag, ld, u8, batches=3):
+    """`batches` batches (next and next_device alternately) equal the
+    normalisation of the images their labels name, bit for bit."""
+    for i in range(batches):
+        if i % 2:
+            xb, yb = (t.cpu().numpy() for t in ld.next_device("cuda"))
+        else:
+            xb, yb = ld.next()
+        if not np.array_equal(xb, loader_expect(u8, yb)):
+            fail(f"loader: a {tag} batch differs from its images")
+
+
+def loader_steps(tag, step, batch_fn):
+    """ms per step of LOADER_STEPS flagship steps fed by batch_fn, after 3."""
+    for _ in range(3):
+        step(*batch_fn())
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(LOADER_STEPS):
+        loss = step(*batch_fn())
+    end.record()
+    torch.cuda.synchronize()
+    if not torch.isfinite(loss):
+        fail(f"loader: {tag}'s loss is not finite")
+    return start.elapsed_time(end) / LOADER_STEPS
+
+
+def phase_loader(seed):
+    import struct
+    import tempfile
+
+    from convolutional_diffusion_tpu_torch.utils import native_loader as nl
+
+    t0 = time.perf_counter()
+    try:
+        built = nl.build()
+    except RuntimeError as e:
+        fail(f"loader: native/loader.cpp does not build here: {e}")
+    if not nl.is_available():
+        fail("loader: the built library does not load")
+    print(f"[loader] built {built.path.relative_to(_build.BUILD_DIR.parents[1])} in "
+          f"{built.seconds:.2f} s ({'reused' if not built.seconds else 'compiled'}; "
+          f"{' '.join(nl.CXXFLAGS)})", flush=True)
+    rs = np.random.RandomState(seed)
+    u8 = rs.randint(0, 256, size=(LOADER_N, 32, 32, 3), dtype=np.uint8)
+    ld = nl.NativeLoader.from_arrays(u8, np.arange(LOADER_N, dtype=np.int32),
+                                     batch_size=128, seed=seed)
+    if ld.num_samples != LOADER_N or ld.shape != (32, 32, 3):
+        fail(f"loader: from_arrays reports {ld.num_samples} samples of {ld.shape}")
+    loader_exact("from_arrays", ld, u8)
+    small = u8[:LOADER_FILES_N]
+    with tempfile.TemporaryDirectory() as tmp:
+        gray = small[..., 0]
+        img, lab = os.path.join(tmp, "images-idx3-ubyte"), os.path.join(tmp, "labels-idx1-ubyte")
+        with open(img, "wb") as f:
+            f.write(struct.pack(">IIII", 0x803, LOADER_FILES_N, 32, 32) + gray.tobytes())
+        with open(lab, "wb") as f:
+            f.write(struct.pack(">II", 0x801, LOADER_FILES_N)
+                    + np.arange(LOADER_FILES_N, dtype=np.uint8).tobytes())
+        idx = nl.NativeLoader.from_idx(img, lab, batch_size=64, seed=seed)
+        loader_exact("from_idx", idx, gray[..., None])
+        idx.close()
+        bins = []
+        for part in range(2):  # two files, joined as the loader joins them
+            rows = range(part * LOADER_FILES_N // 2, (part + 1) * LOADER_FILES_N // 2)
+            path = os.path.join(tmp, f"data_batch_{part + 1}.bin")
+            with open(path, "wb") as f:
+                for i in rows:
+                    f.write(bytes([i]) + small[i].transpose(2, 0, 1).tobytes())
+            bins.append(path)
+        cifar = nl.NativeLoader.from_cifar_bins(bins, batch_size=64, seed=seed)
+        if cifar.num_samples != LOADER_FILES_N:
+            fail(f"loader: from_cifar_bins read {cifar.num_samples} records")
+        loader_exact("from_cifar_bins", cifar, small)
+        cifar.close()
+    print(f"[loader] batches bit-equal to their images: from_arrays ({LOADER_N} 32x32x3, "
+          f"next and next_device), from_idx and from_cifar_bins ({LOADER_FILES_N} records "
+          f"each, temporary files)", flush=True)
+    model = flagship("cuda", seed=seed)
+    state = TrainState(model, TrainConfig(batch_size=128, seed=seed))
+    step = make_train_step(state, conditional=True)
+    n = 128 * LOADER_STEPS
+    images = torch.from_numpy(loader_expect(u8, np.arange(n))).cuda()
+    labels = torch.from_numpy(np.arange(n) % 10).cuda()
+    perm = torch.randperm(n, device="cuda")
+    it = itertools.count()
+
+    def array_batch():
+        i = next(it) % LOADER_STEPS
+        idx = perm[i * 128:(i + 1) * 128]
+        return images[idx], labels[idx]
+
+    def loader_batch():
+        xb, yb = ld.next_device("cuda")
+        return xb, yb % 10
+
+    ms = {"loader": loader_steps("loader", step, loader_batch),
+          "arrays": loader_steps("arrays", step, array_batch),
+          "loader again": loader_steps("loader", step, loader_batch)}
+    ld.close()
+    print("[loader] flagship 'highest' train steps, batch 128, by CUDA events over "
+          f"{LOADER_STEPS} steps: " + ", ".join(
+              f"{k_} {v:.3f} ms ({128 / v * 1e3:.1f} images/s)" for k_, v in ms.items()),
+          flush=True)
+    small_model = flagship("cuda", seed=seed)
+    ds = (loader_expect(u8, np.arange(256)), np.arange(256) % 10)
+    seen = []
+    real = nl.NativeLoader.next_device
+
+    def spy(self, device):
+        seen.append(1)
+        return real(self, device)
+
+    nl.NativeLoader.next_device = spy
+    try:
+        _, hist = train_diffusion(small_model, ds, TrainConfig(epochs=1, batch_size=64),
+                                  conditional=True, use_native_loader=True,
+                                  log_fn=lambda s: None)
+        given = nl.NativeLoader.from_arrays(u8[:256], np.arange(256) % 10, batch_size=64,
+                                            seed=seed)
+        _, hist2 = train_diffusion(small_model, None, TrainConfig(epochs=1, batch_size=64),
+                                   conditional=True, native_loader=given,
+                                   log_fn=lambda s: None)
+        given.close()
+    finally:
+        nl.NativeLoader.next_device = real
+    print(f"[loader] train_diffusion(use_native_loader=True) and (native_loader=, dataset "
+          f"None): {len(seen)} batches from the loader, losses {hist[-1]:.4f} / "
+          f"{hist2[-1]:.4f}; phase {time.perf_counter() - t0:.1f} s", flush=True)
+    if len(seen) != 8 or not np.isfinite(hist + hist2).all():
+        fail(f"loader: train_diffusion took {len(seen)} loader batches, losses {hist + hist2}")
+    del model, small_model, images
+    torch.cuda.empty_cache()
+
+
+# phase profiling: utils/profiling.py on the card
+PROF_N = 256  # the small ELS machine's bank images
+PROF_TRAIN_STEPS = 3
+PROF_TIMER_CALLS = 20
+PROF_TIMER_TOL = 0.02
+
+
+def phase_profiling(seed):
+    """A trace of one small ELS machine call and PROF_TRAIN_STEPS train
+    steps holds machine_step_k{k} for each step's k and train_step once a
+    step; Timer agrees with CUDA events within 2%."""
+    from collections import Counter
+
+    from convolutional_diffusion_tpu_torch.utils import profiling
+
+    t0 = time.perf_counter()
+    ds = synthetic_dataset(num_samples=PROF_N, image_size=32, num_channels=3, seed=seed)
+    mod = LocalEquivScoreModule((ds.images, ds.labels), batch_size=MODULE_BATCH, device="cuda")
+    machine = ScheduledScoreMachine(mod, scales=CIFAR10_SCALES)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((2, 32, 32, 3), generator=g, device="cuda")
+    model = flagship("cuda", seed=seed)
+    train = (ds.images[:8 * PROF_TRAIN_STEPS], ds.labels[:8 * PROF_TRAIN_STEPS])
+    out_dir = SCRATCH / "profiling"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    with profiling.trace(str(out_dir)) as prof:
+        machine(x)
+        train_diffusion(model, train, TrainConfig(epochs=1, batch_size=8), conditional=True,
+                        log_fn=lambda s: None)
+        torch.cuda.synchronize()
+    with open(prof.trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = Counter(e["name"] for e in events if e.get("cat") == "user_annotation")
+    want = Counter(f"machine_step_k{CIFAR10_SCALES[i]}"
+                   for i in range(len(CIFAR10_SCALES) - 1, 0, -1))
+    want["train_step"] = PROF_TRAIN_STEPS
+    got = {name: spans.get(name, 0) for name in want}
+    device_spans = sum(1 for e in events if e.get("cat") == "kernel")
+    print(f"[profiling] trace {Path(prof.trace_path).name} ({os.path.getsize(prof.trace_path)} "
+          f"bytes, {device_spans} device kernel spans): named ranges {dict(got)}", flush=True)
+    if got != dict(want):
+        fail(f"profiling: the trace's ranges {dict(got)} != {dict(want)}")
+    xb = torch.randn((64, 32, 32, 3), generator=g, device="cuda")
+    lab = torch.arange(64, device="cuda") % 10
+    fwd = lambda: model(0.5, xb, lab)  # noqa: E731
+    with torch.no_grad():
+        timer_s, _ = profiling.Timer().time(fwd, iters=PROF_TIMER_CALLS, warmup=2)
+        event_ms = cuda_ms(fwd, PROF_TIMER_CALLS)
+    gap = abs(timer_s * 1e3 - event_ms) / event_ms
+    print(f"[profiling] Timer {timer_s * 1e3:.3f} ms a call against CUDA events {event_ms:.3f} "
+          f"ms (flagship forward, batch 64, {PROF_TIMER_CALLS} calls): {100 * gap:.2f}% apart "
+          f"(gate {100 * PROF_TIMER_TOL:g}%); phase {time.perf_counter() - t0:.1f} s", flush=True)
+    if not gap <= PROF_TIMER_TOL:
+        fail(f"profiling: Timer {timer_s * 1e3:.3f} ms against CUDA events {event_ms:.3f} ms")
+    del model, mod
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=RGB_N,
@@ -3497,6 +4027,10 @@ def main(argv=None) -> int:
     phase_train(args.seed)
     print(f"[time] {time.perf_counter() - t_start:.1f} s so far", flush=True)
     add(phase_parallel(args.seed))
+    print(f"[time] {time.perf_counter() - t_start:.1f} s so far", flush=True)
+    phase_analysis(args.seed)
+    phase_loader(args.seed)
+    phase_profiling(args.seed)
     print(f"[time] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     never = [key for key in recs if not path.get(key) and not keyword_only(key)]
     if never:

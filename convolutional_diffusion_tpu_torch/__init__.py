@@ -16,11 +16,18 @@ calibration against the CNN (`calibration`, `cli.calibrate`); and training
 (`training`, resumable checkpoints in `utils.checkpoint`, `cli.train`,
 `cli.train_64x64`); and `parallel` over `torch.distributed` (dataset-sharded
 score modules, data-parallel training, seed-sharded sampling, one process
-per device). `analysis/` is not ported yet. Entry points run on `cuda`
-unless the caller passes `device="cpu"`; without a card they raise. On a CUDA tensor the flash-score sweep launches the hand-written
-Hopper kernels in `ops/csrc/`; on a CPU tensor it runs their plain PyTorch
-versions. The backbones and their training run cuDNN, cuBLAS and PyTorch's
-fused AdamW (the JAX models and trainer have no Pallas kernel).
+per device); and the analysis (`analysis`: the curl of a score field along
+a trajectory, patch-distance statistics; `cli.analyze_ed`, `cli.evaluate`,
+`cli.patch_stats`, `cli.patch_stats_grayscale`, `cli.verify_plots`),
+`utils.profiling` and the native C++ loader (`utils.native_loader`, built
+from `native/loader.cpp`). Entry points run on `cuda` unless the caller
+passes `device="cpu"`; without a card they raise. On a CUDA tensor the
+flash-score sweep launches the hand-written Hopper kernels in `ops/csrc/`;
+on a CPU tensor it runs their plain PyTorch versions. The backbones and their training run cuDNN, cuBLAS and PyTorch's
+fused AdamW (the JAX models and trainer have no Pallas kernel). The score
+modules differentiate (`torch.func`) on the plain route only
+(`use_pallas=False`): the kernels have no backward and refuse inputs that
+require grad.
 
 Submodules are imported explicitly (`from convolutional_diffusion_tpu_torch
 import scores`); importing the package itself loads nothing else.

@@ -493,41 +493,120 @@ def sweep_plain(q, bias, bank, values, dotscale: float, m, s1, s2,
     is re-based is part of the function with this exponential: x is
     rounded against the m current at its tile, so a sweep re-based every
     8192 rows, or two chained calls against one, differ from it by ~1e-3
-    on the posterior mean."""
+    on the posterior mean.
+
+    Autograd differentiates it with respect to q and the carried state
+    (`torch.func.jacrev` of a score module with use_pallas=False) after
+    fp32 dots with the fp32 exp2, each block's backward recomputing its
+    exponentials (`_Fp32Block`); the split dots and the bf16 exponential
+    raise under grad."""
     split = precision != "highest"
     fast = precision == "default" if fast_exp is None else bool(fast_exp)
+    if any(isinstance(t, torch.Tensor) and t.requires_grad for t in (bias, bank, values)):
+        raise NotImplementedError(
+            "the plain flash-score sweep differentiates with respect to the "
+            "queries and the carried state only; the bank, its weights and "
+            "the values are constants")
+    if (split or fast) and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, m, s1, s2)):
+        raise NotImplementedError(
+            "the plain flash-score sweep differentiates after fp32 dots with "
+            "the fp32 exp2 only ('highest' without fast_exp): the split dots "
+            "and the bf16 exponential repeat the kernels' roundings step by "
+            "step, which autograd does not follow")
     with true_fp32():
-        zero = torch.zeros((), dtype=torch.float32, device=q.device)
         if split:
             qh, ql = _split_bf16(q)
             qh64, ql64 = qh.double(), ql.double()
         for p0 in range(0, bank.shape[0], PLAIN_BLOCK):
-            p1 = p0 + PLAIN_BLOCK
+            p1 = min(p0 + PLAIN_BLOCK, bank.shape[0])
+            skip = (None if prune_mask is None
+                    else _mask_cells(prune_mask, q.shape[0], p0, p1))
+            v = (bank[p0:p1, col0 : col0 + s2.shape[1]] if strategy == "inbank"
+                 else values[p0:p1])
+            if not (split or fast):
+                m, s1, s2 = _Fp32Block.apply(q, bank[p0:p1], bias[..., p0:p1], v, skip,
+                                             dotscale, m, s1, s2)
+                continue
             if split:
                 dots = _split_dot(qh64, ql64, *_split_bf16(bank[p0:p1]))
                 logits = _add_bias(dots.double() * dotscale,
                                    bias[..., p0:p1].double()).float()
             else:
-                logits = (fp32_logits_in_order if fast else _fp32_logits)(
-                    q, bank[p0:p1], dotscale, bias[..., p0:p1])
-            if prune_mask is not None:
-                logits = logits.masked_fill(
-                    _mask_cells(prune_mask, q.shape[0], p0, p0 + logits.shape[1]),
-                    NEG_INF)
-            v = (bank[p0:p1, col0 : col0 + s2.shape[1]] if strategy == "inbank"
-                 else values[p0:p1])
+                logits = fp32_logits_in_order(q, bank[p0:p1], dotscale, bias[..., p0:p1])
+            if skip is not None:
+                logits = logits.masked_fill(skip, NEG_INF)
             if fast:
                 m, s1, s2 = _fast_tiles(logits, v, m, s1, s2, _fast_rule(strategy, split))
-                continue
-            m_new = torch.maximum(m, logits.amax(dim=1))
-            m_safe = torch.where(m_new <= NEG_INF * 0.5, zero, m_new)
-            scale = torch.where(m <= NEG_INF * 0.5, zero, torch.exp2(m - m_safe))
-            e = torch.exp2(logits - m_safe[:, None])
-            s1 = s1 * scale + e.sum(dim=1)
-            t2 = _split_product(e, v) if split and strategy == "inbank" else e @ v
-            s2 = s2 * scale[:, None] + t2
-            m = m_new
+            else:
+                product = _split_product if strategy == "inbank" else torch.matmul
+                m, s1, s2 = _online_step(logits, v, m, s1, s2, product)
     return m, s1, s2
+
+
+def _online_step(logits, v, m, s1, s2, product=torch.matmul) -> State:
+    """One block of the fp32-exp2 online softmax: m, s1 and s2 advanced by
+    logits [M, n] with values v [n, c] (s2 += product(e, v))."""
+    zero = torch.zeros((), dtype=torch.float32, device=logits.device)
+    m_new = torch.maximum(m, logits.amax(dim=1))
+    m_safe = torch.where(m_new <= NEG_INF * 0.5, zero, m_new)
+    scale = torch.where(m <= NEG_INF * 0.5, zero, torch.exp2(m - m_safe))
+    e = torch.exp2(logits - m_safe[:, None])
+    return m_new, s1 * scale + e.sum(dim=1), s2 * scale[:, None] + product(e, v)
+
+
+class _Fp32Block(torch.autograd.Function):
+    """One block of the plain sweep after fp32 dots and the fp32 exp2, with
+    a backward that recomputes the block's exponentials from q and the bank
+    (as flash attention's backward does) instead of keeping them, and whose
+    work over the block does not depend on the cotangent.
+
+    With e[m, p] = exp2(logit[m, p] - m_safe[m]) and logit = dotscale
+    <q_m, k_p> + bias_p, the cotangents ds1 [.., M], ds2 [.., M, c] of
+    s1 = sum_p e and s2 = sum_p e v_p give
+        dq[.., m] = sum_j A[.., m, j] H[m, j],  A = [ds1 | ds2],
+        H[m, j] = ln 2 dotscale sum_p e[m, p] u_j[p] k_p,  u = [1 | v],
+    so the [M, P] work (H: one product per block) is done once for all the
+    lanes of a `torch.func.jacrev` chunk, and each lane adds only
+    [M, 1 + c, d]. m is a constant of the backward: the offset-invariant
+    quantities m + log s1 and s2 / s1 do not depend on it, so their
+    derivatives are exact. The gradient reaches q and the carried s1, s2
+    only (the bank, its bias and the values are constants)."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(q, bank, bias, v, skip, dotscale, m, s1, s2):
+        return _online_step(_block_logits(q, bank, bias, skip, dotscale), v, m, s1, s2)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, bank, bias, v, skip, dotscale, m, _, _ = inputs
+        ctx.dotscale = dotscale
+        ctx.save_for_backward(q, bank, bias, v, skip, m, output[0])
+
+    @staticmethod
+    def backward(ctx, _dm, ds1, ds2):
+        q, bank, bias, v, skip, m, m_new = ctx.saved_tensors
+        zero = torch.zeros((), dtype=torch.float32, device=q.device)
+        m_safe = torch.where(m_new <= NEG_INF * 0.5, zero, m_new)
+        scale = torch.where(m <= NEG_INF * 0.5, zero, torch.exp2(m - m_safe))
+        dq = None
+        if ctx.needs_input_grad[0]:
+            with true_fp32():
+                logits = _block_logits(q, bank, bias, skip, ctx.dotscale)
+                g = torch.exp2(logits - m_safe[:, None]) * (LN2 * ctx.dotscale)  # [M, n]
+                u = torch.cat([torch.ones_like(v[:, :1]), v], dim=1).T  # [1 + c, n]
+                h = (g[:, None, :] * u[None]) @ bank  # [M, 1 + c, d]
+                a = torch.cat([ds1[..., None], ds2], dim=-1)  # [.., M, 1 + c]
+                dq = (a[..., None] * h).sum(dim=-2)
+        return (dq, None, None, None, None, None, None, ds1 * scale,
+                ds2 * scale[:, None])
+
+
+def _block_logits(q, bank, bias, skip, dotscale: float) -> torch.Tensor:
+    logits = _fp32_logits(q, bank, dotscale, bias)
+    return logits if skip is None else logits.masked_fill(skip, NEG_INF)
 
 
 def sweep_kernel(q, bias, bank, values, dotscale: float, m, s1, s2,
@@ -661,6 +740,19 @@ def _update(sweep, q, qn, bank, pn, values, w, at, bt, state, precision,
     return m, s1, s2
 
 
+def _refuse_grad(*tensors) -> None:
+    """The kernels read raw pointers and have no backward: an input that
+    requires grad (under `torch.func.jacrev`, say) would get a result
+    autograd knows nothing of, so a Jacobian through it would be zero.
+    Refuse it instead."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            "the flash-score kernel has no backward: an input requires grad. "
+            "Differentiate through the plain version instead (a score module "
+            "built with use_pallas=False, or flash_score_update_plain)")
+
+
 def flash_score_update(
     q: torch.Tensor,  # [M, d]
     qn: torch.Tensor,  # [M]
@@ -686,9 +778,11 @@ def flash_score_update(
     CUDA tensors run the hand-written kernel of the dots and the
     exponential (`_route`: K1 after fp32 dots, K2 after split dots with
     the fp32 exp2, K3/K4 after split dots with the bf16 exponential; each
-    launch counted, see the module docstring); CPU tensors run
-    `sweep_plain`; any other device raises."""
+    launch counted, see the module docstring), which refuse inputs that
+    require grad (`_refuse_grad`); CPU tensors run `sweep_plain`, which
+    autograd differentiates; any other device raises."""
     if q.is_cuda:
+        _refuse_grad(q, qn, bank, pn, values, w, at, bt, *state)
         sweep = sweep_kernel
     elif q.device.type == "cpu":
         sweep = sweep_plain
@@ -714,8 +808,10 @@ def flash_score_update_plain(q, qn, bank, pn, values, w, at, bt, state, *,
                              rows_per_seed: int | None = None,
                              inbank_cols: Tuple[int, int] | None = None,
                              prune_mask: torch.Tensor | None = None) -> State:
-    """`flash_score_update` through the plain version on any device (the
-    yardstick the kernel is held against on the card)."""
+    """`flash_score_update` through the plain version on any device: the
+    yardstick the kernel is held against on the card, and the route of a
+    score module built with use_pallas=False, which autograd
+    differentiates."""
     return _update(sweep_plain, q, qn, bank, pn, values, w, at, bt, state,
                    precision, rows_per_seed, v_strategy, fast_exp, inbank_cols,
                    prune_mask)

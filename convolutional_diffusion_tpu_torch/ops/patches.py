@@ -24,7 +24,16 @@ __all__ = [
 
 def window_view(x: torch.Tensor, k: int) -> torch.Tensor:
     """All valid k x k windows of NHWC `x` as a strided view (no copy):
-    [n, h-k+1, w-k+1, k, k, c]."""
+    [n, h-k+1, w-k+1, k, k, c]. Where autograd is to differentiate it (x
+    requires grad, as under `torch.func.jacrev`), the same values as an
+    index gather instead: `unfold`'s backward has no vmap batching rule, so
+    under jacrev it would run once per cotangent lane."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        _, h, w, _ = x.shape
+        offsets = torch.arange(k, device=x.device)
+        rows = torch.arange(h - k + 1, device=x.device)[:, None] + offsets
+        cols = torch.arange(w - k + 1, device=x.device)[:, None] + offsets
+        return x[:, rows][:, :, :, cols].permute(0, 1, 3, 2, 4, 5)
     return x.unfold(1, k, 1).unfold(2, k, 1).permute(0, 1, 2, 4, 5, 3)
 
 

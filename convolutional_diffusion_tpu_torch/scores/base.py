@@ -63,6 +63,7 @@ class ScoreModuleBase:
         shuffle: bool = False,
         generator: Optional[torch.Generator] = None,
         device=None,
+        use_pallas: Optional[bool] = None,
         **_unused,
     ):
         """precision: 'highest' (true fp32 dots: the parity configuration,
@@ -80,7 +81,18 @@ class ScoreModuleBase:
         shuffle: stream the dataset in a fresh random order on every call
         (the reference DataLoader's shuffle=True), drawn with `generator`
         (default: a CPU generator seeded with 0). Order changes results only
-        through batch composition; see common.image_weights."""
+        through batch composition; see common.image_weights.
+
+        use_pallas: the JAX keyword's meaning for the flash-score sweeps.
+        None or True: the hand-written kernel on the card, the plain
+        version on the CPU. False: the plain version on the module's
+        device, which autograd differentiates (the kernel has no backward
+        and refuses inputs that require grad), as the analysis's Jacobians
+        need. The modules without a sweep (IS, LS) compute the same either
+        way.
+
+        The other keywords of the JAX constructors (`dispatch_target_s`,
+        `shuffle_key`) are taken and ignored."""
         if precision not in PRECISIONS:
             raise ValueError(
                 f"precision must be 'highest', 'high' or 'default', got "
@@ -105,6 +117,7 @@ class ScoreModuleBase:
         self.max_samples = max_samples
         self.precision = precision
         self.shuffle = shuffle
+        self.use_pallas = use_pallas
         self._generator = (
             generator if generator is not None
             else torch.Generator().manual_seed(0)

@@ -180,7 +180,6 @@ class LocalEquivBordersScoreModule(BankCacheMixin, ScoreModuleBase):
             )
         return [st_rows, st_cols, st_corners]
 
-    @torch.no_grad()
     def _score(self, k, x, label, at, bt, order):
         n, h, w, c = self.images.shape
         b = x.shape[0]

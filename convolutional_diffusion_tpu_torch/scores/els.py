@@ -46,6 +46,7 @@ import torch.nn.functional as F
 from ..ops.flash_score import (
     NEG_INF,
     flash_score_update,
+    flash_score_update_plain,
     state_from_kernel,
     state_to_kernel,
 )
@@ -87,12 +88,18 @@ def _empty_state(M: int, c: int, device):
     )
 
 
+def _update_fn(use_pallas):
+    """The sweep `use_pallas` picks: None or True `flash_score_update` (the
+    kernel on the card, the plain version on the CPU), False the plain
+    version on any device, which autograd differentiates."""
+    return flash_score_update_plain if use_pallas is False else flash_score_update
+
+
 def _rows_per_seed(q_flat, w_img):
     """Query rows per seed for per-seed weights [S, n]; None for [n]."""
     return q_flat.shape[0] // w_img.shape[0] if w_img.ndim == 2 else None
 
 
-@torch.no_grad()
 def els_sweep(
     images,  # [n, h, w, c]
     w_img,  # [n] per-image weights, or [S, n] one row per seed
@@ -105,6 +112,7 @@ def els_sweep(
     cs: int,  # images per chunk (bank_geometry(...).cs)
     precision: str = "highest",
     state0=None,  # (m [M], s1 [M], s2 [M, c]) -inf convention; None = empty
+    use_pallas=None,  # False: the plain version on any device (`_update_fn`)
 ):
     """Stream the images through the online softmax, extracting each chunk's
     patches on the fly; returns (m, s1, s2) with the -inf empty convention.
@@ -112,6 +120,7 @@ def els_sweep(
     card), the M query rows split into S equal seed blocks.
     Chaining: a sweep over images[:j] whose state feeds `state0` of a sweep
     over images[j:] (j a multiple of cs) equals one sweep over all of them."""
+    update = _update_fn(use_pallas)
     n, h, w, c = images.shape
     per_img = (h - k + 1) * (w - k + 1)
     rps = _rows_per_seed(xq_flat, w_img)
@@ -123,7 +132,7 @@ def els_sweep(
     for i0 in range(0, n, cs):
         p, ctr, pn = chunk_patches(images[i0 : i0 + cs], k)
         w_p = w_img[..., i0 : i0 + cs].repeat_interleave(per_img, dim=-1)
-        state = flash_score_update(
+        state = update(
             xq_flat, qn_flat, p, pn, None if vkw else ctr, w_p, at, bt, state,
             precision=precision, rows_per_seed=rps, **vkw,
         )
@@ -144,7 +153,6 @@ def _row_weights(bank, w_img, i, per_img: int):
     return F.pad(w_c, (0, cs - w_c.shape[-1])).repeat_interleave(per_img, dim=-1)
 
 
-@torch.no_grad()
 def banked_sweep(
     q_flat,  # [M, d] query windows (seed-major with per-seed weights)
     qn_flat,  # [M]
@@ -159,6 +167,7 @@ def banked_sweep(
     state0=None,  # (m, s1, s2) -inf convention; None = empty
     inbank_col: int | None = None,  # centers == bank[..., col:col+c]
     masks=None,  # [nblk, ceil(M / PRUNE_ROWS), ceil(B / PRUNE_BLOCK)] (K6)
+    use_pallas=None,  # False: the plain version on any device (`_update_fn`)
 ):
     """Sweep prebuilt bank chunks through the online softmax; returns
     (m, s1, s2) with the -inf empty convention (chainable via `state0`).
@@ -168,6 +177,7 @@ def banked_sweep(
     (the chunk padding) get zero weight. With `inbank_col` the sweeps take
     'inbank' where `_inbank_max_dp` allows it, and `bank.centers` is not
     read. `masks` (1-D weights) gives each chunk's sweep its prune mask."""
+    update = _update_fn(use_pallas)
     nblk, B, d = bank.bank.shape
     c = bank.centers.shape[-1]
     rps = _rows_per_seed(q_flat, w_img)
@@ -177,7 +187,7 @@ def banked_sweep(
         else state_to_kernel(*state0)
     )
     for i in range(nblk):
-        state = flash_score_update(
+        state = update(
             q_flat, qn_flat, bank.bank[i], bank.pn[i],
             None if vkw else bank.centers[i],
             _row_weights(bank, w_img, i, per_img), at, bt, state,
@@ -200,7 +210,6 @@ def sweep_masks(bank: ClusteredBank, w_img, q_flat, qn_flat, at, bt, *,
     return mk.view(mk.shape[0], nblk, -1).transpose(0, 1).contiguous()
 
 
-@torch.no_grad()
 def patch_sweep(module, k: int, q_flat, qn_flat, w_img, at, bt):
     """Sweep the queries over every valid k x k patch of `module`'s images
     (per-image weights `w_img`, [n] or [S, n] per seed): through the
@@ -208,26 +217,27 @@ def patch_sweep(module, k: int, q_flat, qn_flat, w_img, at, bt):
     chunk. Either way one sweep per bank chunk, with the module's precision
     and the value strategy of `_value_kw`; with the module's `prune` set, a
     clustered bank at 'highest' or 'high' with 1-D weights and M a multiple
-    of PRUNE_ROWS sweeps with prune masks (`sweep_masks`, K6). Returns
-    (m, s1, s2), -inf convention. The ELS module and the bbELS center
-    region share it."""
+    of PRUNE_ROWS sweeps with prune masks (`sweep_masks`, K6), on the
+    kernel's route only, as in the JAX package. The module's `use_pallas`
+    picks the sweep (`_update_fn`). Returns (m, s1, s2), -inf convention.
+    The ELS module and the bbELS center region share it."""
     n, h, w, c = module.images.shape
     g = bank_geometry(n, h, w, c, k, module.target_block)
     bank = module._bank(k)
     if bank is None:
         return els_sweep(
             module.images, w_img, q_flat, qn_flat, at, bt,
-            k=k, cs=g.cs, precision=module.precision,
+            k=k, cs=g.cs, precision=module.precision, use_pallas=module.use_pallas,
         )
     masks = None
-    if (module.prune and isinstance(bank, ClusteredBank)
+    if (module.prune and module.use_pallas is not False and isinstance(bank, ClusteredBank)
             and module.precision in ("highest", "high")
             and w_img.ndim == 1 and q_flat.shape[0] % PRUNE_ROWS == 0):
         masks = sweep_masks(bank, w_img, q_flat, qn_flat, at, bt, per_img=g.per_img)
     return banked_sweep(
         q_flat, qn_flat, bank, w_img, at, bt, per_img=g.per_img,
         precision=module.precision, inbank_col=center_index(k, c).start,
-        masks=masks,
+        masks=masks, use_pallas=module.use_pallas,
     )
 
 
@@ -285,7 +295,6 @@ class LocalEquivScoreModule(BankCacheMixin, ScoreModuleBase):
         by_label = {lab: weights(lab) for lab in set(labs)}
         return torch.stack([by_label[lab] for lab in labs])
 
-    @torch.no_grad()
     def _score(self, k, x, label, at, bt, order):
         n, h, w, c = self.images.shape
         b = x.shape[0]

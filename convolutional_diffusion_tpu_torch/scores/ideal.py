@@ -31,7 +31,6 @@ class IdealScoreModule(ScoreModuleBase):
         reference's forward swallows it."""
         return None
 
-    @torch.no_grad()
     def _score(self, k, x, label, at, bt, order):
         n = self.images.shape[0]
         b = x.shape[0]

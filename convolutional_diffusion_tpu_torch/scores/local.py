@@ -61,7 +61,6 @@ class LocalScoreModule(ScoreModuleBase):
             **kw,
         )
 
-    @torch.no_grad()
     def _score(self, k, x, label, at, bt, order):
         n, h, w, c = self.images.shape
         b = x.shape[0]

@@ -10,7 +10,9 @@ same semantics:
    `score_backbone=False` the backbone's output is epsilon as it is;
  - `visualize_fn(i, imputed_x0)` is called at each step with the denoised
    estimate (x - sqrt(beta_t) eps) / sqrt(1 - beta_t);
- - the update is the deterministic DDIM step.
+ - the update is the deterministic DDIM step;
+ - each step's score call is the named range `machine_step_k{k}`
+   (`utils.profiling.annotate`).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 
 from ..sampling import ddim_step
 from ..schedules import cosine_noise_schedule
+from ..utils.profiling import annotate
 
 
 class ScheduledScoreMachine:
@@ -66,7 +69,8 @@ class ScheduledScoreMachine:
             t = torch.tensor(i, dtype=torch.float32) / nsteps
             beta_t = self.noise_schedule(t)
             k = None if self.scales is None else self.scales[i]
-            out = self.backbone(t, x, label=label, k=k)
+            with annotate(f"machine_step_k{k}"):
+                out = self.backbone(t, x, label=label, k=k)
             eps = out * (-torch.sqrt(beta_t)) if self.score_backbone else out
             if visualize_fn is not None:
                 visualize_fn(i, (x - eps * torch.sqrt(beta_t)) / torch.sqrt(1.0 - beta_t))

@@ -17,7 +17,14 @@ gradient convolutions would otherwise run in TF32. The dataset lives on the
 model's device; each epoch's batch order is JAX's,
 `np.random.RandomState(seed).permutation(n)`, uploaded once per epoch; t and
 eps are drawn from a `torch.Generator` on the device (not JAX's PRNG
-stream), and nothing is read back to the host between log steps.
+stream), and nothing is read back to the host between log steps. Each step
+is the named range `train_step` (`utils.profiling.annotate`).
+
+With the native C++ loader (`use_native_loader=True`, or a `native_loader`
+such as `NativeLoader.from_idx` for a set that stays on disk), the batches
+come from it instead, shuffled and normalised on the host, through pinned
+buffers to the device (`NativeLoader.next_device`); the dataset is then not
+uploaded, and with a given loader it may be None.
 
 Data-parallel training (`train_diffusion(mesh=...)`, one process per
 device, `parallel.mesh`): the parameters start as rank 0's (broadcast), and
@@ -44,6 +51,7 @@ from .models.ddim import DiffusionModel
 from .models.layers import batch_statistics_over, precision_scope
 from .parallel.mesh import all_reduce, barrier, is_writer, replicate, shard_batch
 from .sampling import q_sample
+from .utils.profiling import annotate
 
 
 @dataclasses.dataclass
@@ -209,11 +217,21 @@ def make_train_step(state: TrainState, *, max_t: int = 1000, conditional: bool =
     return train_step
 
 
-def _not_ported(use_native_loader, native_loader):
-    if use_native_loader or native_loader is not None:
-        raise NotImplementedError(
-            "the native C++ loader is not ported yet (ROADMAP §1 item 3, "
-            "utils/native_loader.py); pass the dataset as arrays")
+def _open_native(dataset, config: TrainConfig, log_fn):
+    """A NativeLoader over the dataset's arrays (the normalisation inverted
+    to uint8, as the C++ loader holds raw pixels), or None where the
+    library cannot be built here (logged)."""
+    from .utils import native_loader as nl
+
+    if not nl.is_available():
+        log_fn("native loader unavailable; using numpy batches")
+        return None
+    images, labels = (t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+                      for t in dataset)
+    u8 = np.clip((images.astype(np.float32) * 0.5 + 0.5) * 255.0, 0, 255).astype(np.uint8)
+    return nl.NativeLoader.from_arrays(u8, labels.astype(np.int32),
+                                       batch_size=config.batch_size, seed=config.seed,
+                                       drop_last=config.drop_last)
 
 
 def train_diffusion(
@@ -240,8 +258,27 @@ def train_diffusion(
     'data' axis, the model on the mesh's device) trains data-parallel: the
     batch size must divide over the axis, every rank holds the dataset, and
     only rank 0 writes checkpoints while the others wait.
-    `use_native_loader` and `native_loader` are not ported yet and raise."""
-    _not_ported(use_native_loader, native_loader)
+
+    `native_loader` (a `utils.native_loader.NativeLoader`) serves the
+    batches instead of the dataset, which may then be None;
+    `use_native_loader=True` opens one over the dataset's arrays with
+    `config.seed` (and closes it at the end), or logs that it cannot and
+    takes the arrays. With a mesh every rank reads the same global batch
+    from its own loader and takes its slice, as from the arrays."""
+    native, opened = native_loader, None
+    if native is None and use_native_loader:
+        native = opened = _open_native(dataset, config, log_fn)
+    try:
+        return _train(model, dataset, config, native, conditional=conditional, mesh=mesh,
+                      checkpoint_dir=checkpoint_dir, checkpoint_extra=checkpoint_extra,
+                      resume_from=resume_from, log_fn=log_fn)
+    finally:
+        if opened is not None:
+            opened.close()
+
+
+def _train(model, dataset, config, native, *, conditional, mesh, checkpoint_dir,
+           checkpoint_extra, resume_from, log_fn):
     if mesh is not None:
         if config.batch_size % mesh.axis_size("data"):
             raise ValueError(
@@ -249,9 +286,12 @@ def train_diffusion(
                 f"{mesh.axis_size('data')} ranks of the mesh's 'data' axis")
         replicate(model.backbone, mesh)
     dev = model.device
-    images = torch.as_tensor(dataset[0], dtype=torch.float32, device=dev)
-    labels = torch.as_tensor(dataset[1], device=dev).long()
-    n = images.shape[0]
+    if native is not None:
+        n = native.num_samples
+    else:
+        images = torch.as_tensor(dataset[0], dtype=torch.float32, device=dev)
+        labels = torch.as_tensor(dataset[1], device=dev).long()
+        n = images.shape[0]
     bs = config.batch_size
     steps_per_epoch = n // bs if config.drop_last else -(-n // bs)
     if steps_per_epoch == 0:
@@ -269,14 +309,20 @@ def train_diffusion(
                                  mesh=mesh)
     history = []
     for epoch in range(config.epochs):
-        perm = torch.from_numpy(state.rng.permutation(n))
-        # one upload per epoch; from pinned memory it does not wait for the card
-        perm = perm.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else perm
+        if native is None:
+            perm = torch.from_numpy(state.rng.permutation(n))
+            # one upload per epoch; from pinned memory it does not wait for the card
+            perm = perm.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else perm
         epoch_losses = []
         t0 = time.time()
         for i in range(steps_per_epoch):
-            idx = perm[i * bs: (i + 1) * bs]
-            loss = train_step(images[idx], labels[idx])
+            if native is not None:
+                batch = native.next_device(dev)
+            else:
+                idx = perm[i * bs: (i + 1) * bs]
+                batch = images[idx], labels[idx]
+            with annotate("train_step"):
+                loss = train_step(*batch)
             if state.step % config.log_every == 0:
                 epoch_losses.append(float(global_loss(loss, mesh)))
         mean_loss = (float(np.mean(epoch_losses)) if epoch_losses

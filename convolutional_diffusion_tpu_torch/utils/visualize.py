@@ -1,12 +1,13 @@
 """Denormalization and image grids.
 
-Counterpart of `denormalize` and `save_image_grid` in
+Counterpart of `denormalize`, `denormalize_imshow` and `save_image_grid` in
 `convolutional_diffusion_tpu/utils/visualize.py`, NHWC. The JAX package
 draws its grid with matplotlib; this one writes the PNG with the standard
 library (`zlib`, `struct`), so it needs neither matplotlib nor PIL: the same
 denormalized, clipped tiles in the same row-major grid of `ncols` columns,
 one pixel per pixel, with no gaps, empty cells white. Gray images are drawn
-as the JAX grid's ``gray_r`` colormap draws them: 0 white, 1 black.
+as the JAX grid's ``gray_r`` colormap draws them: 0 white, 1 black. Only
+`denormalize_imshow` needs matplotlib, which it imports when called.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import zlib
 
 import numpy as np
 
-__all__ = ["denormalize", "grid_pixels", "save_image_grid"]
+__all__ = ["denormalize", "denormalize_imshow", "grid_pixels", "save_image_grid"]
 
 
 def denormalize(image, means, stds):
@@ -26,6 +27,22 @@ def denormalize(image, means, stds):
     means = np.asarray(means, image.dtype)
     stds = np.asarray(stds, image.dtype)
     return image * stds + means
+
+
+def denormalize_imshow(image, means, stds, show=True):
+    """Denormalize and imshow the (first) image with matplotlib, imported
+    here (the reference's idealscore.py:22-29)."""
+    import matplotlib.pyplot as plt
+
+    img = denormalize(image, means, stds)
+    if img.ndim == 4:
+        img = img[0]
+    if img.shape[-1] == 1:
+        img = img[..., 0]
+    plt.imshow(np.clip(img, 0, 1), cmap="gray_r")
+    plt.axis("off")
+    if show:
+        plt.show()
 
 
 def grid_pixels(images, *, ncols: int = 8, means=0.5, stds=0.5) -> np.ndarray:

@@ -960,3 +960,59 @@ def test_nccl_world_of_one_is_bit_equal(tmp_path):
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev
         dist.destroy_process_group()
+
+
+# --- the analysis: differentiable score modules on the card ------------------
+
+
+def _analysis_case():
+    g = np.random.RandomState(5)
+    images = g.uniform(-1, 1, (48, 12, 12, 3)).astype(np.float32)
+    labels = g.randint(0, 3, 48)
+    x = torch.from_numpy(g.normal(size=(1, 12, 12, 3)).astype(np.float32))
+    return images, labels, x
+
+
+@pytest.mark.cuda
+def test_kernel_route_refuses_grad_under_jacrev():
+    """The kernel has no backward: under jacrev a module on the kernel route
+    raises (pointing to use_pallas=False) instead of a Jacobian of zeros."""
+    from convolutional_diffusion_tpu_torch.analysis.exterior_derivative import jacobian_nd
+    from convolutional_diffusion_tpu_torch.scores import LocalEquivBordersScoreModule
+
+    dev = _need_cuda()
+    images, labels, x = _analysis_case()
+    mod = LocalEquivBordersScoreModule((images, labels), kernel_size=3, batch_size=16,
+                                       device=dev)
+    x = x.to(dev)
+    before = sum(tfs.flash_score_update.launches.values())
+    mod(0.5, x)
+    assert sum(tfs.flash_score_update.launches.values()) > before
+    with pytest.raises(RuntimeError, match="use_pallas=False"):
+        jacobian_nd(x, lambda xb: mod(0.5, xb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bbELS", "ELS"])
+def test_use_pallas_false_jacobian_card_vs_cpu(kind):
+    """With use_pallas=False the card differentiates the plain sweep, and
+    launches no kernel: its Jacobian against the CPU's within 1e-5 of scale."""
+    from convolutional_diffusion_tpu_torch.analysis.exterior_derivative import jacobian_nd
+    from convolutional_diffusion_tpu_torch.scores import (
+        LocalEquivBordersScoreModule,
+        LocalEquivScoreModule,
+    )
+
+    dev = _need_cuda()
+    cls = LocalEquivBordersScoreModule if kind == "bbELS" else LocalEquivScoreModule
+    images, labels, x = _analysis_case()
+    jac = {}
+    for d in (dev, torch.device("cpu")):
+        mod = cls((images, labels), kernel_size=5, batch_size=16, use_pallas=False, device=d)
+        mod(0.3, x.to(d))
+        before = dict(tfs.flash_score_update.launches)
+        jac[d.type] = jacobian_nd(x.to(d), lambda xb: mod(0.3, xb)).cpu()
+        assert tfs.flash_score_update.launches == before
+    scale = jac["cpu"].abs().max().item()
+    assert scale > 1.0
+    assert (jac["cuda"] - jac["cpu"]).abs().max().item() <= 1e-5 * scale

@@ -20,6 +20,7 @@ to scale (as `tests/test_batchnorm.py`)."""
 
 import copy
 import functools
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -415,12 +416,29 @@ def test_too_small_dataset_raises(tiny_dataset):
                                   ttraining.TrainConfig(batch_size=32), log_fn=lambda s: None)
 
 
-@pytest.mark.parametrize("kw,item", [({"use_native_loader": True}, "item 3"),
-                                     ({"native_loader": object()}, "item 3")])
-def test_unported_keywords_raise(tiny_dataset, kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        ttraining.train_diffusion(_tiny_model(), tiny_dataset, ttraining.TrainConfig(),
-                                  log_fn=lambda s: None, **kw)
+@pytest.mark.parametrize("kw,item", [
+    pytest.param("use_native_loader", "unavailable", id="kw0-item 3"),
+    pytest.param("native_loader", "smaller than batch_size", id="kw1-item 3")])
+def test_unported_keywords_raise(tiny_dataset, kw, item, monkeypatch):
+    """The native loader's keywords, ported: where the library cannot be
+    built, use_native_loader=True logs JAX's line and trains from the
+    arrays; a given loader's size is checked against the batch like the
+    dataset's (`tests/test_torch_native_loader.py` trains from both)."""
+    from convolutional_diffusion_tpu_torch.utils import native_loader
+
+    if kw == "use_native_loader":
+        monkeypatch.setattr(native_loader, "is_available", lambda: False)
+        logs = []
+        _, history = ttraining.train_diffusion(
+            _tiny_model(), tiny_dataset, ttraining.TrainConfig(epochs=1, batch_size=8),
+            use_native_loader=True, log_fn=logs.append)
+        assert logs[0] == "native loader unavailable; using numpy batches"
+        assert np.isfinite(history).all()
+        return
+    loader = SimpleNamespace(num_samples=4)
+    with pytest.raises(ValueError, match=item):
+        ttraining.train_diffusion(_tiny_model(), None, ttraining.TrainConfig(batch_size=8),
+                                  native_loader=loader, log_fn=lambda s: None)
 
 
 def test_make_optimizer_is_adamw_with_per_batch_decay():
