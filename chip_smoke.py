@@ -60,9 +60,16 @@ Phases, each printing its own lines; any failure exits non-zero:
               k in {3, 9, 17}, t in {0.05, 0.5, 0.95}, against
               the plain version at 1e-3; at t = 0.5 also chained, with
               sentinel rows, at rows_per_seed = 784 (a partial last block per
-              seed), and against 8 one-seed 1-D launches (gate 1e-6); K5's
-              time against the 1-D kernel's on the same inputs, and the
-              grouped alternative's (8 launches at M = 1024, information).
+              seed), and against 8 one-seed 1-D launches (gate 1e-6). Each
+              block walks only its seed's live bank tiles: one launch
+              records the tiles each block walked (`tile_counts`), which
+              must equal, block by block, its seed's live tiles in its
+              split by the plain flags (`fs.live_tiles_plain`), so the
+              walked fraction equals the live fraction (printed, with the
+              spread over blocks). K5's time against the bound of the live
+              (seed, tile) pairs' work and the all-pairs bound, the 1-D
+              kernel's time on the same inputs, and the grouped
+              alternative's (8 launches at M = 1024, information).
    prune    — the prune skip bit, kernel variant K6, in K1, K2 and the
               'default' kernel (in the variant the ELS module takes at k):
               one full CIFAR10 chunk clustered by the port's k-means
@@ -103,11 +110,15 @@ Phases, each printing its own lines; any failure exits non-zero:
               launch the 'default' kernel and K2; (6) K5 in each new
               variant, 8 seeds of 1024 rows (one label-filtered weight row
               each, the last seed's class absent), against the plain
-              version and 7 one-seed 1-D launches (1e-6); (7) K6: 'mxu'
-              masked at 'highest' and 'high' on a clustered 16-channel
+              version and 7 one-seed 1-D launches (1e-6), its walk gated as
+              in phase k5 and timed against the live pairs' bound; (7) K6:
+              'mxu' masked at 'highest' and 'high' on a clustered 16-channel
               chunk (sound masks, against plain + mask 1e-3 and the
               unmasked kernel 1e-5) and on the stress problem at d = 144,
-              c = 16 (more than half skipped).
+              c = 16 (more than half skipped); (8) K6 in K1, c = 3, k = 17,
+              under a mask that skips nothing: bit-equal to the unmasked
+              launch, and the two timed in turns (unmasked, masked,
+              masked, unmasked).
 5. machines — one 20-step ScheduledScoreMachine call each, CIFAR10 scales,
               8 seeds of 32x32x3 (the same seeds for all), over N synthetic
               bank images (--n, default 10000, cut from the published
@@ -756,7 +767,7 @@ def check_logits(key, k, t, args, kw, c=3):
 
 
 def bound(M: int, P: int, d: int, c: int, precision: str, S: int = 1,
-          strategy: str = "vpu", fast=None):
+          strategy: str = "vpu", fast=None, live=None):
     """Least time on the card: the larger of the operations over their
     peaks and the bytes over the memory rate (each input read once, each
     output written once). Three units run side by side, and the busiest
@@ -775,8 +786,11 @@ def bound(M: int, P: int, d: int, c: int, precision: str, S: int = 1,
     the fp32 pipe after fp32 dots, e @ [K | 1] on the tensor cores after
     split dots, 2 M P (c + 1) with the bf16 exponential and three split
     products, 3 x 2 M P (c + 1), without; 'inbank' reads no values.
-    Per-seed weights (K5, S seeds) change only the weight bytes, S * P
-    instead of P."""
+    Per-seed weights (K5, S seeds) need the work of the live (seed, tile)
+    pairs only: `live`, the bool [S, ceil(P / 128)] flags of
+    `fs.live_tiles_plain`, scales the operations by the live pairs' share
+    and the bank and value bytes by the share of tiles some seed admits;
+    the weight bytes are S * P. Without `live`, every pair counts."""
     fast = precision == "default" if fast is None else fast
     elem = (6 + (1 if fast else 0)) * M * P  # logit, max, sums; ln 2 multiply
     tc = 0 if precision == "highest" else 3 * 2 * M * P * d
@@ -790,12 +804,51 @@ def bound(M: int, P: int, d: int, c: int, precision: str, S: int = 1,
     else:  # 'mxu1', 'inbank' after split dots: s1 rides the product
         elem -= M * P
         tc += (1 if fast else 3) * 2 * M * P * (c + 1)
+    pairs = 1.0 if live is None else live.float().mean().item()
+    rows = 1.0 if live is None else live.any(0).float().mean().item()
     t_sfu = M * P / SFU_RATE * 1e3
-    t_ops = max(tc / PEAK_BF16 * 1e3, elem / PEAK_FP32 * 1e3, t_sfu)
+    t_ops = max(tc / PEAK_BF16 * 1e3, elem / PEAK_FP32 * 1e3, t_sfu) * pairs
     values = 0 if strategy == "inbank" else P * c
-    nbytes = 4 * (M * d + M + P * d + P + S * P + values + 2 * M * (2 + c))
+    nbytes = 4 * (M * d + M + rows * (P * d + P + values) + S * P + 2 * M * (2 + c))
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def walk_check(tag, key, k, args, kw, c=3):
+    """K5's walk, gated: one launch of the sweep `fs.flash_score_update(
+    *args, ..., **kw)` (per-seed weights) from the empty state, through
+    `fs.sweep_kernel` with `tile_counts`, and the tiles each block walked
+    against its seed's live tiles in its split by the plain flags
+    (`fs.live_tiles_plain` of the kernel's bias): they must be equal block
+    by block, so the walked fraction equals the live fraction. Prints both
+    fractions and the spread of walked tiles over the blocks; returns the
+    flags."""
+    _, (q, bias, bank, values, dotscale, *_), k_, _ = kernel_call(
+        *args, empty_state(args[0].shape[0], c), **kw)
+    M, P = q.shape[0], bank.shape[0]
+    S = bias.shape[0]
+    name = fs.KERNEL_OF[k_["precision"]]
+    split_rows, nsplit, grid = fs.split_launch(name, M, M // S, P, k_["precision"],
+                                               k_["strategy"], c, k_["fast_exp"])
+    counts = torch.full((math.prod(grid),), -1, dtype=torch.int32, device="cuda")
+    fs.sweep_kernel(q, bias, bank, values, dotscale, *empty_state(M, c), **k_,
+                    tile_counts=counts)
+    torch.cuda.synchronize()
+    live = fs.live_tiles_plain(bias)
+    per = -(-split_rows // fs.FAST_TILE)  # tiles per split (all but the last)
+    want = torch.stack([live[:, z * per:(z + 1) * per].sum(1) for z in range(nsplit)])
+    want = want[:, :, None].expand(nsplit, S, grid[0]).reshape(-1)  # x fastest, then seed
+    got = counts.long()
+    walked, total = got.sum().item(), grid[0] * live.numel()
+    print(f"[{tag}] {key} k={k}: walked {walked} of {total} (block, tile) pairs "
+          f"({walked / total:.4f}); live (seed, tile) pairs by the flags "
+          f"{live.float().mean().item():.4f}; tiles per block min {got.min().item()}, "
+          f"median {got.median().item()}, max {got.max().item()} of {per}, "
+          f"{(got == 0).float().mean().item():.1%} of {got.numel()} blocks walk none",
+          flush=True)
+    if not torch.equal(got, want.to(got.device)):
+        fail(f"{key} at k={k}: the tiles its blocks walked are not their seeds' live tiles")
+    return live
 
 
 def reset_launches():
@@ -1237,14 +1290,17 @@ def phase_kernel_per_seed(images_dev, labels_dev, n_bank, gen):
                                               empty_state(rps, c), **kw1)
 
                 grouped_ms = cuda_ms(grouped, 3)
-                b_ms, b_by = bound(M, P, g.d, c, prec, S=SEEDS,
-                                   strategy=vkw.get("v_strategy", "vpu"))
+                live = walk_check("k5", key, k, args, kw)
+                strategy = vkw.get("v_strategy", "vpu")
+                b_ms, b_by = bound(M, P, g.d, c, prec, S=SEEDS, strategy=strategy, live=live)
+                all_ms, _ = bound(M, P, g.d, c, prec, S=SEEDS, strategy=strategy)
                 grid = f"; {grid_line(fs.KERNEL_OF[prec], M, P, kw, rps=rps)}"
                 print(f"[k5] {key} k={k} d={g.d} M={M} P={P}: kernel {ms:.3f} ms, "
-                      f"plain {plain_ms:.3f} ms, library {lib_ms:.3f} ms, bound {b_ms:.3f} "
-                      f"ms ({b_by}), {b_ms / ms:.1%} of bound; 1-D kernel on the same inputs "
-                      f"{one_d_ms:.3f} ms; grouped alternative (information): 8 "
-                      f"launches at M={rps} {grouped_ms:.3f} ms{grid}", flush=True)
+                      f"plain {plain_ms:.3f} ms, library {lib_ms:.3f} ms, bound of the live "
+                      f"pairs {b_ms:.3f} ms ({b_by}), {b_ms / ms:.1%} of it; all-pairs bound "
+                      f"{all_ms:.3f} ms; 1-D kernel on the same inputs {one_d_ms:.3f} ms; "
+                      f"grouped alternative (information): 8 launches at M={rps} "
+                      f"{grouped_ms:.3f} ms{grid}", flush=True)
                 rec.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, k=k,
                            library_ms=lib_ms)
         del p, ctr, pn
@@ -1541,10 +1597,11 @@ def variant_case(tag, key, k, t, args, M, c, kw, rec, chain=True, rows=None,
     return got
 
 
-def variant_time(tag, key, k, args, M, P, d, c, kw, rec, rows=None, S=1, rps=None):
+def variant_time(tag, key, k, args, M, P, d, c, kw, rec, rows=None, S=1, rps=None,
+                 live=None):
     """ms per launch (CUDA events, 5 after a warm-up), the plain version's
     ms (over `rows` where given, scaled to M rows: information) and the
-    bound of the function's work; into `rec`."""
+    bound of the function's work (K5: of the `live` pairs'); into `rec`."""
     ms = cuda_ms(lambda: fs.flash_score_update(*args, empty_state(M, c), **kw), 5)
     fast = kw.get("fast_exp")
     fast = kw["precision"] == "default" if fast is None else fast
@@ -1557,7 +1614,7 @@ def variant_time(tag, key, k, args, M, P, d, c, kw, rec, rows=None, S=1, rps=Non
         plain_ms *= M / rows.numel()
     b_ms, b_by = bound(M, P, d, c, fs._route(kw["precision"], fast), S=S,
                        strategy=kw.get("v_strategy", "mxu" if c > fs.MAX_CHANNELS else "vpu"),
-                       fast=fast)
+                       fast=fast, live=live)
     print(f"[{tag}] {key} k={k} d={d} M={M} P={P} c={c}: kernel {ms:.3f} ms, plain "
           f"{plain_ms:.3f} ms{'' if rows is None else ' (row subset, scaled)'}, library "
           f"{lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), {b_ms / ms:.1%} of bound",
@@ -1728,8 +1785,9 @@ def phase_variants(images_dev, images16_dev, gen):
         dead = slice((SEEDS - 1) * rps, SEEDS * rps)
         if not ((got[0][dead] <= fs.NEG_INF / 2).all() and (got[1][dead] == 0).all()):
             fail(f"{key}: the all-excluded seed's rows are not empty")
+        live = walk_check("variants", key, k, args, kw5, c=c)
         variant_time("variants", key, k, args, M, args[2].shape[0], g.d, c, kw5, rec,
-                     rows=rows, S=SEEDS, rps=rps)
+                     rows=rows, S=SEEDS, rps=rps, live=live)
     # (7) K6: 'mxu' masked at 'highest' and 'high' on a clustered 16-channel
     # chunk (sound masks, k = 3) and on the stress problem at d = 144
     for precision in ("highest", "high"):
@@ -1754,6 +1812,24 @@ def phase_variants(images_dev, images16_dev, gen):
                             mask, kw, rec, c=WIDE_C)
         del cb, p, ctr, pn
     phase_prune_stress_wide(recs)
+    # (8) K6 in K1 under a mask that skips nothing, beside the unmasked launch
+    args, g = chunk_inputs(images_dev, 17, 0.5, gen)
+    zero = torch.zeros(fs.prune_grid(M, args[2].shape[0]), dtype=torch.int32, device="cuda")
+    kw = dict(precision="highest")
+    key = vkey(dict(kw, v_strategy="vpu")) + fs.PRUNE
+    masked = fs.flash_score_update(*args, empty_state(M, 3), prune_mask=zero, **kw)
+    same = all(torch.equal(a, b) for a, b in zip(
+        masked, fs.flash_score_update(*args, empty_state(M, 3), **kw)))
+    print(f"[variants] {key} k=17: under a mask that skips nothing, bit-equal to the unmasked "
+          f"launch: {same}", flush=True)
+    if not same:
+        fail(f"{key} under an empty mask differs from the unmasked launch")
+    ms = [cuda_ms(lambda: fs.flash_score_update(*args, empty_state(M, 3), prune_mask=mask,
+                                                **kw), 5)
+          for mask in (None, zero, zero, None)]
+    print(f"[variants] {key} k=17 d={g.d} M={M} P={args[2].shape[0]}: in turns unmasked / "
+          f"masked (0% skipped) / masked / unmasked {' / '.join(f'{x:.3f}' for x in ms)} ms: "
+          f"masked {(ms[1] + ms[2]) / (ms[0] + ms[3]):.3f}x the unmasked", flush=True)
     return recs, wide_ms
 
 

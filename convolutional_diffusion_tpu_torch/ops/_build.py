@@ -58,20 +58,25 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 # (q, bias, bank, values, dotscale, m_in, s1_in, s2_in, m_out, s1_out,
 #  s2_out, M, rows_per_seed, P, d, c, mask, mask_stride, strategy, col0,
-#  fast, scratch, split_rows, device, stream): the flash-score kernels' C
-# interface; bias is
-# [M / rows_per_seed, P] (1-D weights: rows_per_seed = M); mask is null or
-# the int32 skip mask [ceil(M / PRUNE_ROWS), mask_stride] of 1-D weights
-# (K6); strategy is the value strategy's code (`flash_score.STRATEGY_CODE`),
-# col0 the first center column of 'inbank' (-1 otherwise), fast 1 for the
-# bf16 exponential; scratch (null or float32 `flash_score.scratch_numel`)
-# and split_rows (`flash_score.split_plan`) are the main loops' (partial
-# states of the splits, the split-dot kernels' bf16 planes)
+#  fast, scratch, split_rows, live, walked, device, stream): the flash-score
+# kernels' C interface; bias is [M / rows_per_seed, P] (1-D weights:
+# rows_per_seed = M); mask is null or the int32 skip mask
+# [ceil(M / PRUNE_ROWS), mask_stride] of 1-D weights (K6); strategy is the
+# value strategy's code (`flash_score.STRATEGY_CODE`), col0 the first center
+# column of 'inbank' (-1 otherwise), fast 1 for the bf16 exponential;
+# scratch (null or float32 `flash_score.scratch_numel`) and split_rows
+# (`flash_score.split_plan`) are the main loops' (partial states of the
+# splits, the split-dot kernels' bf16 planes); live is null (every tile
+# walked) or, with per-seed weights, the int32 workspace
+# [M / rows_per_seed, ceil(P / SPLIT_TILE)] the launch fills with its
+# live-tile flags and walks by (K5); walked is null or int32, one per
+# thread block: the bank tiles each walked, written by the list walks (K5,
+# K6) only (`flash_score.sweep_kernel`'s tile_counts)
 _FLASH_ARGS = [
     _P, _P, _P, _P, ctypes.c_float, _P, _P, _P, _P, _P, _P,
     ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
     ctypes.c_int, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, _P, ctypes.c_longlong, ctypes.c_int, _P,
+    ctypes.c_int, _P, ctypes.c_longlong, _P, _P, ctypes.c_int, _P,
 ]
 
 # name -> (source, C symbol, argtypes)

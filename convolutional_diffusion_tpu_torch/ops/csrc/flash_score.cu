@@ -30,8 +30,15 @@
 // seed-major blocks and `bias` is [S, P]; seed s's rows use bias row s.
 // Every grid has a seed axis: a block owns rows of one seed (up to the
 // seed's end) and stages one bias row. 1-D weights are the case S = 1,
-// rows_per_seed = M. The bound is the 1-D kernel's for the same M, P, d;
-// only the bias bytes grow to S * P.
+// rows_per_seed = M, and walk every tile. With per-seed weights a pass
+// (split_bank.cuh `live_tiles`) first flags, per seed and 128-row tile,
+// whether the seed's bias admits any of the tile's patches, and each block
+// walks only its seed's live tiles (under a label filter about one in ten:
+// the patches of the seed's label's images). A dead tile would leave the
+// state bit for bit as it was, so the result is the walk over every tile's.
+// The bound counts the work of the live (seed, tile) pairs: the 1-D
+// kernel's for the same M, P, d times their share, and the bias bytes
+// S * P.
 //
 // What bounds it on an H100: the QK^T dot, 2*M*P*d operations, in true fp32.
 // The 1/(2 beta^2) logit scale turns a TF32 or bf16 rounding (2^-10 .. 2^-9)
@@ -81,13 +88,18 @@
 // the bits of the per-block loop the port ran before (`fs.fp32_logits_in_
 // order` repeats them); only the order of the fp32 sums s1 and s2 changes
 // (per tile across a row's 16 threads, then across splits in the merge).
-// Prune mask (K6, the PRUNE instantiations): a block of 128 rows covers two
-// PRUNE_ROWS mask rows and walks the tiles either keeps; inside a walked
-// tile the rows of a mask row that skips it take -1e30 logits, so the
-// result is the plain version's with its masked cells, and a split whose
-// tiles are all skipped leaves the state as it was. Offsets formed from row
-// indices are 64-bit. Built without fast-math: exp2f and the dot stay full
-// fp32.
+// The walk (template parameter LIST, split_bank.cuh `split_tiles`): every
+// tile of the split with 1-D weights; a list of tiles built once per block
+// with per-seed weights (K5: its seed's live tiles) or a prune mask (K6: a
+// block of 128 rows covers two PRUNE_ROWS mask rows and walks the tiles
+// either keeps). The LIST instantiations stage each tile's bias once per
+// mask row (NB copies), -inf in the copy of a mask row that skips the tile,
+// so the epilogue is the unmasked one with the half's bias row: a skipped
+// cell's logit is -inf, whose row max and exponential are those of the
+// plain version's -1e30 masked cell, and a split whose tiles are all
+// skipped leaves the state as it was. Both walks keep two blocks per SM.
+// Offsets formed from row indices are 64-bit. Built without fast-math:
+// exp2f and the dot stay full fp32.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -126,6 +138,9 @@ static_assert(Rows<PER_ROW>::BQ == 128 && Rows<WIDE_FAST>::BQ == 64,
               "ops/_build.py SPLIT_BQ holds these blocks' rows");
 static_assert(PRUNE_ROWS == 64, "rows 4 h .. 4 h + 3 of a thread lie in mask row h");
 
+// -inf: the staged bias of a mask row that skips a listed tile
+__device__ __forceinline__ float neg_inf() { return __int_as_float((int)0xff800000u); }
+
 // the thread's i-th row (rows 4 ty + i of each 64-row half) and j-th column
 // of the tile
 __device__ __forceinline__ int row_of(int ty, int i) { return (i / 4) * 64 + 4 * ty + i % 4; }
@@ -138,15 +153,19 @@ __device__ __forceinline__ int vslot(int p) { return (p & 3) * (BP / 4) + (p >> 
 __device__ __forceinline__ int jslot(int j) { return (j & 3) * (BP / 4) + (j >> 2) * 16; }
 
 // dynamic shared memory in floats: STAGES slots of (queries [BK][LA],
-// bank rows [BK][LB], bias [BP], values [BP][C]), then the row state
+// bank rows [BK][LB], bias [NB][BP], values [BP][C]), then the row state
 // [BQ][W1], each row's kept by its tx == 0 thread: (s1, s2) per row, or in
 // the wide epilogues (s1, m: registers are the 128-register budget of two
-// blocks per SM), then the wide epilogues' values of one chunk [BP][VS]
-template <int C, int EPI>
+// blocks per SM), then the wide epilogues' values of one chunk [BP][VS],
+// then (LIST) the tile list. NB: the bias copies, one per mask row of the
+// block when LIST (a listed tile's skipped rows read -inf), else one.
+template <int C, int EPI, bool LIST>
 struct Smem {
   static constexpr int A = BK * Rows<EPI>::LA, B = BK * LB;
+  static constexpr int NB = LIST ? cdt_splitbank::SplitTiles<Rows<EPI>::BQ, BP, true>::ROWS : 1;
+  static_assert(NB == 1 || NB * BP == NT, "one thread stages each bias entry");
   static constexpr int W1 = EPI == PER_ROW ? 1 + C : 2;
-  static constexpr int STAGE = A + B + BP + BP * C;
+  static constexpr int STAGE = A + B + NB * BP + BP * C;
   static_assert(STAGE % 4 == 0, "slots stay 16-byte aligned");
   static constexpr int ROWS = STAGES * STAGE;  // the row state
   static constexpr int VALS = ROWS + Rows<EPI>::BQ * W1;
@@ -171,16 +190,18 @@ struct Wide {
   float* s2_out;
 };
 
-template <int C, int EPI, bool PRUNE>
-__global__ void __launch_bounds__(NT, PRUNE && EPI == PER_ROW ? 1 : 2) rows_kernel(
+template <int C, int EPI, bool LIST>
+__global__ void __launch_bounds__(NT, 2) rows_kernel(
     const float* __restrict__ q, const float* __restrict__ bias,
     const float* __restrict__ bank, const float* __restrict__ values,
     float dotscale, float* __restrict__ part, int64_t M, int64_t rps,
     int64_t P, int d, int64_t split_rows, const int* __restrict__ mask,
-    int64_t mask_stride, Wide w) {
+    int64_t mask_stride, const int* __restrict__ tile_live, int* __restrict__ walked,
+    Wide w) {
   constexpr int BQ = Rows<EPI>::BQ, TI = Rows<EPI>::TI, LA = Rows<EPI>::LA;
   constexpr bool CARRY = EPI == WIDE_FAST;  // from the carried state, no split
-  using S = Smem<C, EPI>;
+  using S = Smem<C, EPI, LIST>;
+  constexpr int NB = S::NB;
   constexpr int W1 = S::W1;
   using cdt_splitbank::cp_async;
   extern __shared__ float4 dyn_smem[];
@@ -196,15 +217,18 @@ __global__ void __launch_bounds__(NT, PRUNE && EPI == PER_ROW ? 1 : 2) rows_kern
   const int64_t seed_end = (seed + 1) * rps;
   const int64_t row_end = row0 + BQ < seed_end ? row0 + BQ : seed_end;
   bias += seed * P;
-  // this split's tiles
+  // this split's tiles (K5: its seed's live ones; K6: the ones its mask
+  // rows keep; listed after the block's other shared memory)
   const int64_t split = blockIdx.z;
   const int64_t p_begin = split * split_rows;
   const int64_t p_end = p_begin + split_rows < P ? p_begin + split_rows : P;
-  // the split's tiles (K6: the ones its mask rows keep, listed after the
-  // block's other shared memory)
-  const auto tiles = cdt_splitbank::split_tiles<BQ, BP, PRUNE>(
-      mask, mask_stride, row0, (M + PRUNE_ROWS - 1) / PRUNE_ROWS, p_begin / BP,
-      (p_end + BP - 1) / BP, reinterpret_cast<int*>(smem) + S::WORDS);
+  const auto tiles = cdt_splitbank::split_tiles<BQ, BP, LIST, NT>(
+      mask, mask_stride, tile_live == nullptr ? nullptr : tile_live + seed * ((P + BP - 1) / BP),
+      row0,
+      (M + PRUNE_ROWS - 1) / PRUNE_ROWS, p_begin / BP, (p_end + BP - 1) / BP,
+      reinterpret_cast<int*>(smem) + S::WORDS);
+  if (LIST && walked != nullptr && tid == 0)  // a 1-D walk takes every tile of its split
+    walked[((int64_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x] = tiles.n;
   const int nk = (d + BK - 1) / BK;
   const int c = EPI == PER_ROW ? C : w.c;
   const int rule = EPI == WIDE ? (int)cdt_vals::V_FP32 : w.rule;
@@ -232,32 +256,62 @@ __global__ void __launch_bounds__(NT, PRUNE && EPI == PER_ROW ? 1 : 2) rows_kern
     }
   }
 
-  // stage (pt, kt) into ring slot `slot`; zeros past the rows and features
-  auto load = [&](int slot, int64_t pt, int kt) {
+  // The per-row epilogue's copies: copy j of a thread stages feature cf of
+  // row cr + j * RS of the query block and of the bank tile (NT is a
+  // multiple of BK), two indices for all copies. With one index pair per
+  // copy, as the wide epilogues keep (where two indices spilled more), the
+  // per-row list walk spilled past the 128-register budget of two blocks
+  // per SM (PERF.md §6).
+  constexpr int RS = NT / BK;
+  const int cr = tid / BK, cf = tid % BK;
+  const int nrows = (int)(row_end - row0);
+  const float* const qrow = q + (row0 + cr) * d + cf;
+  // stage (entry i's tile, kt) into ring slot `slot`; zeros past the rows
+  // and features
+  auto load = [&](int slot, int i, int kt) {
     float* const sa = smem + slot * S::STAGE;
     float* const sb = sa + S::A;
     const int k0 = kt * BK;
-    const int64_t p0 = pt * BP;
+    const int64_t p0 = tiles.tile(i) * BP;
+    if constexpr (EPI == PER_ROW) {
+      const bool fin = k0 + cf < d;
 #pragma unroll
-    for (int j = 0; j < BQ * BK / NT; ++j) {
-      const int e = tid + j * NT;
-      const int r = e / BK, kk = e % BK;
-      const int64_t gr = row0 + r;
-      cp_async<4>(sa + kk * LA + r, q + gr * d + k0 + kk, q,
-                  gr < row_end && k0 + kk < d);
-    }
+      for (int j = 0; j < BQ / RS; ++j)
+        cp_async<4>(sa + cf * LA + cr + j * RS, qrow + (int64_t)(j * RS) * d + k0, q,
+                    cr + j * RS < nrows && fin);
+      const float* const brow = bank + (p0 + cr) * d + cf;
 #pragma unroll
-    for (int j = 0; j < BP * BK / NT; ++j) {
-      const int e = tid + j * NT;
-      const int r = e / BK, kk = e % BK;
-      const int64_t p = p0 + r;
-      cp_async<4>(sb + kk * LB + r, bank + p * d + k0 + kk, bank,
-                  p < P && k0 + kk < d);
+      for (int j = 0; j < BP / RS; ++j)
+        cp_async<4>(sb + cf * LB + cr + j * RS, brow + (int64_t)(j * RS) * d + k0, bank,
+                    p0 + cr + j * RS < P && fin);
+    } else {
+#pragma unroll
+      for (int j = 0; j < BQ * BK / NT; ++j) {
+        const int e = tid + j * NT;
+        const int r = e / BK, kk = e % BK;
+        const int64_t gr = row0 + r;
+        cp_async<4>(sa + kk * LA + r, q + gr * d + k0 + kk, q, gr < row_end && k0 + kk < d);
+      }
+#pragma unroll
+      for (int j = 0; j < BP * BK / NT; ++j) {
+        const int e = tid + j * NT;
+        const int r = e / BK, kk = e % BK;
+        const int64_t p = p0 + r;
+        cp_async<4>(sb + kk * LB + r, bank + p * d + k0 + kk, bank, p < P && k0 + kk < d);
+      }
     }
-    if (kt == nk - 1) {  // the tile's bias and values, read by its epilogue
+    if (kt == nk - 1) {  // the tile's bias (LIST: copy h is mask row h's) and values
       float* const sbias = sb + S::B;
-      float* const sv = sbias + BP;
-      if (tid < BP) cp_async<4>(sbias + tid, bias + p0 + tid, bias, p0 + tid < P);
+      float* const sv = sbias + NB * BP;
+      if constexpr (NB > 1) {  // every thread: -inf where its mask row skips the tile
+        const int col = tid % BP;
+        if (tiles.skipped(i, tid / BP))
+          sbias[tid] = neg_inf();  // the slot is free; a barrier precedes its reads
+        else
+          cp_async<4>(sbias + tid, bias + p0 + col, bias, p0 + col < P);
+      } else if (tid < BP) {
+        cp_async<4>(sbias + tid, bias + p0 + tid, bias, p0 + tid < P);
+      }
       for (int e = tid; e < BP * C; e += NT)
         cp_async<4>(sv + e, values + p0 * C + e, values, p0 * C + e < P * C);
     }
@@ -274,7 +328,7 @@ __global__ void __launch_bounds__(NT, PRUNE && EPI == PER_ROW ? 1 : 2) rows_kern
   int pi = 0, pkt = 0, pslot = 0;
   auto issue = [&]() {
     if (pi < tiles.n) {
-      load(pslot, tiles.tile(pi), pkt);
+      load(pslot, pi, pkt);
       if (++pkt == nk) {
         pkt = 0;
         ++pi;
@@ -318,18 +372,17 @@ __global__ void __launch_bounds__(NT, PRUNE && EPI == PER_ROW ? 1 : 2) rows_kern
       const float* const sbias = sb + S::B;
       const int64_t p0 = tiles.tile(ti) * BP;
       if constexpr (EPI == PER_ROW) {
-        const float* const sv = sbias + BP;
+        const float* const sv = sbias + NB * BP;
 #pragma unroll
         for (int i = 0; i < TI; ++i) {
           const int lr = row_of(ty, i);
-          // K6: rows of a mask row that skips this tile take -1e30 logits
-          const bool dead = tiles.skipped(ti, i / 4);
+          const float* const sbi = sbias + (NB > 1 ? (i / 4) * BP : 0);  // row i's mask row's copy
           float lg[TJ];
           float mx = NEG_INF;
 #pragma unroll
           for (int j = 0; j < TJ; ++j) {
             const int col = col_of(tx, j);
-            lg[j] = (!dead && p0 + col < P) ? fmaf(acc[i][j], dotscale, sbias[col]) : NEG_INF;
+            lg[j] = p0 + col < P ? fmaf(acc[i][j], dotscale, sbi[col]) : NEG_INF;
             mx = fmaxf(mx, lg[j]);
             acc[i][j] = 0.f;
           }
@@ -389,13 +442,13 @@ __global__ void __launch_bounds__(NT, PRUNE && EPI == PER_ROW ? 1 : 2) rows_kern
 #pragma unroll
         for (int i = 0; i < TI; ++i) {
           const int lr = row_of(ty, i);
-          const bool dead = tiles.skipped(ti, i / 4);
+          const float* const sbi = sbias + (NB > 1 ? (i / 4) * BP : 0);
           float ex[TJ];
           float mx = NEG_INF;
 #pragma unroll
           for (int j = 0; j < TJ; ++j) {
             const int col = col_of(tx, j);
-            ex[j] = (!dead && p0 + col < P) ? fmaf(acc[i][j], dotscale, sbias[col]) : NEG_INF;
+            ex[j] = p0 + col < P ? fmaf(acc[i][j], dotscale, sbi[col]) : NEG_INF;
             mx = fmaxf(mx, ex[j]);
             acc[i][j] = 0.f;
           }
@@ -483,22 +536,29 @@ __global__ void __launch_bounds__(NT, PRUNE && EPI == PER_ROW ? 1 : 2) rows_kern
   }
 }
 
-// the sweep, then (but WIDE_FAST) the merge of its splits into (m_out,
-// s1_out, s2_out); scratch holds the partials [nsplit][M][2 + c]
+// the sweep (K5: after the live-tile flags of its seeds), then (but
+// WIDE_FAST) the merge of its splits into (m_out, s1_out, s2_out); scratch
+// holds the partials [nsplit][M][2 + c]
 template <int C, int EPI>
 int launch(const void* q, const void* bias, const void* bank, const void* values,
            float dotscale, int64_t M, int64_t rps, int64_t P, int d, const int* mask,
-           int64_t mask_stride, void* scratch, int64_t split_rows, const Wide& w,
-           cudaStream_t stream) {
+           int64_t mask_stride, int* live, int* walked, void* scratch, int64_t split_rows,
+           const Wide& w, cudaStream_t stream) {
+  static_assert(BP == SPLIT_TILE, "the live-tile flags are per SPLIT_TILE rows");
   constexpr int BQ = Rows<EPI>::BQ;
   const int64_t nsplit = cdt_splitbank::n_splits(P, split_rows);
   const dim3 grid((unsigned)((rps + BQ - 1) / BQ), (unsigned)(M / rps), (unsigned)nsplit);
-  auto kernel = mask != nullptr ? rows_kernel<C, EPI, true> : rows_kernel<C, EPI, false>;
-  // K6: room for the tile list of a split
-  const size_t smem = Smem<C, EPI>::bytes +
-      (mask != nullptr ? 4 * cdt_splitbank::split_tiles_ints<BP>(
-                                 split_rows < P ? split_rows : P)
-                       : 0);
+  const bool list = mask != nullptr || live != nullptr;
+  auto kernel = list ? rows_kernel<C, EPI, true> : rows_kernel<C, EPI, false>;
+  // LIST: room for the tile list of a split
+  const size_t smem =
+      (list ? Smem<C, EPI, true>::bytes +
+                  4 * cdt_splitbank::split_tiles_ints<BP>(split_rows < P ? split_rows : P)
+            : Smem<C, EPI, false>::bytes);
+  if (live != nullptr) {
+    const cudaError_t e = cdt_splitbank::live_tiles<BP>(bias, M / rps, P, live, stream);
+    if (e != cudaSuccess) return (int)e;
+  }
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess)
@@ -507,7 +567,7 @@ int launch(const void* q, const void* bias, const void* bank, const void* values
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid, NT, smem, stream>>>(
       (const float*)q, (const float*)bias, (const float*)bank, (const float*)values,
-      dotscale, (float*)scratch, M, rps, P, d, split_rows, mask, mask_stride, w);
+      dotscale, (float*)scratch, M, rps, P, d, split_rows, mask, mask_stride, live, walked, w);
   err = cudaGetLastError();
   if (err != cudaSuccess || EPI == WIDE_FAST) return (int)err;
   return (int)cdt_splitbank::merge_splits(w.m_in, w.s1_in, w.s2_in, (const float*)scratch,
@@ -523,7 +583,12 @@ int launch(const void* q, const void* bias, const void* bank, const void* values
 // synchronise; returns cudaGetLastError() after the launches (0 = launched).
 // bias is [M / rows_per_seed, P]; rows_per_seed = M for 1-D weights. mask is
 // null or, with 1-D weights only, the int32 skip mask
-// [ceil(M / PRUNE_ROWS), mask_stride] (K6, see the top). strategy: 0 'vpu',
+// [ceil(M / PRUNE_ROWS), mask_stride] (K6, see the top). live is null (walk
+// every tile) or, with per-seed weights, an int32 workspace
+// [M / rows_per_seed, ceil(P / 128)] that the launch fills with the live-tile
+// flags and walks by (K5); not both. walked is null or int32, one per thread
+// block (x fastest, then seed, then split): the tiles each walked, written by
+// the list walks (K5, K6) only. strategy: 0 'vpu',
 // 1 'mxu1' (bf16 exponential only), 2 'inbank' (values may be null; V =
 // bank[:, col0 : col0 + c]), 3 'mxu'; fast 1 for the bf16 exponential.
 // With the fp32 exp2 the sweep splits the bank axis: scratch is float32
@@ -539,7 +604,7 @@ extern "C" int flash_score_f32(const void* q, const void* bias,
                                long long P, int d, int c, const void* mask,
                                long long mask_stride, int strategy, int col0,
                                int fast, void* scratch, long long split_rows,
-                               int device, void* stream) {
+                               void* live, void* walked, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (M <= 0) return (int)cudaSuccess;
@@ -548,10 +613,13 @@ extern "C" int flash_score_f32(const void* q, const void* bias,
       (strategy == 1 && !fast) ||
       (strategy == 2 && (col0 < 0 || col0 + c > d)) ||
       (mask != nullptr &&
-       (rows_per_seed != M || mask_stride < (P + PRUNE_BLOCK - 1) / PRUNE_BLOCK)))
+       (rows_per_seed != M || mask_stride < (P + PRUNE_BLOCK - 1) / PRUNE_BLOCK)) ||
+      (mask != nullptr && live != nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int* mk = (const int*)mask;
+  int* const lv = (int*)live;
+  int* const wk = (int*)walked;
   // V is the values [P, c] or the bank's center columns
   const bool inbank = strategy == 2;
   const rows::Wide w{inbank ? (const float*)bank + col0 : (const float*)values,
@@ -564,8 +632,8 @@ extern "C" int flash_score_f32(const void* q, const void* bias,
                      (float*)m_out, (float*)s1_out, (float*)s2_out};
   if (fast)  // one split, from the carried state
     return rows::launch<0, rows::WIDE_FAST>(q, bias, bank, values, dotscale, M, rows_per_seed,
-                                            P, d, mk, mask_stride, nullptr, P > 0 ? P : 1,
-                                            w, s);
+                                            P, d, mk, mask_stride, lv, wk, nullptr,
+                                            P > 0 ? P : 1, w, s);
   if (scratch == nullptr || !cdt_splitbank::valid_split(P, split_rows))
     return (int)cudaErrorInvalidValue;
   if (strategy == 0 && c <= 8) {  // per-row 'vpu' sums
@@ -573,8 +641,8 @@ extern "C" int flash_score_f32(const void* q, const void* bias,
 #define CDT_CASE(CC)                                                                  \
   case CC:                                                                            \
     return rows::launch<CC, rows::PER_ROW>(q, bias, bank, values, dotscale, M,        \
-                                           rows_per_seed, P, d, mk, mask_stride,      \
-                                           scratch, split_rows, w, s);
+                                           rows_per_seed, P, d, mk, mask_stride, lv,  \
+                                           wk, scratch, split_rows, w, s);
       CDT_CASE(1)
       CDT_CASE(2)
       CDT_CASE(3)
@@ -587,5 +655,5 @@ extern "C" int flash_score_f32(const void* q, const void* bias,
     }
   }
   return rows::launch<0, rows::WIDE>(q, bias, bank, values, dotscale, M, rows_per_seed, P, d,
-                                     mk, mask_stride, scratch, split_rows, w, s);
+                                     mk, mask_stride, lv, wk, scratch, split_rows, w, s);
 }

@@ -70,7 +70,9 @@
 // Plain C entry point (bound with ctypes). Launches on `stream` and does not
 // synchronise; returns cudaGetLastError() after the launches (0 = launched).
 // bias is [M / rows_per_seed, P]; rows_per_seed = M for 1-D weights. mask is
-// null or the K6 skip mask of 1-D weights. strategy: 0 'vpu', 2 'inbank'
+// null or the K6 skip mask of 1-D weights; live null or, with per-seed
+// weights, the K5 live-tile workspace; walked null or each block's walked
+// tiles (all as flash_score_split_rows.cuh `sweep`). strategy: 0 'vpu', 2 'inbank'
 // (values may be null; V = bank[:, col0 : col0 + c]), 3 'mxu'; fast must be
 // 0 (the bf16 exponential after split dots is flash_score_fast's). scratch
 // is float32: the partial states [nsplit][M][2 + c], nsplit =
@@ -85,11 +87,11 @@ extern "C" int flash_score_bf16x3(const void* q, const void* bias,
                                   long long P, int d, int c, const void* mask,
                                   long long mask_stride, int strategy,
                                   int col0, int fast, void* scratch,
-                                  long long split_rows, int device,
-                                  void* stream) {
+                                  long long split_rows, void* live, void* walked,
+                                  int device, void* stream) {
   if (fast != 0) return (int)cudaErrorInvalidValue;
   return cdt_split_rows::sweep<false>(q, bias, bank, values, dotscale, m_in, s1_in, s2_in,
                                       m_out, s1_out, s2_out, M, rows_per_seed, P, d, c,
                                       mask, mask_stride, strategy, col0, scratch, split_rows,
-                                      device, stream);
+                                      live, walked, device, stream);
 }

@@ -46,8 +46,9 @@
 // fast must be 1. Launches on `stream` and does not synchronise; returns
 // cudaGetLastError() after the launches (0 = launched). bias is
 // [M / rows_per_seed, P]; rows_per_seed = M for 1-D weights. mask is null or
-// the K6 skip mask of 1-D weights. flash_score_split_rows.cuh `sweep` routes
-// them. scratch is float32 [M][2 + c] rounded up to 4 (the tensor-core wide
+// the K6 skip mask of 1-D weights; live null or, with per-seed weights, the
+// K5 live-tile workspace; walked null or each block's walked tiles (all as
+// flash_score_split_rows.cuh `sweep`, which routes them). scratch is float32 [M][2 + c] rounded up to 4 (the tensor-core wide
 // sums' second state rows), then the bf16 planes (ops/flash_score.py
 // `scratch_numel`); split_rows is not read: one split, since the bf16
 // exponential rounds x against the m of each tile.
@@ -60,11 +61,11 @@ extern "C" int flash_score_fast(const void* q, const void* bias,
                                 long long P, int d, int c, const void* mask,
                                 long long mask_stride, int strategy,
                                 int col0, int fast, void* scratch,
-                                long long split_rows, int device,
-                                void* stream) {
+                                long long split_rows, void* live, void* walked,
+                                int device, void* stream) {
   if (fast != 1) return (int)cudaErrorInvalidValue;
   return cdt_split_rows::sweep<true>(q, bias, bank, values, dotscale, m_in, s1_in, s2_in,
                                      m_out, s1_out, s2_out, M, rows_per_seed, P, d, c, mask,
-                                     mask_stride, strategy, col0, scratch, split_rows, device,
-                                     stream);
+                                     mask_stride, strategy, col0, scratch, split_rows, live,
+                                     walked, device, stream);
 }

@@ -20,7 +20,11 @@
 //    barrier per stage. (Unswizzled 8-row x 16-byte core matrices gave the
 //    same bits and ran ~1.3x slower, PERF.md §6.)
 // 3. Fill the card. One block of two warpgroups per (query block of BQ = 64
-//    rows, seed, split). K2's per-row sums split the bank axis (2048
+//    rows, seed, split), walking the split's tiles (split_bank.cuh
+//    `split_tiles`): every one with 1-D weights, its seed's live ones with
+//    per-seed weights (K5), the ones its mask row keeps under a prune mask
+//    (K6; a 64-row block is one mask row, so a listed tile has no skipped
+//    rows). K2's per-row sums split the bank axis (2048
 //    blocks at M = 8192 over a 65536-row chunk, 512 at the bbELS center's
 //    2048 rows) and a merge pass folds the partial states in split order
 //    (merge_splits). Every other mode runs one split from the carried
@@ -113,7 +117,7 @@ struct Traits {
 // Kh, Kl [BP x BK bf16], bias [BP] f32, values [BP][CV] f32), then the
 // warpgroups' row maxima [2 tile parities][2][BQ] and warpgroup 1's sums at
 // exit [BQ][PW], then the wide modes' value tile (ValueTile or MmaTile),
-// then the K6 tile list
+// then the tile list (K5, K6)
 template <int C, int MODE>
 struct Smem {
   using T = Traits<MODE>;
@@ -220,14 +224,15 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-template <int C, int MODE, bool PRUNE>
+template <int C, int MODE, bool LIST>
 __global__ void __launch_bounds__(NT, 1) rows_kernel(
     const uint32_t* __restrict__ qh, const uint32_t* __restrict__ ql,
     const uint32_t* __restrict__ kh, const uint32_t* __restrict__ kl,
     const float* __restrict__ bias, const float* __restrict__ values,
     float dotscale, float* __restrict__ part, int64_t M, int64_t rps,
     int64_t P, int dp, int64_t split_rows, const int* __restrict__ mask,
-    int64_t mask_stride, State w) {
+    int64_t mask_stride, const int* __restrict__ tile_live, int* __restrict__ walked,
+    State w) {
   using T = Traits<MODE>;
   using S = Smem<C, MODE>;
   constexpr int NV = S::NV, PW = S::PW, CV = S::CV;
@@ -257,11 +262,16 @@ __global__ void __launch_bounds__(NT, 1) rows_kernel(
   const int64_t split = blockIdx.z;
   const int64_t p_begin = split * split_rows;
   const int64_t p_end = p_begin + split_rows < P ? p_begin + split_rows : P;
-  // the split's tiles (K6: the ones its mask rows keep, listed after the
-  // block's other shared memory)
-  const auto tiles = cdt_splitbank::split_tiles<BQ, BP, PRUNE>(
-      mask, mask_stride, row0, (M + PRUNE_ROWS - 1) / PRUNE_ROWS, p_begin / BP,
-      (p_end + BP - 1) / BP, reinterpret_cast<int*>(smem + S::bytes));
+  // the split's tiles (K5: its seed's live ones; K6: the ones its mask row
+  // keeps; listed after the block's other shared memory)
+  const auto tiles = cdt_splitbank::split_tiles<BQ, BP, LIST, NT>(
+      mask, mask_stride, tile_live == nullptr ? nullptr : tile_live + seed * ((P + BP - 1) / BP),
+      row0, (M + PRUNE_ROWS - 1) / PRUNE_ROWS, p_begin / BP, (p_end + BP - 1) / BP,
+      reinterpret_cast<int*>(smem + S::bytes));
+  static_assert(cdt_splitbank::SplitTiles<BQ, BP, LIST>::ROWS == 1,
+                "a listed tile has no skipped rows");
+  if (LIST && walked != nullptr && tid == 0)  // a 1-D walk takes every tile of its split
+    walked[((int64_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x] = tiles.n;
   const int nk = dp / BK;  // stages per tile
   const int64_t nstages = (int64_t)tiles.n * nk;
   const int64_t wpr = dp / 2;  // words per plane row
@@ -444,13 +454,11 @@ __global__ void __launch_bounds__(NT, 1) rows_kernel(
       const float* const sbias = reinterpret_cast<const float*>(st + 2 * S::Q + 2 * S::K);
       const float* const svals = sbias + BP;
       const int64_t p0 = tiles.tile(ti) * BP;
-      // K6: rows of a mask row that skips this tile take -1e30 logits
-      const bool dead = tiles.skipped(ti, 16 * wr / PRUNE_ROWS);
       // accumulator element 4 j + e: row lr[e / 2], column
       // wc * 64 + j * 8 + 2 t4 + (e % 2)
       auto logit = [&](int j, int e) {
         const int col = wc * 64 + j * 8 + 2 * t4 + (e & 1);
-        return (!dead && p0 + col < P)
+        return p0 + col < P
                    ? fmaf(acc_hh[4 * j + e] + acc_x[4 * j + e], dotscale, sbias[col])
                    : NEG_INF;
       };
@@ -747,8 +755,9 @@ __global__ void __launch_bounds__(NT, 1) rows_kernel(
 template <int C, int MODE>
 int launch(const void* q, const void* bias, const void* bank, const void* values,
            float dotscale, int64_t M, int64_t rps, int64_t P, int d, const int* mask,
-           int64_t mask_stride, void* scratch, int64_t split_rows, const State& w,
-           cudaStream_t stream) {
+           int64_t mask_stride, int* live, int* walked, void* scratch, int64_t split_rows,
+           const State& w, cudaStream_t stream) {
+  static_assert(BP == SPLIT_TILE, "the live-tile flags are per SPLIT_TILE rows");
   const int64_t nsplit = cdt_splitbank::n_splits(P, split_rows);
   const int dp = padded(d);
   float* const part = (float*)scratch;
@@ -764,14 +773,15 @@ int launch(const void* q, const void* bias, const void* bank, const void* values
   split_planes_kernel<<<blocks(M * dp / 2), T, 0, stream>>>((const float*)q, M, d, dp, qh, ql);
   split_planes_kernel<<<blocks(P * dp / 2), T, 0, stream>>>((const float*)bank, P, d, dp, kh, kl);
   cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess && live != nullptr)  // K5: the live-tile flags of the seeds
+    err = cdt_splitbank::live_tiles<BP>(bias, M / rps, P, live, stream);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((rps + BQ - 1) / BQ), (unsigned)(M / rps), (unsigned)nsplit);
-  auto kernel = mask != nullptr ? rows_kernel<C, MODE, true> : rows_kernel<C, MODE, false>;
-  // K6: room for the tile list of a split
+  const bool list = mask != nullptr || live != nullptr;
+  auto kernel = list ? rows_kernel<C, MODE, true> : rows_kernel<C, MODE, false>;
+  // LIST: room for the tile list of a split
   const size_t smem = Smem<C, MODE>::alloc +
-      (mask != nullptr ? 4 * cdt_splitbank::split_tiles_ints<BP>(
-                                 split_rows < P ? split_rows : P)
-                       : 0);
+      (list ? 4 * cdt_splitbank::split_tiles_ints<BP>(split_rows < P ? split_rows : P) : 0);
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err == cudaSuccess)
@@ -780,7 +790,7 @@ int launch(const void* q, const void* bias, const void* bank, const void* values
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid, NT, smem, stream>>>(
       qh, ql, kh, kl, (const float*)bias, (const float*)values, dotscale, part, M,
-      rps, P, dp, split_rows, mask, mask_stride, w);
+      rps, P, dp, split_rows, mask, mask_stride, live, walked, w);
   err = cudaGetLastError();
   if (err != cudaSuccess || MODE != HIGH_VPU) return (int)err;
   return (int)cdt_splitbank::merge_splits(w.m_in, w.s1_in, w.s2_in, part, w.m_out, w.s1_out,
@@ -808,7 +818,12 @@ int launch_c(int c, A... a) {
 // without synchronising; returns cudaGetLastError() after the launches
 // (0 = launched). bias is [M / rows_per_seed, P]; rows_per_seed = M for 1-D
 // weights. mask is null or, with 1-D weights only, the int32 skip mask
-// [ceil(M / PRUNE_ROWS), mask_stride] (K6). strategy: 0 'vpu', 1 'mxu1'
+// [ceil(M / PRUNE_ROWS), mask_stride] (K6). live is null (walk every tile)
+// or, with per-seed weights, an int32 workspace [M / rows_per_seed,
+// ceil(P / BP)] that the launch fills with the live-tile flags and walks by
+// (K5); not both. walked is null or int32, one per thread block (x fastest,
+// then seed, then split): the tiles each walked, written by the list walks
+// (K5, K6) only. strategy: 0 'vpu', 1 'mxu1'
 // (bf16 exponential only), 2 'inbank' (values may be null; V =
 // bank[:, col0 : col0 + c]), 3 'mxu'. Up to 8 channels, 'vpu' (and with the
 // bf16 exponential 'mxu1' and 'inbank') keep their per-row sums; the rest
@@ -820,7 +835,8 @@ int sweep(const void* q, const void* bias, const void* bank, const void* values,
           float dotscale, const void* m_in, const void* s1_in, const void* s2_in,
           void* m_out, void* s1_out, void* s2_out, long long M, long long rows_per_seed,
           long long P, int d, int c, const void* mask, long long mask_stride, int strategy,
-          int col0, void* scratch, long long split_rows, int device, void* stream) {
+          int col0, void* scratch, long long split_rows, void* live, void* walked,
+          int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (M <= 0) return (int)cudaSuccess;
@@ -829,10 +845,13 @@ int sweep(const void* q, const void* bias, const void* bank, const void* values,
       (strategy == 1 && !BF16_EXP) || scratch == nullptr ||
       (strategy == 2 && (col0 < 0 || col0 + c > d)) ||
       (mask != nullptr &&
-       (rows_per_seed != M || mask_stride < (P + PRUNE_BLOCK - 1) / PRUNE_BLOCK)))
+       (rows_per_seed != M || mask_stride < (P + PRUNE_BLOCK - 1) / PRUNE_BLOCK)) ||
+      (mask != nullptr && live != nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int* mk = (const int*)mask;
+  int* const lv = (int*)live;
+  int* const wk = (int*)walked;
   // V is the values [P, c] or the bank's center columns
   const bool inbank = strategy == 2;
   const void* vals = inbank ? (const void*)((const float*)bank + col0) : values;
@@ -845,24 +864,26 @@ int sweep(const void* q, const void* bias, const void* bank, const void* values,
       if (!cdt_splitbank::valid_split(P, split_rows)) return (int)cudaErrorInvalidValue;
       return launch_c<HIGH_VPU>(c, q, bias, bank, vals, dotscale, (int64_t)M,
                                 (int64_t)rows_per_seed, (int64_t)P, d, mk,
-                                (int64_t)mask_stride, scratch, (int64_t)split_rows, w, s);
+                                (int64_t)mask_stride, lv, wk, scratch, (int64_t)split_rows, w,
+                                s);
     }
   }
   // one split, from the carried state
   const int64_t whole = P > 0 ? P : 1;
   auto wide = [&](auto mode) {
     return launch<0, decltype(mode)::value>(q, bias, bank, vals, dotscale, M, rows_per_seed,
-                                            P, d, mk, mask_stride, scratch, whole, w, s);
+                                            P, d, mk, mask_stride, lv, wk, scratch, whole, w,
+                                            s);
   };
   if constexpr (BF16_EXP) {
     if (c <= 8 && strategy == 0)
       return launch_c<FAST_VPU>(c, q, bias, bank, vals, dotscale, (int64_t)M,
                                 (int64_t)rows_per_seed, (int64_t)P, d, mk,
-                                (int64_t)mask_stride, scratch, whole, w, s);
+                                (int64_t)mask_stride, lv, wk, scratch, whole, w, s);
     if (c <= 8)  // 'mxu1', 'inbank': e @ [V | 1] per row
       return launch_c<FAST_MMA>(c, q, bias, bank, vals, dotscale, (int64_t)M,
                                 (int64_t)rows_per_seed, (int64_t)P, d, mk,
-                                (int64_t)mask_stride, scratch, whole, w, s);
+                                (int64_t)mask_stride, lv, wk, scratch, whole, w, s);
     if (strategy == 0)  // 'vpu' past 8 channels: bf16(e * bf16(v))
       return wide(std::integral_constant<int, SIMT_FAST>{});
     return wide(std::integral_constant<int, MMAV_FAST>{});  // bf16(e) @ bf16(V)

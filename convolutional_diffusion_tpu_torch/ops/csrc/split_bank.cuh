@@ -21,8 +21,18 @@
 // carried state through bit for bit.
 //
 // Also here: the cp.async helpers of the pipelined staging, and the tile
-// walk of a split under a prune mask (variant K6) for blocks of any number
-// of PRUNE_ROWS mask rows.
+// walk of a split (`split_tiles`): every tile with 1-D weights; with
+// per-seed weights (variant K5) only the tiles the block's seed admits,
+// from the flags `live_tiles` writes once per launch; under a prune mask
+// (variant K6) only the tiles some mask row of the block keeps. A tile
+// that is left out is one whose logits are all at or below the -1e30
+// sentinel for the rows concerned (a bias of -1e30 or below: fmaf(dot,
+// dotscale, -1e30) rounds to -1e30 for any |dot * dotscale| < 2^75; a
+// masked cell is -1e30 by definition): such a tile leaves (m, s1, s2) bit
+// for bit as it was (m does not move, its exponentials are 0 and the
+// rescale factor is 1, or 0 on an empty row, whose sums are 0), so
+// skipping it changes no bit of a launch, in any epilogue, the bf16
+// exponential's per-tile re-basing of m included.
 
 #pragma once
 
@@ -69,17 +79,24 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // The bank tiles of BP rows that a block of BQ query rows walks in its
-// split, tiles [pt_begin, pt_end): without PRUNE all of them, entry i being
-// tile pt_begin + i. With PRUNE (variant K6) the block's query rows fall in
-// ROWS mask rows of the int32 mask [n_mask_rows, stride] (one flag per
-// PRUNE_ROWS query rows and PRUNE_BLOCK bank rows; 1 = skip; rows past the
-// mask's end, query rows past M, count as set), and `split_tiles` lists in
-// shared memory, in order, the tiles some mask row keeps, each as
-// tile * 4 + flags (bit r: mask row r skips it). Inside a listed tile the
-// rows of a mask row that skips it take -1e30 logits, which is what the
-// plain version's masked cells give. The list is built once per block by
-// one warp, so the pipelined loop reads no mask and keeps no mask pointer.
-template <int BQ, int BP, bool PRUNE>
+// split, tiles [pt_begin, pt_end): without LIST all of them, entry i being
+// tile pt_begin + i (1-D weights). With LIST, `split_tiles` lists in shared
+// memory, in order, the tiles the block walks, each as tile * 4 + flags:
+//  - per-seed weights (K5): the tiles whose `live_tiles` flag is set for the
+//    block's seed (a block never mixes seeds), flags 0;
+//  - a prune mask (K6): the block's query rows fall in ROWS mask rows of the
+//    int32 mask [n_mask_rows, stride] (one flag per PRUNE_ROWS query rows
+//    and PRUNE_BLOCK bank rows; 1 = skip; rows past the mask's end, query
+//    rows past M, count as set); the tiles some mask row keeps, flag bit r
+//    set where mask row r skips the tile. Inside a listed tile the rows of
+//    a mask row that skips it take the logits of a staged bias of -inf (K1,
+//    whose 128-row block spans two mask rows; `skipped`), which give the
+//    row max and the exponentials that the plain version's -1e30 masked
+//    cells give, bit for bit; a 64-row block is one mask row, so a listed
+//    tile is never skipped there.
+// The list is built once per block by all its threads, so the pipelined
+// loop reads no mask or flag in device memory and keeps no pointer to one.
+template <int BQ, int BP, bool LIST>
 struct SplitTiles {
   static_assert(PRUNE_ROWS % BQ == 0 || BQ % PRUNE_ROWS == 0,
                 "a query block lies in one mask row or covers whole ones");
@@ -89,61 +106,117 @@ struct SplitTiles {
 
   int begin;        // the split's first tile
   int n;            // tiles to walk
-  const int* list;  // PRUNE: the entries, in shared memory
+  const int* list;  // LIST: the entries, in shared memory
 
   // bank tile of entry i
   __device__ __forceinline__ int64_t tile(int i) const {
-    return PRUNE ? (int64_t)(list[i] >> 2) : (int64_t)begin + i;
+    return LIST ? (int64_t)(list[i] >> 2) : (int64_t)begin + i;
   }
-  // whether mask row r skips entry i
+  // whether mask row r of the block skips entry i (K6 with two mask rows)
   __device__ __forceinline__ bool skipped(int i, int r) const {
-    return PRUNE && ((list[i] >> r) & 1);
+    return LIST && ROWS > 1 && ((list[i] >> r) & 1);
   }
 };
 
+constexpr int LIST_WARPS = 8;  // warps of the blocks that build a tile list
+
 // shared-memory ints `split_tiles` needs for a split of up to `rows` bank
-// rows (PRUNE): the entries and their count
+// rows (LIST): the warps' counts, the entries' count, the entries
 template <int BP>
 __host__ __forceinline__ size_t split_tiles_ints(int64_t rows) {
-  return (size_t)((rows + BP - 1) / BP) + 1;
+  return (size_t)((rows + BP - 1) / BP) + 1 + LIST_WARPS;
 }
 
-// Every thread of the block calls it; `room` is split_tiles_ints ints of
-// shared memory (PRUNE). Ends with a barrier when PRUNE.
-template <int BQ, int BP, bool PRUNE>
-__device__ __forceinline__ SplitTiles<BQ, BP, PRUNE> split_tiles(
-    const int* __restrict__ mask, int64_t stride, int64_t row0,
-    int64_t n_mask_rows, int64_t pt_begin, int64_t pt_end, int* room) {
-  using T = SplitTiles<BQ, BP, PRUNE>;
+// Every thread of the block (NT = 32 LIST_WARPS) calls it. LIST: `room` is
+// split_tiles_ints ints of shared memory; one of `mask` (K6) and `live`
+// (K5: the block's seed's row of the `live_tiles` flags, indexed by tile)
+// is set. The threads take NT tiles at a time, count the walked ones per
+// warp by ballots, and write them in order. Ends with a barrier when LIST
+// and the split has tiles.
+template <int BQ, int BP, bool LIST, int NT>
+__device__ __forceinline__ SplitTiles<BQ, BP, LIST> split_tiles(
+    const int* __restrict__ mask, int64_t stride, const int* __restrict__ live,
+    int64_t row0, int64_t n_mask_rows, int64_t pt_begin, int64_t pt_end, int* room) {
+  using T = SplitTiles<BQ, BP, LIST>;
   const int nt = (int)(pt_end - pt_begin);
-  if constexpr (!PRUNE) {
+  if constexpr (!LIST) {
     return T{(int)pt_begin, nt, nullptr};
   } else {
+    static_assert(NT == 32 * LIST_WARPS, "one count per warp");
     constexpr int64_t PER = PRUNE_BLOCK / BP;  // tiles per prune cell
-    int* const list = room + 1;
-    if (threadIdx.x < 32) {
-      const int lane = threadIdx.x;
-      int n = 0;
-      for (int base = 0; base < nt; base += 32) {
-        const int i = base + lane;
-        int f = 0;
-        if (i < nt) {
+    constexpr int NONE = (1 << T::ROWS) - 1;   // flags of a tile no row walks
+    int* const counts = room;
+    int* const list = room + LIST_WARPS + 1;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    int n = 0;
+    for (int base = 0; base < nt; base += NT) {
+      const int i = base + tid;
+      const int64_t pt = pt_begin + i;
+      int f = NONE;
+      if (i < nt) {
+        if (mask != nullptr) {
+          f = 0;
 #pragma unroll
           for (int r = 0; r < T::ROWS; ++r) {
             const int64_t mr = row0 / PRUNE_ROWS + r;
-            if (mr >= n_mask_rows || mask[mr * stride + (pt_begin + i) / PER] != 0) f |= 1 << r;
+            if (mr >= n_mask_rows || mask[mr * stride + pt / PER] != 0) f |= 1 << r;
           }
+        } else {
+          f = live[pt] != 0 ? 0 : NONE;
         }
-        const bool live = i < nt && f != (1 << T::ROWS) - 1;
-        const unsigned b = __ballot_sync(0xffffffffu, live);
-        if (live) list[n + __popc(b & ((1u << lane) - 1u))] = (int)(pt_begin + i) * 4 + f;
-        n += __popc(b);
       }
-      if (lane == 0) room[0] = n;
+      const bool walked = f != NONE;
+      const unsigned b = __ballot_sync(0xffffffffu, walked);
+      if (lane == 0) counts[warp] = __popc(b);
+      __syncthreads();
+      int at = n;
+#pragma unroll
+      for (int w = 0; w < LIST_WARPS; ++w) {
+        const int cw = counts[w];
+        if (w < warp) at += cw;
+        n += cw;
+      }
+      if (walked) list[at + __popc(b & ((1u << lane) - 1u))] = (int)pt * 4 + f;
+      __syncthreads();  // the counts are read; at the end, the list is written
     }
-    __syncthreads();
-    return T{(int)pt_begin, room[0], list};
+    return T{(int)pt_begin, n, list};
   }
+}
+
+// Per-seed weights (K5): live[s * nt + t] = 1 where some entry of
+// bias[s, t BP .. min(P, t BP + BP)) lies above the -1e30 sentinel (a NaN
+// counts as live: the walk keeps what it cannot prove empty), else 0; nt =
+// ceil(P / BP). The wrapper folds log2(w) into the bias with -1e30 where
+// w = 0, so a dead tile is one whose patches the seed's weights exclude.
+// One warp per (seed, tile), 32 consecutive entries a load.
+template <int BP>
+__global__ void live_tiles_kernel(const float* __restrict__ bias, int64_t S, int64_t P,
+                                  int* __restrict__ live) {
+  const int64_t nt = (P + BP - 1) / BP;
+  const int lane = threadIdx.x & 31;
+  const int64_t stride = ((int64_t)gridDim.x * blockDim.x) >> 5;
+  for (int64_t wi = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5; wi < S * nt;
+       wi += stride) {
+    const int64_t s = wi / nt, p0 = (wi % nt) * BP;
+    bool any = false;
+#pragma unroll
+    for (int j = lane; j < BP; j += 32)
+      if (p0 + j < P) any |= !(bias[s * P + p0 + j] <= NEG_INF);
+    any = __any_sync(0xffffffffu, any);
+    if (lane == 0) live[wi] = any ? 1 : 0;
+  }
+}
+
+template <int BP>
+inline cudaError_t live_tiles(const void* bias, int64_t S, int64_t P, int* live,
+                              cudaStream_t stream) {
+  constexpr int T = 256;
+  const int64_t warps = S * ((P + BP - 1) / BP);
+  if (warps <= 0) return cudaSuccess;
+  const int64_t blocks = (warps * 32 + T - 1) / T;
+  live_tiles_kernel<BP><<<(unsigned)(blocks < 132 * 16 ? blocks : 132 * 16), T, 0, stream>>>(
+      (const float*)bias, S, P, live);
+  return cudaGetLastError();
 }
 
 // The splits of a chunk of P bank rows: ceil(P / split_rows), at least one.

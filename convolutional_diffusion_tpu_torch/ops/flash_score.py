@@ -52,14 +52,24 @@ Where m is re-based is part of that function: every FAST_TILE bank rows.
 Per-seed weights (variant K5): `w` may be [S, P], one weight row per seed,
 with `rows_per_seed` query rows per seed (M = S * rows_per_seed, seed-major),
 as in batched conditional generation with one label per seed. The kernels
-take it on a 2-D grid of (query block, seed), so a block never mixes seeds.
+take it on a grid with a seed axis, so a block never mixes seeds, and each
+block walks only the bank tiles of FAST_TILE rows that its seed's weights
+admit: a pass over the bias flags them per seed (`live_tiles_plain` is its
+plain version), and a tile whose every weight is 0 (every bias entry at
+the -1e30 sentinel) is left out. Such a tile would leave the state bit for
+bit as it was, so a K5 launch returns what the walk over every tile
+returns, and what the S one-seed 1-D launches return. Under a label filter
+a seed admits about one tile in ten (an image's patches are consecutive
+rows). 1-D weights walk every tile.
 
 Prune masks (variant K6, `ops.prune`): `prune_mask` is an integer skip
 mask [ceil(M / PRUNE_ROWS), ceil(P / PRUNE_BLOCK)], one flag per 64 query
 rows and 2048 bank rows (`prune_grid`); a set flag skips that cell. With 1-D
 weights only, at every tier and value strategy, as the JAX wrapper takes
-it. The kernels walk only the live bank tiles; the plain version sets the
-skipped cells' logits to -1e30, which leaves the state as skipping does.
+it. The kernels walk only the bank tiles some mask row of the block keeps
+and give the rows of a mask row that skips a walked tile a bias of -inf
+there; the plain version sets the skipped cells' logits to -1e30. Both
+leave the state as skipping does, bit for bit.
 
 Split-bank grid: every kernel runs one main loop per dot type (K1's fp32
 FFMA loop, the split dots' pipelined tensor-core loop), one thread block
@@ -84,6 +94,7 @@ run shows which variant every chunk took.
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -280,6 +291,32 @@ def split_planes_plain(x: torch.Tensor, d_pad: int):
     x [R, d] (`_split_bf16`), zero-padded to [R, d_pad], as bf16."""
     hi, lo = (F.pad(t, (0, d_pad - x.shape[1])).to(torch.bfloat16) for t in _split_bf16(x))
     return hi, lo
+
+
+def live_tiles_plain(bias: torch.Tensor) -> torch.Tensor:
+    """Plain version of the kernels' live-tile pass (K5): bool
+    [S, ceil(P / FAST_TILE)] of bias [S, P] (a [P] row is S = 1), True where
+    some entry of the seed's bias over the tile's rows lies above the
+    NEG_INF sentinel (a NaN counts as live). The kernels walk only these
+    tiles of a seed."""
+    b = bias.reshape(-1, bias.shape[-1])
+    S, P = b.shape
+    nt = -(-P // FAST_TILE)
+    dead = F.pad(b <= NEG_INF, (0, nt * FAST_TILE - P), value=True)
+    return ~dead.view(S, nt, FAST_TILE).all(dim=2)
+
+
+def sweep_bias(pn: torch.Tensor, w: torch.Tensor, at, bt) -> torch.Tensor:
+    """The sweep's per-patch bias in base-2 log space, as `flash_score_update`
+    hands it to the sweep: -a^2 ||p||^2 / (2 beta^2) * log2(e) + log2 w,
+    NEG_INF where w = 0; [P] or, for per-seed weights w [S, P], [S, P]."""
+    at, bt = _scalar(at), _scalar(bt)
+    logw = torch.where(
+        w > 0.0, torch.log2(torch.clamp(w, min=1e-38)),
+        torch.full_like(w, NEG_INF),
+    )
+    coef = -(at * at) * (1.0 / (2.0 * bt * bt)) * LOG2E
+    return torch.clamp(coef.to(pn.device) * pn + logw, min=NEG_INF)
 
 
 def _mask_cells(mask: torch.Tensor, M: int, p0: int, p1: int) -> torch.Tensor:
@@ -611,17 +648,25 @@ def _block_logits(q, bank, bias, skip, dotscale: float) -> torch.Tensor:
 
 def sweep_kernel(q, bias, bank, values, dotscale: float, m, s1, s2,
                  precision: str = "highest", strategy: str = "vpu",
-                 col0: int = -1, prune_mask=None, fast_exp: bool | None = None) -> State:
+                 col0: int = -1, prune_mask=None, fast_exp: bool | None = None,
+                 tile_counts: torch.Tensor | None = None) -> State:
     """Launch the CUDA kernel of `precision` (after `_route`; at 'highest'
     with the bf16 exponential if fast_exp) on the current stream; returns
     new tensors. `bias` is [P], or [S, P] for S equal blocks of query rows
-    (K5: the kernel's grid gains a seed axis). With strategy 'inbank'
+    (K5: the kernel's grid gains a seed axis, and each block walks only the
+    tiles its seed's bias admits, `live_tiles_plain`; the launch flags them
+    into an int32 workspace allocated here). With strategy 'inbank'
     `values` is None and the kernel takes the bank's columns col0 ..
-    col0 + c. A prune mask (1-D bias only) makes each block walk only its
-    live bank tiles (K6). 'vpu' keeps c <= MAX_CHANNELS sums per row; the
-    matrix value sums ('mxu', and 'vpu' or 'inbank' past MAX_CHANNELS)
-    take any c up to WIDE_MAX_CHANNELS. Each launch adds one to its count
-    in `flash_score_update.launches` (see the module docstring)."""
+    col0 + c. A prune mask (1-D bias only) makes each block walk only the
+    bank tiles its mask rows keep (K6). 'vpu' keeps c <= MAX_CHANNELS sums
+    per row; the matrix value sums ('mxu', and 'vpu' or 'inbank' past
+    MAX_CHANNELS) take any c up to WIDE_MAX_CHANNELS. `tile_counts`, an
+    int32 CUDA tensor of one entry per thread block of the launch
+    (`split_launch`'s grid, x fastest, then seed, then split), receives the
+    bank tiles each block walked in a walk by a tile list (K5, K6; a 1-D
+    launch takes every tile of its split and writes nothing there). Each
+    launch adds one to its count in
+    `flash_score_update.launches` (see the module docstring)."""
     name = KERNEL_OF[precision]
     fast = precision == "default" if fast_exp is None else bool(fast_exp)
     M, d = q.shape
@@ -649,10 +694,18 @@ def sweep_kernel(q, bias, bank, values, dotscale: float, m, s1, s2,
         return m_out, s1_out, s2_out
     fn = _build.load(name)
     dev = q.device
-    split_rows, nsplit, _ = split_launch(name, M, rows_per_seed, P, precision, strategy, c,
-                                         fast)
+    split_rows, nsplit, grid = split_launch(name, M, rows_per_seed, P, precision, strategy, c,
+                                            fast)
+    if tile_counts is not None and (
+            not tile_counts.is_cuda or tile_counts.dtype != torch.int32
+            or not tile_counts.is_contiguous() or tile_counts.numel() < math.prod(grid)):
+        raise ValueError(f"tile_counts must be a contiguous int32 CUDA tensor of at least "
+                         f"{math.prod(grid)} entries (grid {grid})")
     numel = scratch_numel(name, nsplit, M, P, d, c, fast)
     scratch = torch.empty(numel, dtype=torch.float32, device=dev) if numel else None
+    # K5: the live-tile flags the launch writes and walks by
+    live = (torch.empty((bias.shape[0], -(-P // FAST_TILE)), dtype=torch.int32, device=dev)
+            if bias.ndim == 2 and P > 0 else None)
     err = fn(
         q.data_ptr(), bias.data_ptr(), bank.data_ptr(),
         None if values is None else values.data_ptr(),
@@ -663,6 +716,8 @@ def sweep_kernel(q, bias, bank, values, dotscale: float, m, s1, s2,
         0 if prune_mask is None else prune_mask.shape[1],
         STRATEGY_CODE[strategy], col0, int(fast),
         None if scratch is None else scratch.data_ptr(), split_rows,
+        None if live is None else live.data_ptr(),
+        None if tile_counts is None else tile_counts.data_ptr(),
         dev.index if dev.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -720,14 +775,7 @@ def _update(sweep, q, qn, bank, pn, values, w, at, bt, state, precision,
     at = _scalar(at)
     bt = _scalar(bt)
     inv2bt2 = 1.0 / (2.0 * bt * bt)
-    # per-patch bias in base-2 log space: -a^2 ||p||^2 / (2 beta^2) * log2(e)
-    # + log2 w, with NEG_INF for excluded (w = 0) entries
-    logw = torch.where(
-        w > 0.0, torch.log2(torch.clamp(w, min=1e-38)),
-        torch.full_like(w, NEG_INF),
-    )
-    coef = -(at * at) * inv2bt2 * LOG2E
-    bias = torch.clamp(coef.to(dev) * pn + logw, min=NEG_INF)
+    bias = sweep_bias(pn, w, at, bt)
     # the per-query -||q||^2 / (2 beta^2) offset stays outside the sweep: m
     # moves into the sweep's qn-less base-2 convention and back out
     qn_s = qn * inv2bt2.to(dev)

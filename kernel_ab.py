@@ -3,6 +3,7 @@ helper of chip_smoke.py, whose data, timer and port each run imports.
 
     python3 kernel_ab.py ROOT [ROOT ...]    A/B of checkouts
     python3 kernel_ab.py --k2-variants      K2's recorded design variants
+    python3 kernel_ab.py --k1-variants      K1's recorded design variants
     python3 kernel_ab.py --splits           K1 and K2 at each split size
     python3 kernel_ab.py --k1-wide          K1's per-row and wide sums at equal d
 
@@ -21,18 +22,33 @@ CIFAR10-shaped bank (65536 rows at c = 3):
     kernels, k in {3, 9, 17};
   - the bf16 exponential after fp32 dots, 'mxu', c = 3, k = 9;
   - K6's masked instantiation (a mask that skips nothing): K1 at k = 17,
-    'mxu' c = 16 in K1 and K2 at k = 3.
+    'mxu' c = 16 in K1 and K2 at k = 3;
+  - K5, per-seed weights as the conditional path has them: 8 seeds of 1024
+    rows, each admitting the images of one label (labels 0 .. 7;
+    `chip_smoke.per_seed_weights`), in the three kernels at k in {3, 9, 17}
+    ('vpu' at c = 3, 'inbank' at 'default' and k = 3, and 'mxu' on the
+    16-channel bank).
 Every key also records a digest of m from one call from the empty state:
 m is the row max of the logits, so equal digests across ROOTs mean the
-kernels' logits are the same bits on every row. Prints the card's name and
-power limit, one JSON line per ROOT, a table of each key's times in ROOT
-order and, per key, whether the m digests agree in every ROOT.
+kernels' logits are the same bits on every row. The K5 and K6 keys also
+record digests of s1 and s2: equal digests mean the same state, bit for
+bit. Prints the card's name and power limit, one JSON line per ROOT, a
+table of each key's times in ROOT order and, per key and digest, whether
+the digests agree in every ROOT.
 
 --k2-variants: copies this checkout's port and chip_smoke.py into
 build/k2_variants/NAME/ for each entry of K2_VARIANTS, applies its edits to
 the split-dot main loop (`ops/csrc/flash_score_split_rows.cuh`), builds
-them in parallel, and times K2 in each (k = 3, 9, 17 and the bbELS center
-at k = 17), with the count of ptxas's wgmma serialisation notes (C7514).
+them in parallel, prints the count of ptxas's wgmma serialisation notes
+(C7514) and each main-loop instantiation's registers and spills, and times
+K2 in each (k = 3, 9, 17 and the bbELS center at k = 17), the variants in
+turn and then in reverse order.
+
+--k1-variants: the same for K1's main loop (`ops/csrc/flash_score.cu`,
+K1_VARIANTS), timing K1 unmasked, under a mask that skips nothing (the
+list walk of K6) and with K5's label-filtered weights, at k in {3, 9, 17}
+('vpu', c = 3) and k in {9, 17} ('mxu', c = 16), with the digests of one
+call each.
 
 --splits: K1 and K2 of this checkout at k in {3, 5, 9, 17} with every
 chunk cut into splits of each SPLIT_SIZES rows (`flash_score.SPLIT_ROWS`),
@@ -77,6 +93,18 @@ K2_VARIANTS = {
     "no_hh": [("    wgmma64(hn, qdesc(nst, 0, nks), kdesc(nst, 0, nks), 0);\n", "")],
     "stages4": [("constexpr int STAGES = 5;", "constexpr int STAGES = 4;")],
 }
+K1_LOOP = "convolutional_diffusion_tpu_torch/ops/csrc/flash_score.cu"
+# name -> (old, new) text edits of K1_LOOP; "shipped" is the loop as it is
+K1_VARIANTS = {
+    "shipped": [],
+    # the per-row epilogue's staged copies with one index pair per copy, as
+    # the wide epilogues keep
+    "copy_pairs": [("    if constexpr (EPI == PER_ROW) {\n      const bool fin",
+                    "    if constexpr (false) {\n      const bool fin")],
+    # every block writes its walked tiles, the 1-D walks' too
+    "walked_always": [("  if (LIST && walked != nullptr && tid == 0)",
+                       "  if (walked != nullptr && tid == 0)")],
+}
 SPLIT_SIZES = (65536, 16384, 8192, 4096)
 
 
@@ -103,10 +131,19 @@ def _setup(root: str, channels=(3,)):
     import chip_smoke as cs
     import torch
 
-    images = {c: torch.from_numpy(cs.synthetic_dataset(
-        num_samples=1200, image_size=32, num_channels=c, seed=0).images).cuda()
-        for c in channels}
-    return cs, images, torch.Generator(device="cuda").manual_seed(0)
+    sets = {c: cs.synthetic_dataset(num_samples=1200, image_size=32, num_channels=c, seed=0)
+            for c in channels}
+    images = {c: torch.from_numpy(ds.images).cuda() for c, ds in sets.items()}
+    labels = {c: torch.from_numpy(ds.labels.astype("int64")).cuda() for c, ds in sets.items()}
+    return cs, images, torch.Generator(device="cuda").manual_seed(0), labels
+
+
+def _per_seed(cs, rest, labels, k: int, images):
+    """rest with K5's weights: 8 seeds, seed s admitting the images of label
+    s in the chunk (`chip_smoke.per_seed_weights`)."""
+    g = cs.bank_geometry(images.shape[0], 32, 32, images.shape[-1], k, cs.TARGET_BLOCK)
+    w = cs.per_seed_weights(labels[: g.cs], list(range(8)), g)
+    return (*rest[:3], w, *rest[4:])
 
 
 def _call(cs, q, rest, precision: str, **kw):
@@ -124,20 +161,22 @@ def _ms(cs, q, rest, precision: str, best_of: int = 1, **kw) -> float:
     return min(cs.cuda_ms(fn, 5) for _ in range(best_of))
 
 
-def _digest(cs, q, rest, precision: str, **kw) -> str:
-    """A digest of m after one call from the empty state (the logits' row
-    max) on every row."""
-    m = _call(cs, q, rest, precision, **kw)()[0]
-    return hashlib.sha256(m.cpu().numpy().tobytes()).hexdigest()[:16]
+def _digest(cs, q, rest, precision: str, state: bool = False, **kw) -> dict:
+    """Digests of m after one call from the empty state (the logits' row
+    max) on every row, and with `state` of s1 and s2 too."""
+    out = _call(cs, q, rest, precision, **kw)()
+    return {name: hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest()[:16]
+            for name, x in zip(("m", "s1", "s2"), out if state else out[:1])}
 
 
 def one(root: str) -> dict:
-    cs, images, gen = _setup(root, channels=(3, 16))
+    cs, images, gen, labels = _setup(root, channels=(3, 16))
     out, bits = {}, {}
 
-    def row(key, q, rest, precision, **kw):
+    def row(key, q, rest, precision, state=False, **kw):
         out[key] = _ms(cs, q, rest, precision, **kw)
-        bits[key] = _digest(cs, q, rest, precision, **kw)
+        for name, dg in _digest(cs, q, rest, precision, state, **kw).items():
+            bits[f"{key} {name}"] = dg
 
     for k in sorted(set(KS) | {5}):
         xq, xc, rest = _problem(cs, k, gen, images[3])
@@ -152,17 +191,28 @@ def one(root: str) -> dict:
             row(f"highest bf16-exp mxu k={k}", xq, rest, "highest", fast_exp=True,
                 v_strategy="mxu")
         if k == 17:  # K6: a mask that skips nothing (the masked instantiation)
-            row(f"highest k={k} masked", xq, rest, "highest",
+            row(f"highest k={k} masked", xq, rest, "highest", state=True,
                 prune_mask=_no_skip(cs, xq, rest))
+        if k in (3, 9, 17):  # K5: label-filtered per-seed weights
+            r5 = _per_seed(cs, rest, labels[3], k, images[3])
+            for prec in ("highest", "high", "default"):
+                row(f"{prec} k5 k={k}", xq, r5, prec, state=True, rows_per_seed=1024)
+            if k == 3:  # what the ELS module takes there at 'default'
+                row(f"default inbank k5 k={k}", xq, r5, "default", state=True,
+                    rows_per_seed=1024, v_strategy="inbank",
+                    inbank_cols=(cs.center_index(k, 3).start, 3))
     for k in (3, 9, 17):
         xq, _, rest = _problem(cs, k, gen, images[16])
         for prec in ("highest", "high", "default"):
             row(f"{prec} mxu c=16 k={k}", xq, rest, prec)
         if k == 3:
             for prec in ("highest", "high"):
-                row(f"{prec} mxu c=16 k={k} masked", xq, rest, prec,
+                row(f"{prec} mxu c=16 k={k} masked", xq, rest, prec, state=True,
                     prune_mask=_no_skip(cs, xq, rest))
-    return {"ms": out, "m digest": bits}
+        r5 = _per_seed(cs, rest, labels[16], k, images[16])
+        for prec in ("highest", "high", "default"):
+            row(f"{prec} mxu c=16 k5 k={k}", xq, r5, prec, state=True, rows_per_seed=1024)
+    return {"ms": out, "digest": bits}
 
 
 def _no_skip(cs, q, rest):
@@ -175,18 +225,35 @@ def _no_skip(cs, q, rest):
 
 
 def one_k2(root: str) -> dict:
-    cs, images, gen = _setup(root)
+    cs, images, gen, _ = _setup(root)
     out = {}
     for k in (3, 9, 17):
         xq, xc, rest = _problem(cs, k, gen, images[3])
         out[f"K2 k={k}"] = _ms(cs, xq, rest, "high", best_of=2)
         if k == 17:
             out[f"K2 bbELS center k={k}"] = _ms(cs, xc, rest, "high", best_of=2)
-    return out
+    return {"ms": out, "digest": {}}
+
+
+def one_k1(root: str) -> dict:
+    cs, images, gen, labels = _setup(root, channels=(3, 16))
+    out, bits = {}, {}
+    for c, ks in ((3, (3, 9, 17)), (16, (9, 17))):
+        for k in ks:
+            xq, _, rest = _problem(cs, k, gen, images[c])
+            r5 = _per_seed(cs, rest, labels[c], k, images[c])
+            for tag, r, kw in (("", rest, {}),
+                               (" masked", rest, dict(prune_mask=_no_skip(cs, xq, rest))),
+                               (" k5", r5, dict(rows_per_seed=1024))):
+                key = f"K1 c={c} k={k}{tag}"
+                out[key] = _ms(cs, xq, r, "highest", best_of=2, **kw)
+                for name, dg in _digest(cs, xq, r, "highest", True, **kw).items():
+                    bits[f"{key} {name}"] = dg
+    return {"ms": out, "digest": bits}
 
 
 def splits() -> None:
-    cs, images, gen = _setup(str(HERE))
+    cs, images, gen, _ = _setup(str(HERE))
     for k in (3, 5, 9, 17):
         xq, xc, rest = _problem(cs, k, gen, images[3])
         for rows in SPLIT_SIZES:
@@ -199,7 +266,7 @@ def splits() -> None:
 
 
 def k1_wide() -> None:
-    cs, images, gen = _setup(str(HERE), channels=(8,))
+    cs, images, gen, _ = _setup(str(HERE), channels=(8,))
     for k in (9, 17):
         xq, _, rest = _problem(cs, k, gen, images[8])
         ms = {s_: _ms(cs, xq, rest, "highest", 2, v_strategy=s_) for s_ in ("vpu", "mxu")}
@@ -226,60 +293,78 @@ def _table(tag: str, names, runs) -> None:
 def _bits(names, digests) -> None:
     for key in digests[0]:
         same = len({d[key] for d in digests}) == 1
-        print(f"[ab-bits] {key}: m digests of one call from the empty state "
+        print(f"[ab-bits] {key}: digests of one call from the empty state "
               + ("equal in every ROOT" if same else
                  "DIFFER: " + ", ".join(f"{n} {d[key]}" for n, d in zip(names, digests))),
               flush=True)
 
 
-def k2_variants() -> int:
+def variants(tag: str, table: dict, loop: str, kernel: str, mode: str) -> int:
+    """Copy this checkout's port and chip_smoke.py into build/<tag>_variants/
+    NAME/ per entry of `table`, apply its edits to `loop`, build `kernel` in
+    every copy in parallel (printing ptxas's wgmma serialisation notes and
+    each main-loop instantiation's registers and spills), then time each
+    copy with `mode` (one process each)."""
     roots, builds = [], []
-    for name, edits in K2_VARIANTS.items():
-        root = HERE / "build" / "k2_variants" / name
+    for name, edits in table.items():
+        root = HERE / "build" / f"{tag}_variants" / name
         if root.exists():
             shutil.rmtree(root)
         shutil.copytree(HERE / "convolutional_diffusion_tpu_torch",
                         root / "convolutional_diffusion_tpu_torch",
                         ignore=shutil.ignore_patterns("__pycache__"))
         shutil.copy(HERE / "chip_smoke.py", root / "chip_smoke.py")
-        src = root / K2_LOOP
+        src = root / loop
         text = src.read_text()
         for old, new in edits:
             if text.count(old) != 1:
-                print(f"[k2] variant {name}: edit does not apply: {old!r}", file=sys.stderr)
+                print(f"[{tag}] variant {name}: edit does not apply: {old!r}", file=sys.stderr)
                 return 1
             text = text.replace(old, new)
         src.write_text(text)
         roots.append(root)
         builds.append(subprocess.Popen(
             [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
-             "from convolutional_diffusion_tpu_torch.ops import _build; "
-             "print(_build.build('flash_score_bf16x3').log.count('C7514'))", str(root)],
+             "import chip_smoke as cs; from convolutional_diffusion_tpu_torch.ops import _build; "
+             f"log = _build.build({kernel!r}).log; t = cs.ptxas_table(log); "
+             "print('C7514 notes', log.count('C7514')); "
+             "[print(e, r, st, ld) for (_, r, st, ld, _), e in "
+             "zip(t, cs.demangle([x[0] for x in t])) if 'rows_kernel' in e]", str(root)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    for name, b in zip(K2_VARIANTS, builds):
+    for name, b in zip(table, builds):
         log, _ = b.communicate()
         if b.returncode != 0:
-            print(f"[k2] variant {name} failed to build:\n{log}", file=sys.stderr)
+            print(f"[{tag}] variant {name} failed to build:\n{log}", file=sys.stderr)
             return 1
-        print(f"[k2] {name}: ptxas wgmma serialisation notes (C7514): {log.split()[-1]}",
-              flush=True)
-    runs = [_run("--one-k2", str(r)) for r in roots]
+        for line in log.splitlines():
+            words = line.split()
+            if line.startswith("C7514"):
+                print(f"[{tag}] {name}: ptxas wgmma serialisation notes (C7514): {words[-1]}",
+                      flush=True)
+            elif "rows_kernel" in line:
+                print(f"[{tag}] {name} {' '.join(words[:-3])}: {words[-3]} registers, spill "
+                      f"stores {words[-2]} bytes, loads {words[-1]} bytes", flush=True)
+    order = list(table) + list(table)[::-1]
+    runs = [_run(mode, str(HERE / "build" / f"{tag}_variants" / name)) for name in order]
     if any(r is None for r in runs):
         return 1
-    _table("k2", list(K2_VARIANTS), runs)
+    _table(tag, order, [r["ms"] for r in runs])
+    _bits(order, [r["digest"] for r in runs])
     return 0
 
 
 def main(argv) -> int:
-    if len(argv) > 1 and argv[0] in ("--one", "--one-k2"):
-        fn = one if argv[0] == "--one" else one_k2
-        print("RESULT " + json.dumps(fn(argv[1])), flush=True)
+    modes = {"--one": one, "--one-k2": one_k2, "--one-k1": one_k1}
+    if len(argv) > 1 and argv[0] in modes:
+        print("RESULT " + json.dumps(modes[argv[0]](argv[1])), flush=True)
         return 0
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0], flush=True)
     if argv == ["--k2-variants"]:
-        return k2_variants()
+        return variants("k2", K2_VARIANTS, K2_LOOP, "flash_score_bf16x3", "--one-k2")
+    if argv == ["--k1-variants"]:
+        return variants("k1", K1_VARIANTS, K1_LOOP, "flash_score", "--one-k1")
     if argv == ["--splits"]:
         splits()
         return 0
@@ -290,7 +375,7 @@ def main(argv) -> int:
     if not argv or any(r is None for r in runs):
         return 1
     _table("ab", argv, [r["ms"] for r in runs])
-    _bits(argv, [r["m digest"] for r in runs])
+    _bits(argv, [r["digest"] for r in runs])
     return 0
 
 

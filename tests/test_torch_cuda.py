@@ -542,6 +542,67 @@ def test_split_bank_per_seed_equals_one_seed_launches(precision):
         assert all(torch.equal(a[r], b) for a, b in zip(got, one))
 
 
+# K5's walk: each block walks only its seed's live tiles (`tile_counts`),
+# and the launch is the one-seed launches' bits. (precision, fast_exp,
+# strategy, c): both main loops, the split and the one-split modes.
+WALKS = [("highest", False, "vpu", 3), ("highest", False, "mxu", 16),
+         ("highest", True, "mxu", 16), ("high", False, "vpu", 3),
+         ("high", False, "mxu", 16), ("default", True, "vpu", 3),
+         ("default", True, "inbank", 3), ("default", True, "mxu", 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision,fast,strategy,c", WALKS, ids=lambda v: str(v).lower())
+def test_k5_walks_each_seeds_live_tiles(precision, fast, strategy, c):
+    """Label-filtered weights over a chunk of three splits (images of 300
+    rows, so tiles straddle images; seed s admits every third image from
+    the s-th, the last seed none): the tiles each block walked equal its
+    seed's live tiles in its split (`live_tiles_plain`), and every seed's
+    rows are its one-seed 1-D launch's, bit for bit."""
+    dev = _need_cuda()
+    S, rps, d, P = 4, 200, 9 * c if c > 3 else 75, SPLIT_P
+    M = S * rps
+    q, _, bank, _, values, _ = _case(M, d, P, c, seed=16, dev=dev)
+    img = torch.arange(P, device=dev) // 300
+    bias = torch.randn(S, P, generator=torch.Generator().manual_seed(16)).to(dev)
+    for s in range(S):
+        bias[s][(img % 3 != s) | (s == S - 1)] = tfs.NEG_INF
+    kw = dict(precision=tfs._route(precision, fast), fast_exp=fast, strategy=strategy)
+    if strategy == "inbank":
+        kw["col0"], values = (d - c) // 2, None
+    name = tfs.KERNEL_OF[kw["precision"]]
+    split_rows, nsplit, grid = tfs.split_launch(name, M, rps, P, kw["precision"], strategy, c,
+                                                fast)
+    counts = torch.full((grid[0] * grid[1] * grid[2],), -1, dtype=torch.int32, device=dev)
+    got = tfs.sweep_kernel(q, bias, bank, values, 0.0537109375, *_empty(M, c, dev), **kw,
+                           tile_counts=counts)
+    live = tfs.live_tiles_plain(bias)
+    per = -(-split_rows // tfs.FAST_TILE)
+    want = torch.stack([live[:, z * per:(z + 1) * per].sum(1) for z in range(nsplit)])
+    assert torch.equal(counts.long(), want[:, :, None].expand(nsplit, S, grid[0]).reshape(-1))
+    assert 0 < live.float().mean() < 0.5
+    for s in range(S):
+        r = slice(s * rps, (s + 1) * rps)
+        one = tfs.sweep_kernel(q[r].contiguous(), bias[s].contiguous(), bank, values,
+                               0.0537109375, *_empty(rps, c, dev), **kw)
+        assert all(torch.equal(a[r], b) for a, b in zip(got, one))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy,c", [("vpu", 3), ("mxu", 16)])
+def test_k1_masked_walk_under_an_empty_mask_is_the_unmasked(strategy, c):
+    """K1's list walk (K6) under a mask that skips nothing returns the
+    unmasked launch's bits: the bias copies of its two mask rows are the
+    bias, and the walk takes every tile in order."""
+    dev = _need_cuda()
+    args, kw = _kernel_args(256, 9 * c, SPLIT_P, c, 17, dev, strategy)
+    state = _carried(256, c, dev, seed=17)
+    mask = torch.zeros(tfs.prune_grid(256, SPLIT_P), dtype=torch.int32, device=dev)
+    got = tfs.sweep_kernel(*args, *state, precision="highest", prune_mask=mask, **kw)
+    want = tfs.sweep_kernel(*args, *state, precision="highest", **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 @pytest.mark.cuda
 def test_split_bank_logits_are_the_parents():
     """One launch from the empty state returns m = the row max of the
