@@ -100,6 +100,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import annotate
 from . import _build
 from .fp32 import true_fp32
 
@@ -706,21 +707,22 @@ def sweep_kernel(q, bias, bank, values, dotscale: float, m, s1, s2,
     # K5: the live-tile flags the launch writes and walks by
     live = (torch.empty((bias.shape[0], -(-P // FAST_TILE)), dtype=torch.int32, device=dev)
             if bias.ndim == 2 and P > 0 else None)
-    err = fn(
-        q.data_ptr(), bias.data_ptr(), bank.data_ptr(),
-        None if values is None else values.data_ptr(),
-        float(dotscale), m.data_ptr(), s1.data_ptr(), s2.data_ptr(),
-        m_out.data_ptr(), s1_out.data_ptr(), s2_out.data_ptr(),
-        M, rows_per_seed, P, d, c,
-        None if prune_mask is None else prune_mask.data_ptr(),
-        0 if prune_mask is None else prune_mask.shape[1],
-        STRATEGY_CODE[strategy], col0, int(fast),
-        None if scratch is None else scratch.data_ptr(), split_rows,
-        None if live is None else live.data_ptr(),
-        None if tile_counts is None else tile_counts.data_ptr(),
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with annotate("flash_score.launch"):
+        err = fn(
+            q.data_ptr(), bias.data_ptr(), bank.data_ptr(),
+            None if values is None else values.data_ptr(),
+            float(dotscale), m.data_ptr(), s1.data_ptr(), s2.data_ptr(),
+            m_out.data_ptr(), s1_out.data_ptr(), s2_out.data_ptr(),
+            M, rows_per_seed, P, d, c,
+            None if prune_mask is None else prune_mask.data_ptr(),
+            0 if prune_mask is None else prune_mask.shape[1],
+            STRATEGY_CODE[strategy], col0, int(fast),
+            None if scratch is None else scratch.data_ptr(), split_rows,
+            None if live is None else live.data_ptr(),
+            None if tile_counts is None else tile_counts.data_ptr(),
+            dev.index if dev.index is not None else torch.cuda.current_device(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     key = launch_key(precision, strategy, fast, per_seed=bias.ndim == 2,
@@ -828,16 +830,19 @@ def flash_score_update(
     the fp32 exp2, K3/K4 after split dots with the bf16 exponential; each
     launch counted, see the module docstring), which refuse inputs that
     require grad (`_refuse_grad`); CPU tensors run `sweep_plain`, which
-    autograd differentiates; any other device raises."""
-    if q.is_cuda:
-        _refuse_grad(q, qn, bank, pn, values, w, at, bt, *state)
-        sweep = sweep_kernel
-    elif q.device.type == "cpu":
-        sweep = sweep_plain
-    else:
-        raise ValueError(f"no flash-score sweep for device {q.device}")
-    return _update(sweep, q, qn, bank, pn, values, w, at, bt, state, precision,
-                   rows_per_seed, v_strategy, fast_exp, inbank_cols, prune_mask)
+    autograd differentiates; any other device raises. Under a profiler the
+    call is the range `flash_score.update`, and a kernel's enqueue inside
+    it `flash_score.launch`."""
+    with annotate("flash_score.update"):
+        if q.is_cuda:
+            _refuse_grad(q, qn, bank, pn, values, w, at, bt, *state)
+            sweep = sweep_kernel
+        elif q.device.type == "cpu":
+            sweep = sweep_plain
+        else:
+            raise ValueError(f"no flash-score sweep for device {q.device}")
+        return _update(sweep, q, qn, bank, pn, values, w, at, bt, state, precision,
+                       rows_per_seed, v_strategy, fast_exp, inbank_cols, prune_mask)
 
 
 flash_score_update.launches = {

@@ -17,6 +17,12 @@ Seeds: index j's seed and label come from their own generator,
 did not write yet. They are not the JAX package's seeds (its `fold_in` keys
 have no torch or numpy counterpart); the two packages meet through `--fill`
 over the same saved seeds.
+
+Under a profiler the host's parts of a call are named ranges: the resume
+scan (`pipeline.resume_scan`), the seed draws (`pipeline.draw`), each copy
+of a machine output back to the host (`pipeline.copy_back`, which also
+waits for the machine's last kernels) and a batch's writes
+(`pipeline.write`).
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 
 from .convert import load_pt
+from .utils.profiling import annotate
 
 __all__ = [
     "save_array",
@@ -95,6 +102,11 @@ def auto_detect_scales(checkpoints_dir: str, dataset_name: str) -> str:
     )
 
 
+def _copy_back(out) -> np.ndarray:
+    with annotate("pipeline.copy_back"):
+        return _to_numpy(out)
+
+
 def _run(machine, xs, labels):
     """Machine outputs as numpy for seeds `xs` (each [1, h, w, c]) with
     `labels` (None, or one int per seed): unconditional in one call; with
@@ -102,13 +114,13 @@ def _run(machine, xs, labels):
     else one call per distinct label. Returns [len(xs), h, w, c]."""
     x = np.concatenate(xs, axis=0)
     if labels is None:
-        return _to_numpy(machine(x))
+        return _copy_back(machine(x))
     if getattr(machine.backbone, "supports_vector_label", False):
-        return _to_numpy(machine(x, label=np.asarray(labels, np.int64)))
+        return _copy_back(machine(x, label=np.asarray(labels, np.int64)))
     out = np.empty(x.shape, np.float32)
     for lab in dict.fromkeys(labels):  # distinct labels, first-seen order
         rows = [i for i, l in enumerate(labels) if l == lab]
-        out[rows] = _to_numpy(machine(x[rows], label=lab))
+        out[rows] = _copy_back(machine(x[rows], label=lab))
     return out
 
 
@@ -172,20 +184,22 @@ def generate_els_samples(
             chunk = todo[start : start + bsz]
             out = _run(machine, [s for _, s, _ in chunk],
                        [l for _, _, l in chunk] if conditional else None)
-            for row, (j, _, _) in enumerate(chunk):
-                if writer:
-                    save_array(os.path.join(out_path, f"{j:04d}"), out[row : row + 1], fmt)
+            with annotate("pipeline.write"):
+                for row, (j, _, _) in enumerate(chunk):
+                    if writer:
+                        save_array(os.path.join(out_path, f"{j:04d}"), out[row : row + 1], fmt)
         return len(todo)
 
     min_iter = 0
     if os.path.isdir(out_dir) and not force_overwrite:
-        for i in range(numiters):
-            if not (_exists(os.path.join(seed_dir, f"{i:04d}"))
-                    and _exists(os.path.join(out_path, f"{i:04d}"))):
-                min_iter = i
-                break
-        else:
-            min_iter = numiters
+        with annotate("pipeline.resume_scan"):
+            for i in range(numiters):
+                if not (_exists(os.path.join(seed_dir, f"{i:04d}"))
+                        and _exists(os.path.join(out_path, f"{i:04d}"))):
+                    min_iter = i
+                    break
+            else:
+                min_iter = numiters
     elif os.path.isdir(out_dir) and writer:
         shutil.rmtree(out_dir)
     if writer:
@@ -203,15 +217,18 @@ def generate_els_samples(
     idx = min_iter
     while idx < numiters:
         n = min(bsz, numiters - idx)
-        drawn = [draw(j) for j in range(idx, idx + n)]
+        with annotate("pipeline.draw"):
+            drawn = [draw(j) for j in range(idx, idx + n)]
         labels = [lab for _, lab in drawn] if conditional else None
         out = _run(machine, [s for s, _ in drawn], labels)
-        for o, (x, lab) in enumerate(drawn if writer else ()):
-            j = idx + o
-            save_array(os.path.join(seed_dir, f"{j:04d}"), x, fmt)
-            save_array(os.path.join(out_path, f"{j:04d}"), out[o : o + 1], fmt)
-            if conditional:
-                save_array(os.path.join(lab_dir, f"{j:04d}"), np.asarray([lab], np.int64), fmt)
+        with annotate("pipeline.write"):
+            for o, (x, lab) in enumerate(drawn if writer else ()):
+                j = idx + o
+                save_array(os.path.join(seed_dir, f"{j:04d}"), x, fmt)
+                save_array(os.path.join(out_path, f"{j:04d}"), out[o : o + 1], fmt)
+                if conditional:
+                    save_array(os.path.join(lab_dir, f"{j:04d}"),
+                               np.asarray([lab], np.int64), fmt)
         produced += n
         idx += n
         if idx % max(1, 10 * n) == 0:
