@@ -317,7 +317,7 @@ def sweep_bias(pn: torch.Tensor, w: torch.Tensor, at, bt) -> torch.Tensor:
         torch.full_like(w, NEG_INF),
     )
     coef = -(at * at) * (1.0 / (2.0 * bt * bt)) * LOG2E
-    return torch.clamp(coef.to(pn.device) * pn + logw, min=NEG_INF)
+    return torch.clamp(coef * pn + logw, min=NEG_INF)
 
 
 def _mask_cells(mask: torch.Tensor, M: int, p0: int, p1: int) -> torch.Tensor:
@@ -327,7 +327,10 @@ def _mask_cells(mask: torch.Tensor, M: int, p0: int, p1: int) -> torch.Tensor:
 
 
 def _scalar(x) -> torch.Tensor:
-    """A float32 0-d CPU tensor (schedule scalars stay on the host)."""
+    """A float32 0-d CPU tensor. The schedule scalars stay on the host: a
+    0-d CPU tensor is a legal operand of an op on the card, which reads its
+    value as a kernel argument, so the same float32 value reaches the card
+    with no copy and no wait for the stream."""
     return torch.as_tensor(x, dtype=torch.float32).reshape(()).cpu()
 
 
@@ -773,14 +776,13 @@ def _update(sweep, q, qn, bank, pn, values, w, at, bt, state, precision,
     for name, (got, want) in shapes.items():
         if tuple(got) != want:
             raise ValueError(f"{name} has shape {tuple(got)}, expected {want}")
-    dev = q.device
     at = _scalar(at)
     bt = _scalar(bt)
     inv2bt2 = 1.0 / (2.0 * bt * bt)
     bias = sweep_bias(pn, w, at, bt)
     # the per-query -||q||^2 / (2 beta^2) offset stays outside the sweep: m
     # moves into the sweep's qn-less base-2 convention and back out
-    qn_s = qn * inv2bt2.to(dev)
+    qn_s = qn * inv2bt2
     m_k = torch.where(m0 <= NEG_INF * 0.5, m0, (m0 + qn_s) * LOG2E)
     dotscale = float(2.0 * at * inv2bt2 * LOG2E)
     m, s1, s2 = sweep(q, bias, bank, values, dotscale, m_k, s10, s20,
@@ -830,9 +832,11 @@ def flash_score_update(
     the fp32 exp2, K3/K4 after split dots with the bf16 exponential; each
     launch counted, see the module docstring), which refuse inputs that
     require grad (`_refuse_grad`); CPU tensors run `sweep_plain`, which
-    autograd differentiates; any other device raises. Under a profiler the
-    call is the range `flash_score.update`, and a kernel's enqueue inside
-    it `flash_score.launch`."""
+    autograd differentiates; any other device raises. On the kernel route
+    with its inputs on the card (a prune mask as int32 there) the call makes
+    no synchronising CUDA call: the host enqueues sweep after sweep ahead of
+    the card. Under a profiler the call is the range `flash_score.update`,
+    and a kernel's enqueue inside it `flash_score.launch`."""
     with annotate("flash_score.update"):
         if q.is_cuda:
             _refuse_grad(q, qn, bank, pn, values, w, at, bt, *state)

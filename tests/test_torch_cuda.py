@@ -730,6 +730,91 @@ def test_moved_variants_logits_are_the_parents(c):
         assert torch.equal(m, ref if prec == "highest" else k2), (precision, fast, strategy)
 
 
+
+# --- the sweep wrapper enqueues without waiting --------------------------------
+
+
+def _wrapper_case(case, dev):
+    """(args, keywords) of one `flash_score_update` at 'highest' on the card
+    from a carried state with sentinel rows: 1-D weights (K1), [S, P]
+    weights with rows_per_seed (K5), or 1-D weights with a prune mask that
+    lies on the card as int32 (K6). The schedule scalars are float32 0-d
+    CPU tensors, as the score modules pass them (cosine schedule, step 7 of
+    20)."""
+    from convolutional_diffusion_tpu_torch.schedules import cosine_noise_schedule
+
+    S, rps, d, P, c = 4, 256, 75, SPLIT_P, 3
+    M = S * rps
+    q, qn, bank, pn, values, w = _case(M, d, P, c, seed=21, dev=dev)
+    kw = {}
+    if case == "K5":
+        w = torch.rand(S, P, generator=torch.Generator().manual_seed(21)).to(dev)
+        w[w < 0.3] = 0.0
+        kw["rows_per_seed"] = rps
+    elif case == "K6":
+        kw["prune_mask"] = _forced_mask(M, P, dev)
+    beta = cosine_noise_schedule(torch.tensor(7.0) / 20)
+    at, bt = torch.sqrt(1.0 - beta), torch.sqrt(beta)
+    return (q, qn, bank, pn, values, w, at, bt, _carried(M, c, dev, 21)), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["K1", "K5", "K6"])
+def test_update_makes_no_synchronising_call(case):
+    """Under `torch.cuda.set_sync_debug_mode("error")` three chained
+    `flash_score_update` calls on inputs on the card raise nothing: the
+    wrapper copies no schedule scalar to the card and reads nothing back,
+    so the host enqueues sweep after sweep ahead of the card. The first
+    call (the kernel's build and load) runs before the mode is set; a
+    pageable copy of a 0-d CPU tensor to the card shows the mode acts. The
+    mode is restored afterwards."""
+    dev = _need_cuda()
+    args, kw = _wrapper_case(case, dev)
+    *inputs, state = args
+    tfs.flash_score_update(*args, **kw)
+    torch.cuda.synchronize()
+    before = sum(tfs.flash_score_update.launches.values())
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError):
+            torch.tensor(1.0).to(dev)
+        for _ in range(3):
+            state = tfs.flash_score_update(*inputs, state, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    assert torch.cuda.get_sync_debug_mode() == prev
+    torch.cuda.synchronize()
+    assert sum(tfs.flash_score_update.launches.values()) == before + 3
+    assert all(torch.isfinite(x).all() for x in state[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["K1", "K5", "K6"])
+def test_update_equals_scalars_copied_to_the_card(case):
+    """`sweep_bias`, and one `flash_score_update` from a carried state, bit
+    for bit the wrapper's expressions with the schedule scalars copied to
+    the card first: the bias, m moved by the scaled qn offset into the
+    sweep and back out, s1 and s2."""
+    dev = _need_cuda()
+    args, kw = _wrapper_case(case, dev)
+    q, qn, bank, pn, values, w, at, bt, (m0, s10, s20) = args
+    inv2bt2 = 1.0 / (2.0 * bt * bt)
+    coef = -(at * at) * inv2bt2 * tfs.LOG2E
+    logw = torch.where(w > 0.0, torch.log2(torch.clamp(w, min=1e-38)),
+                       torch.full_like(w, tfs.NEG_INF))
+    bias = torch.clamp(coef.to(dev) * pn + logw, min=tfs.NEG_INF)
+    assert torch.equal(tfs.sweep_bias(pn, w, at, bt), bias)
+    qn_s = qn * inv2bt2.to(dev)
+    m_k = torch.where(m0 <= tfs.NEG_INF * 0.5, m0, (m0 + qn_s) * tfs.LOG2E)
+    m, s1, s2 = tfs.sweep_kernel(q, bias, bank, values, float(2.0 * at * inv2bt2 * tfs.LOG2E),
+                                 m_k, s10, s20, precision="highest",
+                                 prune_mask=kw.get("prune_mask"), fast_exp=False)
+    want = (torch.where(m <= tfs.NEG_INF * 0.5, m, m * tfs.LN2 - qn_s), s1, s2)
+    got = tfs.flash_score_update(*args, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert not torch.equal(got[0], m0)
+
 # --- the neural half: backbones on the card ---------------------------------
 
 

@@ -634,3 +634,107 @@ def test_prune_mask_errors():
         with pytest.raises(ValueError, match="vector-label"):
             fn(*args, t["w"][None].repeat(2, 1), 0.9, 0.3, st, rows_per_seed=M // 2,
                prune_mask=mask)
+
+
+# --- the wrapper's schedule scalars: the written-out float32 formula -------
+
+
+def _schedule_coeffs(steps=(1, 7, 13, 19), nsteps=20):
+    """(a_t, b_t) of the cosine schedule at a few steps of a 20-step run, as
+    the score modules hand them to the sweep: float32 0-d CPU tensors."""
+    from convolutional_diffusion_tpu_torch.schedules import cosine_noise_schedule
+
+    out = []
+    for i in steps:
+        beta = cosine_noise_schedule(torch.tensor(i, dtype=torch.float32) / nsteps)
+        out.append((torch.sqrt(1.0 - beta), torch.sqrt(beta)))
+    return out
+
+
+def _f32_scalars(at, bt):
+    """(coef, 1 / (2 b^2), dotscale) in numpy float32, one rounding per
+    operation, in the wrapper's order."""
+    a, b = np.float32(at), np.float32(bt)
+    inv = np.float32(1.0) / (np.float32(2.0) * b * b)
+    coef = -(a * a) * inv * np.float32(tfs.LOG2E)
+    return coef, inv, float(np.float32(2.0) * a * inv * np.float32(tfs.LOG2E))
+
+
+def _formula_bias(pn, w, coef):
+    logw = torch.where(w > 0.0, torch.log2(torch.clamp(w, min=1e-38)),
+                       torch.full_like(w, tfs.NEG_INF))
+    return torch.clamp(torch.tensor(coef) * pn + logw, min=tfs.NEG_INF)
+
+
+def _formula_update(q, qn, bank, pn, values, w, at, bt, state):
+    """The wrapper written out: its float32 scalars, the bias, the scaled qn
+    offset into and out of m around the plain sweep."""
+    coef, inv, dotscale = _f32_scalars(at, bt)
+    m0, s10, s20 = state
+    qn_s = qn * torch.tensor(inv)
+    m_k = torch.where(m0 <= tfs.NEG_INF * 0.5, m0, (m0 + qn_s) * tfs.LOG2E)
+    m, s1, s2 = tfs.sweep_plain(q, _formula_bias(pn, w, coef), bank, values, dotscale,
+                                m_k, s10, s20, precision="highest", fast_exp=False)
+    return torch.where(m <= tfs.NEG_INF * 0.5, m, m * tfs.LN2 - qn_s), s1, s2
+
+
+def _formula_case(weights, seed=5):
+    a = {k: torch.from_numpy(v) for k, v in _inputs(96, 27, 700, 3, seed, w_lo=-0.5).items()}
+    a["w"] = torch.clamp(a["w"], min=0.0)  # about a quarter of the patches excluded
+    if weights == "per_seed":
+        g = torch.Generator().manual_seed(seed)
+        a["w"] = torch.clamp(torch.rand(4, 700, generator=g) - 0.3, min=0.0)
+    # a carried state with sentinel rows, so the qn offset moves m both ways
+    g = torch.Generator().manual_seed(seed + 1)
+    m = torch.randn(96, generator=g) * 3 - 40.0
+    m[::7] = tfs.NEG_INF
+    state = (m, torch.rand(96, generator=g) + 0.5, torch.randn(96, 3, generator=g))
+    return a, state, ({"rows_per_seed": 24} if weights == "per_seed" else {})
+
+
+@pytest.mark.parametrize("weights", ["1d", "per_seed"])
+def test_sweep_bias_is_the_written_out_float32_formula(weights):
+    """`sweep_bias` at (a_t, b_t) of the schedule, [P] and [S, P] weights,
+    bit for bit the formula with each scalar operation rounded to float32."""
+    a, _, _ = _formula_case(weights)
+    for at, bt in _schedule_coeffs():
+        coef, _, _ = _f32_scalars(at, bt)
+        assert torch.equal(tfs.sweep_bias(a["pn"], a["w"], at, bt),
+                           _formula_bias(a["pn"], a["w"], coef))
+
+
+@pytest.mark.parametrize("weights", ["1d", "per_seed"])
+def test_plain_update_is_the_written_out_float32_formula(weights):
+    """`flash_score_update_plain` (and the CPU route of `flash_score_update`)
+    from a carried state, bit for bit the written-out wrapper around the
+    plain sweep, at (a_t, b_t) of the schedule."""
+    a, state, kw = _formula_case(weights)
+    args = [a[k] for k in ("q", "qn", "bank", "pn", "values", "w")]
+    for at, bt in _schedule_coeffs():
+        want = _formula_update(*args, at, bt, state)
+        for fn in (tfs.flash_score_update_plain, tfs.flash_score_update):
+            got = fn(*args, at, bt, state, **kw)
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), (fn.__name__, at, bt)
+
+
+def test_plain_route_jacobian_is_unchanged():
+    """`torch.func.jacrev` of the posterior mean with respect to q through
+    the plain route (qn a function of q): not zero, and bit for bit the
+    Jacobian through the written-out wrapper."""
+    a, state, _ = _formula_case("1d")
+    q, state = a["q"][:16], tuple(s[:16] for s in state)
+    at, bt = (float(x) for x in _schedule_coeffs(steps=(13,))[0])  # no tensor under jacrev
+    rest = [a[k] for k in ("bank", "pn", "values", "w")]
+
+    def mean(fn):
+        def f(q):
+            _, s1, s2 = fn(q, (q * q).sum(1), *rest, at, bt, state)
+            return s2 / s1[:, None]
+        return f
+
+    got = torch.func.jacrev(mean(tfs.flash_score_update_plain))(q)
+    want = torch.func.jacrev(mean(_formula_update))(q)
+    assert got.shape == (16, 3, 16, 27)
+    assert torch.equal(got, want)
+    rows = torch.arange(16)
+    assert got[rows, :, rows].abs().amax(dim=(1, 2)).gt(0).all()  # each row moves with its q
