@@ -22,14 +22,17 @@ windows whose position has the same class pair:
   - (border, border): the single window at that exact position of each
     training image.
 
-The border regions stream the images chunk by chunk (the bank geometry's
-chunk) in plain tensor code: true fp32 dots (`ops.fp32.fp32_einsum`) and the
-online softmax of `common.update_state`, at every tier, 'default'
-included: the JAX package's border einsums never take a pure-bf16 dot
+The border regions stream the images in chunks of their own, sized so that
+one chunk's windows and logits take at most `BORDER_CHUNK_BYTES`, in plain
+tensor code: true fp32 dots (`ops.fp32.fp32_einsum`) and the online
+softmax of `common.update_state`, at every tier, 'default' included: the
+JAX package's border einsums never take a pure-bf16 dot
 (`bbels.py:155-162`) and run in fp32 on the CPU, and its bf16 exp lives
-only in the flash-score kernel. The two border-row bands are one
-batch of 2p row regions, the two border-column bands another, the four
-corners one batch of 4p^2 positions.
+only in the flash-score kernel. A chunk's border windows are one gather
+at the border positions (`_border_positions`). The 2p border-row bands
+are one batch, the 2p border-column bands another, the four corners one
+batch of 4p^2 positions.
+Each step's border regions lie inside one `bbels.borders` profiler range.
 
 Parity notes, as in the JAX package: accumulation is SUM, the max_samples
 cutoff is the batch quota (batch i runs iff i * batch_size <= max_samples),
@@ -44,39 +47,81 @@ import torch
 
 from ..ops.fp32 import fp32_einsum
 from ..ops.patches import center_index, extract_patches, pad_image, window_view
+from ..utils.profiling import annotate
 from .bank import BankCacheMixin, bank_geometry
 from .base import ScoreModuleBase
-from .common import CutoffRule, Weighting, image_weights, init_state, update_state
+from .common import (
+    CutoffRule,
+    SoftmaxState,
+    Weighting,
+    _rescale,
+    image_weights,
+    init_state,
+    update_state,
+)
 from .els import DEFAULT_BANK_BUDGET, patch_sweep
 from .local import LocalScoreModule
 
 
-def _border_windows(padded: torch.Tensor, h: int, w: int, p: int, k: int):
-    """The border-region windows of zero-padded images [n, h+2p, w+2p, c],
-    region-major, each set one concatenation of window-view slices: rows
-    [2p, n, w-2p, d] (top band then bottom band, interior columns), cols
-    [2p, n, h-2p, d] (left then right, interior rows) and corners
-    [4p^2, n, d] (top-left, top-right, bottom-left, bottom-right, each p x p
-    in row-major order)."""
-    n = padded.shape[0]
-    v = window_view(padded, k)  # [n, h, w, k, k, c]
-    top, bottom = slice(0, p), slice(h - p, h)
-    left, right = slice(0, p), slice(w - p, w)
-    rows = torch.cat([v[:, r, p : w - p].transpose(0, 1) for r in (top, bottom)])
-    cols = torch.cat([v[:, p : h - p, c_].permute(2, 0, 1, 3, 4, 5)
-                      for c_ in (left, right)])
-    corners = torch.cat([v[:, r, c_].permute(1, 2, 0, 3, 4, 5)
-                         for r in (top, bottom) for c_ in (left, right)])
-    return (rows.reshape(2 * p, n, w - 2 * p, -1),
-            cols.reshape(2 * p, n, h - 2 * p, -1),
-            corners.reshape(4 * p * p, n, -1))
+# Device memory that one chunk of the border regions' windows and logits
+# may take: at 64 x 64, 4 seeds and 1000 images, a call of the 20-step
+# CelebA schedule runs ~35 border chunks, 12 of them at k = 27. The
+# chunk's peak lies above it: while one band batch runs, the squares that
+# give its windows' norms take up to one more of its windows' size, and
+# `update_state` holds about five of its logits' size at once (the logits,
+# the masked logits, the weighted exponentials, zeros, e). So the peak
+# nears twice this where the windows dominate (large k) and up to about
+# five times it where the logits do (small k, many images or seeds).
+BORDER_CHUNK_BYTES = 2 << 30
+
+
+def _border_positions(h: int, w: int, p: int) -> tuple[list, list]:
+    """(rows, cols) of the border positions, in the order the states keep
+    them: the top then the bottom band over the interior columns (2p bands
+    of w-2p), the left then the right band over the interior rows (2p bands
+    of h-2p), then the corners (top-left, top-right, bottom-left,
+    bottom-right, each p x p in row-major order)."""
+    edge_r, edge_c = [*range(p), *range(h - p, h)], [*range(p), *range(w - p, w)]
+    inner_r, inner_c = range(p, h - p), range(p, w - p)
+    rows = [r for r in edge_r for _ in inner_c] + [r for _ in edge_c for r in inner_r]
+    cols = [c for _ in edge_r for c in inner_c] + [c for c in edge_c for _ in inner_r]
+    for rr in (edge_r[:p], edge_r[p:]):
+        for cc in (edge_c[:p], edge_c[p:]):
+            rows += [r for r in rr for _ in cc]
+            cols += [c for _ in rr for c in cc]
+    return rows, cols
+
+
+def _border_chunk(n: int, h: int, w: int, c: int, k: int, b: int) -> int:
+    """Images a border chunk: as many of the n as keep the chunk's windows
+    and its logits for b seeds within `BORDER_CHUNK_BYTES`."""
+    p = k // 2
+    hc, wc = h - 2 * p, w - 2 * p
+    windows = (2 * p * (wc + hc) + 4 * p * p) * k * k * c
+    logits = b * (2 * p * (wc * wc + hc * hc) + 4 * p * p)
+    return max(1, min(n, BORDER_CHUNK_BYTES // (4 * (windows + logits))))
+
+
+def _windows_at(padded: torch.Tensor, k: int, rows: torch.Tensor, cols: torch.Tensor):
+    """The k x k windows of zero-padded images [n, h+2p, w+2p, c] at the
+    positions (rows, cols) [npos], as [npos, n, k*k*c]: one gather."""
+    v = window_view(padded, k).permute(1, 2, 0, 3, 4, 5)
+    return v[rows, cols].reshape(rows.shape[0], padded.shape[0], -1)
 
 
 def _logits(q, qn, bank, pn, at, beta2, spec):
-    """-(|q|^2 - 2 a <q, p> + a^2 |p|^2) / (2 beta^2) with fp32 dots."""
-    dots = fp32_einsum(spec, q, bank)
-    pn = pn.reshape(pn.shape[0], *([1] * (dots.ndim - 2)), pn.shape[-1])
-    return -(qn[..., None] - 2.0 * at * dots + at**2 * pn) / beta2
+    """-(|q|^2 - 2 a <q, p> + a^2 |p|^2) / (2 beta^2) with fp32 dots,
+    computed in place of the dots; qn and pn broadcast against them."""
+    return fp32_einsum(spec, q, bank).mul_(2.0 * at).sub_(qn).sub_(at**2 * pn).div_(beta2)
+
+
+def _fold(st: SoftmaxState, dim: int) -> SoftmaxState:
+    """The states along `dim` merged into one (empty: m = -inf)."""
+    m = st.m.amax(dim=dim, keepdim=True)
+    m_safe = torch.where(torch.isneginf(m), torch.zeros_like(m), m)
+    scale = _rescale(st.m, m_safe)
+    return SoftmaxState(m.squeeze(dim), (st.s1 * scale).sum(dim),
+                        (st.s2 * scale[..., None]).sum(dim))
 
 
 class LocalEquivBordersScoreModule(BankCacheMixin, ScoreModuleBase):
@@ -102,6 +147,7 @@ class LocalEquivBordersScoreModule(BankCacheMixin, ScoreModuleBase):
             bank_ledger=bank_ledger, prune=False,
         )
         self._local_fallback_cache = None
+        self._positions = {}  # k -> the border positions on the device
 
     @property
     def _local_fallback(self) -> LocalScoreModule:
@@ -135,50 +181,55 @@ class LocalEquivBordersScoreModule(BankCacheMixin, ScoreModuleBase):
             return self._local_fallback(t, x, label=label, k=k, order=order)
         return super().__call__(t, x, label=label, k=k, order=order)
 
-    def _border_states(self, x, k, w_img, at, bt, g):
+    def _border_index(self, k: int):
+        """(rows, cols), int64 [npos] on the module's device: the border
+        positions of kernel size k (`_border_positions`), made once per k."""
+        if k not in self._positions:
+            _, h, w, _ = self.images.shape
+            self._positions[k] = tuple(torch.tensor(i, device=self.device)
+                                       for i in _border_positions(h, w, k // 2))
+        return self._positions[k]
+
+    def _border_states(self, x, k, w_img, at, bt):
         """The border regions' states (rows, columns, corners), the images
-        streamed chunk by chunk."""
+        streamed in border chunks (`_border_chunk`). A band batch keeps one
+        state per key position of its bands and folds them at the end, so
+        that a chunk's value sums run over its images, not over all its
+        windows of a band: one fp32 dot over the 62000 windows of a chunk
+        of 1000 images at k = 3 summed ~10x less exactly on the card."""
         n, h, w, c = self.images.shape
         b = x.shape[0]
         p = k // 2
-        hc, wc = h - 2 * p, w - 2 * p
         ctr = center_index(k, c)
-        q_rows, q_cols, q_corners = _border_windows(
-            pad_image(x, p, "zeros"), h, w, p, k
-        )  # [2p, b, wc, d], [2p, b, hc, d], [4p^2, b, d]
-        qn = [(q * q).sum(dim=-1) for q in (q_rows, q_cols, q_corners)]
-        st_rows = init_state((2 * p, b, wc), c, device=self.device)
-        st_cols = init_state((2 * p, b, hc), c, device=self.device)
-        st_corners = init_state((4 * p * p, b), c, device=self.device)
+        rows, cols = self._border_index(k)
+        batches = [(0, w - 2 * p), (2 * p * (w - 2 * p), h - 2 * p)]  # (start, L)
+        nband = 2 * p * (h + w - 4 * p)  # positions in the bands
+        q = _windows_at(pad_image(x, p, "zeros"), k, rows, cols)  # [npos, b, d]
+        qs = [q[s : s + 2 * p * L].view(2 * p, L, b, -1).transpose(1, 2).contiguous()
+              for s, L in batches]  # [2p, b, L, d]: rows, then columns
+        qn = [(t * t).sum(dim=-1)[:, None, :, :, None] for t in qs]
+        states = [init_state((2 * p, L, b, L), c, device=self.device) for _, L in batches]
+        qs.append(q[nband:])  # [4p^2, b, d]
+        qn.append((q[nband:] * q[nband:]).sum(dim=-1)[..., None])
+        states.append(init_state((4 * p * p, b), c, device=self.device))
+        specs = ["rbqd,rlpd->rlbqp"] * len(batches) + ["rbd,rpd->rbp"]
         beta2 = 2.0 * bt**2
-        for i0 in range(0, n, g.cs):
-            imgs = self.images[i0 : i0 + g.cs]
-            w_c = w_img[i0 : i0 + g.cs]
-            cs = imgs.shape[0]
-            rows, cols, corners = _border_windows(
-                pad_image(imgs, p, "zeros"), h, w, p, k
-            )
-            rows = rows.reshape(2 * p, cs * wc, g.d)
-            cols = cols.reshape(2 * p, cs * hc, g.d)
-            st_rows = update_state(
-                st_rows,
-                _logits(q_rows, qn[0], rows, (rows * rows).sum(-1), at, beta2,
-                        "rbqd,rpd->rbqp"),
-                w_c.repeat_interleave(wc), rows[..., ctr],
-            )
-            st_cols = update_state(
-                st_cols,
-                _logits(q_cols, qn[1], cols, (cols * cols).sum(-1), at, beta2,
-                        "rbqd,rpd->rbqp"),
-                w_c.repeat_interleave(hc), cols[..., ctr],
-            )
-            st_corners = update_state(
-                st_corners,
-                _logits(q_corners, qn[2], corners, (corners * corners).sum(-1),
-                        at, beta2, "rbd,rpd->rbp"),
-                w_c, corners[..., ctr],
-            )
-        return [st_rows, st_cols, st_corners]
+        cs = _border_chunk(n, h, w, c, k, b)
+        for i0 in range(0, n, cs):
+            keys = _windows_at(pad_image(self.images[i0 : i0 + cs], p, "zeros"),
+                               k, rows, cols)  # [npos, cs, d]
+            groups = [keys[s : s + 2 * p * L].view(2 * p, L, keys.shape[1], -1)
+                      for s, L in batches]  # [2p, key positions, cs, d]
+            groups.append(keys[nband:])  # [4p^2, cs, d]
+            for j, kb in enumerate(groups):
+                pn = (kb * kb).sum(dim=-1)
+                pn = pn[:, :, None, None, :] if kb.ndim == 4 else pn[:, None, :]
+                states[j] = update_state(
+                    states[j], _logits(qs[j], qn[j], kb, pn, at, beta2, specs[j]),
+                    w_img[i0 : i0 + cs], kb[..., ctr],
+                )
+        # rows and columns, each folded over its key positions
+        return [_fold(states[0], 1), _fold(states[1], 1), states[2]]
 
     def _score(self, k, x, label, at, bt, order):
         n, h, w, c = self.images.shape
@@ -195,7 +246,10 @@ class LocalEquivBordersScoreModule(BankCacheMixin, ScoreModuleBase):
         # center: the ELS sweep over the valid patches
         qc = extract_patches(x, k).reshape(b * hc * wc, g.d)
         center = patch_sweep(self, k, qc, (qc * qc).sum(dim=-1), w_img, at, bt)
-        borders = self._border_states(x, k, w_img, at, bt, g) if p else []
+        borders = []
+        if p:
+            with annotate("bbels.borders"):
+                borders = self._border_states(x, k, w_img, at, bt)
         (_, s1, s2), *borders = self._merge([center, *borders])
         mean = torch.empty_like(x)
         mean[:, p : h - p, p : w - p] = (s2 / s1[:, None]).reshape(b, hc, wc, c)

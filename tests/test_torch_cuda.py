@@ -1162,3 +1162,32 @@ def test_use_pallas_false_jacobian_card_vs_cpu(kind):
     scale = jac["cpu"].abs().max().item()
     assert scale > 1.0
     assert (jac["cuda"] - jac["cpu"]).abs().max().item() <= 1e-5 * scale
+
+
+# --- bbELS at 64 x 64: K2's centre and the border regions' own chunking -------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [27, 3])
+def test_bbels_64x64_high_card_vs_cpu(k):
+    """One 'high' bbELS step at 64 x 64 (N = 8, two seeds): the card (K2 for
+    the centre, the border regions in border chunks) against the CPU's
+    plain route, at 1e-3 relative to scale. At
+    k = 27 (d = 2187) the border classes hold 65% of the pixels."""
+    from convolutional_diffusion_tpu_torch.scores import LocalEquivBordersScoreModule
+
+    dev = _need_cuda()
+    g = np.random.RandomState(27)
+    images = g.uniform(-1, 1, (8, 64, 64, 3)).astype(np.float32)
+    labels = np.zeros(8, dtype=np.int64)
+    x = torch.from_numpy(g.normal(size=(2, 64, 64, 3)).astype(np.float32))
+    key = tfs.KERNEL_OF["high"]
+    outs = []
+    for device in (dev, "cpu"):
+        mod = LocalEquivBordersScoreModule((images, labels), batch_size=256,
+                                           precision="high", device=device)
+        before = tfs.flash_score_update.launches[key]
+        outs.append(mod(torch.tensor(0.5), x, k=k).cpu())
+        if device is dev:
+            assert tfs.flash_score_update.launches[key] > before
+    assert _rel(*outs) <= 1e-3
