@@ -35,13 +35,15 @@ SPLIT_TILE = 128
 PRUNE_ROWS = 64
 PRUNE_BLOCK = 2048
 
-# Query rows per thread block of the two main loops, by launch-count key
+# Query rows per thread block of the main loops, by launch-count key
 # prefix: K1's (`flash_score.cu` rows::Rows: 128, and 64 with the bf16
-# exponential, which runs one split) and the split-dot loop's
-# (`flash_score_split_rows.cuh` BQ, K2 and the 'default' kernel). Each
-# source static_asserts its own against the -D flag; `flash_score.
-# split_launch` reads them for the grid of a launch.
-SPLIT_BQ = {"flash_score": 128, "flash_score/bf16_exp": 64, "flash_score_bf16x3": 64,
+# exponential, which runs one split), K2's per-row sums'
+# (`flash_score_split_ws.cuh` ws::BQ, the warp-specialised loop) and the
+# 'default' kernel's split-dot loop (`flash_score_split_rows.cuh` BQ),
+# which K2's wide modes run too. Each source static_asserts its own
+# against the -D flag; `flash_score.split_launch` reads them for the grid
+# of a launch.
+SPLIT_BQ = {"flash_score": 128, "flash_score/bf16_exp": 64, "flash_score_bf16x3": 128,
             "flash_score_fast": 64}
 
 # No --use_fast_math: the flash-score dots' fp32 sums and exp2f must stay
@@ -53,6 +55,7 @@ NVCC_FLAGS = [
     f"-DPRUNE_BLOCK={PRUNE_BLOCK}", f"-DK1_SPLIT_BQ={SPLIT_BQ['flash_score']}",
     f"-DK1_FAST_BQ={SPLIT_BQ['flash_score/bf16_exp']}",
     f"-DK2_SPLIT_BQ={SPLIT_BQ['flash_score_bf16x3']}",
+    f"-DSPLIT_DOT_BQ={SPLIT_BQ['flash_score_fast']}",
 ]
 
 _P = ctypes.c_void_p

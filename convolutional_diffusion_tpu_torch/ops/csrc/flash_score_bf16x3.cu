@@ -31,18 +31,20 @@
 // per accumulator per k16 step, which puts a floor of ~6.3 ms under a
 // 65536-row chunk at M = 8192, k = 17 (2.8 ms of tensor-core bound).
 //
-// Every variant runs the one split-dot main loop of the port
-// (flash_score_split_rows.cuh): the inputs are split into bf16 hi/lo planes
-// once per launch, staged by cp.async into a ring of shared-memory slots,
-// and multiplied by warpgroup wgmma m64n64k16 products pipelined under the
-// exact sum. The per-row sums ('vpu', c <= 8) split the bank axis: one
-// block per (query block, seed, split) writes a partial state that a merge
-// pass folds in split order. The wide modes ('inbank' any c, 'mxu', 'vpu'
-// past 8 channels; flash_score_split.cuh) run one split from the carried
-// state, as the 'default' kernel does. Warpgroup wc owns bank columns
-// 64 wc .. +64 of each 128-row tile (the m16n8 accumulator layout per
-// warp), and d is zero-padded to the stage width (zero features add exact
-// zeros).
+// The per-row sums ('vpu', c <= 8, the sweeps of every module at this
+// tier) run a warp-specialised loop (flash_score_split_ws.cuh): the inputs
+// are split into bf16 hi/lo planes once per launch; a producer warpgroup
+// stages them by TMA into a ring of shared-memory slots under mbarriers,
+// and two consumer warpgroups, each with its own 64 of a block's 128 query
+// rows over whole 128-row bank tiles, run wgmma m64n128k16 products
+// pipelined under the exact sum and never wait for each other. The bank
+// axis is split: one block per (query block, seed, split) writes a partial
+// state that a merge pass folds in split order. The wide modes ('inbank'
+// any c, 'mxu', 'vpu' past 8 channels; flash_score_split.cuh) run the
+// 'default' kernel's split-dot loop (flash_score_split_rows.cuh: cp.async
+// staging, 64-row query blocks, two warpgroups that split each tile's
+// columns) from the carried state, one split. d is zero-padded to the stage
+// width (zero features add exact zeros).
 //
 // The hi.hi sum is exact over the k16 slices the tensor core returns: each
 // k16 hi.hi product starts from a zero accumulator (the tensor core returns
@@ -57,15 +59,17 @@
 // hi.hi part exactly, and the plain version (ops/flash_score.py
 // `_split_dot`) repeats this sum step by step in float64.
 //
-// The online-softmax epilogue works on the mma accumulator layout (each
-// thread holds 2 rows x 16 columns of a tile): row max over the four
-// threads of a quad by shuffles, then over the two column warps through
-// shared memory, so every thread of a row holds the same running max;
-// per-thread partial s1/s2 under that max are summed once, at exit. The carried state is read at
-// entry and written once at exit. Offsets formed from row indices are
-// 64-bit. Built without fast-math: exp2f and the fp32 sums stay exact fp32.
+// The online-softmax epilogue works on the mma accumulator layout (a
+// thread holds 2 rows of a tile, 32 columns of them in the per-row sums'
+// loop): the row max over the four threads of a quad by shuffles (and, in
+// the wide modes' loop, over the two column warpgroups through shared
+// memory), so every thread of a row holds the same running max; partial
+// s1/s2 under that max are summed over the quad (per tile in the per-row
+// loop, at exit in the wide modes'). The carried state is read at entry and
+// written once at exit. Offsets formed from row indices are 64-bit. Built
+// without fast-math: exp2f and the fp32 sums stay exact fp32.
 
-#include "flash_score_split_rows.cuh"
+#include "flash_score_split_ws.cuh"
 
 // Plain C entry point (bound with ctypes). Launches on `stream` and does not
 // synchronise; returns cudaGetLastError() after the launches (0 = launched).

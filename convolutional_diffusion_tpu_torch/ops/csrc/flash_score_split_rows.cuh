@@ -1,11 +1,14 @@
-// The one main loop of the split-dot kernels: K2 ('high', flash_score_
-// bf16x3.cu: bf16x3 split dot, fp32 exp2) and the 'default' kernel
-// (flash_score_fast.cu: the same dot, bf16 exponential), every value
-// strategy, with K5 and K6: a loop that does no global loads, split
+// The split-dot main loop of the 'default' kernel (flash_score_fast.cu: the
+// bf16x3 split dot, bf16 exponential) in every value strategy and of K2's
+// wide modes (flash_score_bf16x3.cu, 'high' 'mxu', 'inbank' and 'vpu' past
+// 8 channels), with K5 and K6: a loop that does no global loads, split
 // arithmetic or transposes, and whose tensor-core products run under its
-// exact fp32 sum. The epilogue modes (flash_score_split.cuh) differ only in
-// the exponential, the value sums and where the state starts; `sweep` at
-// the bottom routes a launch to its mode for both entry points.
+// exact fp32 sum. K2's per-row sums (HIGH_VPU) run the warp-specialised
+// loop of flash_score_split_ws.cuh on the same planes and dot, which keeps
+// this file's pre-split pass, descriptors and products; `sweep` at the
+// bottom routes a launch to its mode for both entry points. The epilogue
+// modes (flash_score_split.cuh) differ only in the exponential, the value
+// sums and where the state starts.
 //
 // 1. Split once per launch. `split_planes_kernel` writes the bf16 hi and lo
 //    parts of the queries [M, d] and of the bank chunk [P, d] as planes
@@ -19,19 +22,15 @@
 //    ring of STAGES shared-memory slots, STAGES - 2 stages ahead, one
 //    barrier per stage. (Unswizzled 8-row x 16-byte core matrices gave the
 //    same bits and ran ~1.3x slower, PERF.md §6.)
-// 3. Fill the card. One block of two warpgroups per (query block of BQ = 64
-//    rows, seed, split), walking the split's tiles (split_bank.cuh
-//    `split_tiles`): every one with 1-D weights, its seed's live ones with
-//    per-seed weights (K5), the ones its mask row keeps under a prune mask
-//    (K6; a 64-row block is one mask row, so a listed tile has no skipped
-//    rows). K2's per-row sums split the bank axis (2048
-//    blocks at M = 8192 over a 65536-row chunk, 512 at the bbELS center's
-//    2048 rows) and a merge pass folds the partial states in split order
-//    (merge_splits). Every other mode runs one split from the carried
+// 3. One block of two warpgroups per (query block of BQ = 64 rows, seed),
+//    walking the chunk's tiles (split_bank.cuh `split_tiles`): every one
+//    with 1-D weights, its seed's live ones with per-seed weights (K5), the
+//    ones its mask row keeps under a prune mask (K6; a 64-row block is one
+//    mask row, so a listed tile has no skipped rows), from the carried
 //    state: the bf16 exponential rounds x = logit - m against the m of each
-//    tile, so splitting would change its function, and K2's wide modes keep
-//    the 'default' kernel's state handling (128 blocks at M = 8192, one
-//    wave).
+//    tile, so splitting the bank axis would change its function, and K2's
+//    wide modes keep the 'default' kernel's state handling (128 blocks at
+//    M = 8192, one wave).
 // 4. Overlap the products with the exact sum. Warpgroup wc owns bank
 //    columns 64 wc .. +64 of each 128-row tile: per k16 step s, three
 //    wgmma.mma_async m64n64k16 (bf16 from shared memory, fp32 in
@@ -49,13 +48,13 @@
 //    block of 8 warps per SM (the exact sum keeps four accumulators live,
 //    which leaves no room for a second block).
 //
-// The dot is the per-block loop's the port ran before, step for step, so
-// the logits are the same bits in every mode: per k16 step the hi.hi
-// product from a zero accumulator (the tensor core rounds the exact
-// 16-product sum toward zero to fp32 in ~97% of inexact steps, wgmma as
-// mma.sync, ops/k2_numerics.py), added into the running sum by TwoSum with
-// its error into the cross-term accumulator, then qh.kl and ql.kh
-// accumulated there; the logit is fmaf(S + X, dotscale, bias).
+// The dot: per k16 step the hi.hi product from a zero accumulator (the
+// tensor core rounds the exact 16-product sum toward zero to fp32 in ~97%
+// of inexact steps, wgmma as mma.sync, ops/k2_numerics.py), added into the
+// running sum by TwoSum with its error into the cross-term accumulator,
+// then qh.kl and ql.kh accumulated there; the logit is fmaf(S + X,
+// dotscale, bias). The logits are the same bits in every mode of both
+// loops.
 //
 // The epilogue works on the accumulator layout: the accumulator of warp wr
 // of warpgroup wc holds query rows 16 wr + g, +8 and, for n8 block j, bank
@@ -88,7 +87,7 @@ using cdt_vals::bf16r;
 using cdt_vals::fast_exp;
 
 constexpr int BQ = 64;      // query rows per block: 4 warp rows x 16
-static_assert(BQ == K2_SPLIT_BQ, "ops/_build.py SPLIT_BQ holds this block's rows");
+static_assert(BQ == SPLIT_DOT_BQ, "ops/_build.py SPLIT_BQ holds this block's rows");
 constexpr int BK = 32;      // features per stage
 constexpr int KS = BK / 16; // k16 steps per stage
 constexpr int NT = 256;     // 2 warpgroups
@@ -109,8 +108,8 @@ struct Traits {
   static constexpr bool SPLITV = MODE == MMAV_SPLIT;  // the split value product
   static constexpr bool BF16_EXP = MODE == FAST_VPU || MODE == FAST_MMA ||
                                    MODE == SIMT_FAST || MODE == MMAV_FAST;
-  static constexpr bool ROWSUM = MODE == HIGH_VPU || MODE == FAST_VPU;  // s1, s2 per row
-  static constexpr bool CARRY = MODE != HIGH_VPU;  // one split from the carried state
+  static constexpr bool ROWSUM = MODE == FAST_VPU;  // s1, s2 per row
+  static_assert(MODE != HIGH_VPU, "K2's per-row sums run flash_score_split_ws.cuh");
 };
 
 // dynamic shared memory, bytes: STAGES slots of (Qh, Ql [BQ x BK bf16],
@@ -278,20 +277,19 @@ __global__ void __launch_bounds__(NT, 1) rows_kernel(
   const int lr[2] = {wr * 16 + g, wr * 16 + g + 8};
   const int c = T::WIDE ? w.c : C;
 
-  // The state: from empty (HIGH_VPU, a split's partial) or the carried one.
-  // m is the same in all 8 threads of a row; s1 and the per-row s2 are
-  // per-thread partials under it, summed at exit, the thread (wc == 0,
-  // t4 == 0) starting from the carried values. FAST_MMA: sv in the
-  // product's accumulator layout (element e: row lr[e / 2], column
+  // The state: the carried one. m is the same in all 8 threads of a row; s1
+  // and the per-row s2 are per-thread partials under it, summed at exit, the
+  // thread (wc == 0, t4 == 0) starting from the carried values. FAST_MMA: sv
+  // in the product's accumulator layout (element e: row lr[e / 2], column
   // 2 t4 + (e % 2) of n8 tile nv; columns < C are s2, column C is s1),
-  // warpgroup 0 starting from the carried values. The wide modes: s2 in
-  // the output rows (MMAV: warpgroup 1's sums in the scratch's rows).
+  // warpgroup 0 starting from the carried values. The wide modes: s2 in the
+  // output rows (MMAV: warpgroup 1's sums in the scratch's rows).
   const bool owner = wc == 0 && t4 == 0;
   float m[2], s1[2] = {0.f, 0.f}, s2[2][T::ROWSUM ? C : 1], sv[NV][4];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int64_t r = row0 + lr[i];
-    const bool carried = T::CARRY && r < row_end;
+    const bool carried = r < row_end;
     m[i] = carried ? w.m_in[r] : NEG_INF;
     if (MODE != FAST_MMA && carried && owner) s1[i] = w.s1_in[r];
     if constexpr (T::ROWSUM) {
@@ -722,20 +720,12 @@ __global__ void __launch_bounds__(NT, 1) rows_kernel(
       for (int i = 0; i < 2; ++i) {
         const int64_t r = row0 + lr[i];
         if (r < row_end) {
-          if constexpr (T::CARRY) {
-            w.m_out[r] = m[i];
-            w.s1_out[r] = s1[i] + part_s[lr[i] * PW];
-            if constexpr (T::ROWSUM) {
+          w.m_out[r] = m[i];
+          w.s1_out[r] = s1[i] + part_s[lr[i] * PW];
+          if constexpr (T::ROWSUM) {
 #pragma unroll
-              for (int cc = 0; cc < C; ++cc)
-                w.s2_out[r * C + cc] = s2[i][cc] + part_s[lr[i] * PW + 1 + cc];
-            }
-          } else {
-            float* const o = part + (split * M + r) * (2 + C);
-            o[0] = m[i];
-            o[1] = s1[i] + part_s[lr[i] * PW];
-#pragma unroll
-            for (int cc = 0; cc < C; ++cc) o[2 + cc] = s2[i][cc] + part_s[lr[i] * PW + 1 + cc];
+            for (int cc = 0; cc < C; ++cc)
+              w.s2_out[r * C + cc] = s2[i][cc] + part_s[lr[i] * PW + 1 + cc];
           }
         }
       }
@@ -748,37 +738,64 @@ __global__ void __launch_bounds__(NT, 1) rows_kernel(
 }
 
 // Scratch layout (the wrapper allocates it, ops/flash_score.py
-// `scratch_numel`): the partials [nsplit][M][2 + c] float32 (HIGH_VPU;
-// MMAV keeps warpgroup 1's state rows [M][c] there), rounded up to 4
-// floats, then the planes qh, ql [M][dp] and kh, kl [P][dp] bf16. The
-// carried modes take split_rows >= P, one split.
-template <int C, int MODE>
-int launch(const void* q, const void* bias, const void* bank, const void* values,
-           float dotscale, int64_t M, int64_t rps, int64_t P, int d, const int* mask,
-           int64_t mask_stride, int* live, int* walked, void* scratch, int64_t split_rows,
-           const State& w, cudaStream_t stream) {
+// `scratch_numel`): the partials [nsplit][M][2 + c] float32 (K2's per-row
+// sums, `launch_ws`; MMAV keeps warpgroup 1's state rows [M][c] there),
+// rounded up to 4 floats, then the planes qh, ql [M][dp] and kh, kl [P][dp]
+// bf16.
+struct Scratch {
+  float* part;
+  uint32_t *qh, *ql, *kh, *kl;
+};
+
+// The passes before a launch's main loop, on the stream: the queries and
+// the chunk split into their planes in the scratch, and with per-seed
+// weights (live not null, K5) the seeds' live-tile flags
+inline cudaError_t split_inputs(const void* q, const void* bias, const void* bank, int64_t M,
+                                int64_t rps, int64_t P, int d, int c, int64_t nsplit,
+                                int* live, void* scratch, Scratch& sc, cudaStream_t stream) {
   static_assert(BP == SPLIT_TILE, "the live-tile flags are per SPLIT_TILE rows");
-  const int64_t nsplit = cdt_splitbank::n_splits(P, split_rows);
   const int dp = padded(d);
-  float* const part = (float*)scratch;
-  uint32_t* const qh = (uint32_t*)(part + (nsplit * M * (2 + w.c) + 3) / 4 * 4);
-  uint32_t* const ql = qh + M * dp / 2;
-  uint32_t* const kh = ql + M * dp / 2;
-  uint32_t* const kl = kh + P * dp / 2;
+  sc.part = (float*)scratch;
+  sc.qh = (uint32_t*)(sc.part + (nsplit * M * (2 + c) + 3) / 4 * 4);
+  sc.ql = sc.qh + M * dp / 2;
+  sc.kh = sc.ql + M * dp / 2;
+  sc.kl = sc.kh + P * dp / 2;
   constexpr int T = 256;
   auto blocks = [](int64_t n) {
     const int64_t b = (n + T - 1) / T;
     return (unsigned)(b < 132 * 16 ? (b > 0 ? b : 1) : 132 * 16);
   };
-  split_planes_kernel<<<blocks(M * dp / 2), T, 0, stream>>>((const float*)q, M, d, dp, qh, ql);
-  split_planes_kernel<<<blocks(P * dp / 2), T, 0, stream>>>((const float*)bank, P, d, dp, kh, kl);
+  split_planes_kernel<<<blocks(M * dp / 2), T, 0, stream>>>((const float*)q, M, d, dp, sc.qh,
+                                                           sc.ql);
+  split_planes_kernel<<<blocks(P * dp / 2), T, 0, stream>>>((const float*)bank, P, d, dp, sc.kh,
+                                                           sc.kl);
   cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess && live != nullptr)  // K5: the live-tile flags of the seeds
     err = cdt_splitbank::live_tiles<BP>(bias, M / rps, P, live, stream);
+  return err;
+}
+
+// This loop's modes take split_rows >= P, one split.
+template <int C, int MODE>
+int launch(const void* q, const void* bias, const void* bank, const void* values,
+           float dotscale, int64_t M, int64_t rps, int64_t P, int d, const int* mask,
+           int64_t mask_stride, int* live, int* walked, void* scratch, int64_t split_rows,
+           const State& w, cudaStream_t stream) {
+  const int64_t nsplit = cdt_splitbank::n_splits(P, split_rows);
+  const int dp = padded(d);
+  Scratch sc;
+  cudaError_t err =
+      split_inputs(q, bias, bank, M, rps, P, d, w.c, nsplit, live, scratch, sc, stream);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((rps + BQ - 1) / BQ), (unsigned)(M / rps), (unsigned)nsplit);
   const bool list = mask != nullptr || live != nullptr;
-  auto kernel = list ? rows_kernel<C, MODE, true> : rows_kernel<C, MODE, false>;
+  // this loop's instantiations (the warp-specialised loop's kernel is an
+  // overload of the same name)
+  using Kernel = void (*)(const uint32_t*, const uint32_t*, const uint32_t*, const uint32_t*,
+                          const float*, const float*, float, float*, int64_t, int64_t, int64_t,
+                          int, int64_t, const int*, int64_t, const int*, int*, State);
+  const Kernel kernel = list ? (Kernel)rows_kernel<C, MODE, true>
+                             : (Kernel)rows_kernel<C, MODE, false>;
   // LIST: room for the tile list of a split
   const size_t smem = Smem<C, MODE>::alloc +
       (list ? 4 * cdt_splitbank::split_tiles_ints<BP>(split_rows < P ? split_rows : P) : 0);
@@ -789,26 +806,40 @@ int launch(const void* q, const void* bias, const void* bank, const void* values
                                (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid, NT, smem, stream>>>(
-      qh, ql, kh, kl, (const float*)bias, (const float*)values, dotscale, part, M,
-      rps, P, dp, split_rows, mask, mask_stride, live, walked, w);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || MODE != HIGH_VPU) return (int)err;
-  return (int)cdt_splitbank::merge_splits(w.m_in, w.s1_in, w.s2_in, part, w.m_out, w.s1_out,
-                                          w.s2_out, M, (int)nsplit, C, stream);
+      sc.qh, sc.ql, sc.kh, sc.kl, (const float*)bias, (const float*)values, dotscale, sc.part,
+      M, rps, P, dp, split_rows, mask, mask_stride, live, walked, w);
+  return (int)cudaGetLastError();
 }
 
-// launch<c, MODE> for the per-row modes' c in 1 .. 8
+// K2's per-row sums (HIGH_VPU): the warp-specialised loop of
+// flash_score_split_ws.cuh, which K2's entry point includes; the arguments
+// are `launch`'s
+template <int C>
+int launch_ws(const void* q, const void* bias, const void* bank, const void* values,
+              float dotscale, int64_t M, int64_t rps, int64_t P, int d, const int* mask,
+              int64_t mask_stride, int* live, int* walked, void* scratch, int64_t split_rows,
+              const State& w, cudaStream_t stream);
+
+// the launch of mode MODE at c = C: HIGH_VPU on the warp-specialised loop,
+// the others on this one
+template <int C, int MODE, typename... A>
+int launch_mode(A... a) {
+  if constexpr (MODE == HIGH_VPU) return launch_ws<C>(a...);
+  else return launch<C, MODE>(a...);
+}
+
+// launch_mode<c, MODE> for the per-row modes' c in 1 .. 8
 template <int MODE, typename... A>
 int launch_c(int c, A... a) {
   switch (c) {
-    case 1: return launch<1, MODE>(a...);
-    case 2: return launch<2, MODE>(a...);
-    case 3: return launch<3, MODE>(a...);
-    case 4: return launch<4, MODE>(a...);
-    case 5: return launch<5, MODE>(a...);
-    case 6: return launch<6, MODE>(a...);
-    case 7: return launch<7, MODE>(a...);
-    case 8: return launch<8, MODE>(a...);
+    case 1: return launch_mode<1, MODE>(a...);
+    case 2: return launch_mode<2, MODE>(a...);
+    case 3: return launch_mode<3, MODE>(a...);
+    case 4: return launch_mode<4, MODE>(a...);
+    case 5: return launch_mode<5, MODE>(a...);
+    case 6: return launch_mode<6, MODE>(a...);
+    case 7: return launch_mode<7, MODE>(a...);
+    case 8: return launch_mode<8, MODE>(a...);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -183,6 +183,44 @@ __device__ __forceinline__ SplitTiles<BQ, BP, LIST> split_tiles(
   }
 }
 
+// The list `split_tiles` makes (LIST), built by the one warp that calls it
+// (the warp-specialised loop's producer warp, before its block's roles
+// split; no barrier inside): the entries into `list`, in order, 32 tiles a
+// ballot; returns their count to every lane. ROWS flag bits as there.
+template <int BQ, int BP>
+__device__ __forceinline__ int warp_list_tiles(const int* __restrict__ mask, int64_t stride,
+                                               const int* __restrict__ live, int64_t row0,
+                                               int64_t n_mask_rows, int64_t pt_begin,
+                                               int64_t pt_end, int* list) {
+  using T = SplitTiles<BQ, BP, true>;
+  constexpr int64_t PER = PRUNE_BLOCK / BP;
+  constexpr int NONE = (1 << T::ROWS) - 1;
+  const int nt = (int)(pt_end - pt_begin);
+  const int lane = threadIdx.x & 31;
+  int n = 0;
+  for (int base = 0; base < nt; base += 32) {
+    const int i = base + lane;
+    const int64_t pt = pt_begin + i;
+    int f = NONE;
+    if (i < nt) {
+      if (mask != nullptr) {
+        f = 0;
+#pragma unroll
+        for (int r = 0; r < T::ROWS; ++r) {
+          const int64_t mr = row0 / PRUNE_ROWS + r;
+          if (mr >= n_mask_rows || mask[mr * stride + pt / PER] != 0) f |= 1 << r;
+        }
+      } else {
+        f = live[pt] != 0 ? 0 : NONE;
+      }
+    }
+    const unsigned b = __ballot_sync(0xffffffffu, f != NONE);
+    if (f != NONE) list[n + __popc(b & ((1u << lane) - 1u))] = (int)pt * 4 + f;
+    n += __popc(b);
+  }
+  return n;
+}
+
 // Per-seed weights (K5): live[s * nt + t] = 1 where some entry of
 // bias[s, t BP .. min(P, t BP + BP)) lies above the -1e30 sentinel (a NaN
 // counts as live: the walk keeps what it cannot prove empty), else 0; nt =

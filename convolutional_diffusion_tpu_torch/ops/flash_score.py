@@ -232,10 +232,14 @@ def split_plan(P: int, precision: str = "highest", strategy: str = "vpu", c: int
     return [(p0, min(P, p0 + per)) for p0 in range(0, P, per)]
 
 
-def block_rows(name: str, fast_exp: bool) -> int:
-    """Query rows per thread block of kernel `name` (`_build.SPLIT_BQ`): K1
-    takes 64 with the bf16 exponential (one split: M = 8192 still fills the
-    card), 128 otherwise; the split-dot loop 64."""
+def block_rows(name: str, fast_exp: bool, split: bool) -> int:
+    """Query rows per thread block of kernel `name` (`_build.SPLIT_BQ`) in
+    a launch that splits the bank axis or not (`splits_bank`): K1 takes 64
+    with the bf16 exponential (one split: M = 8192 still fills the card),
+    128 otherwise; K2 128 in its per-row sums (the warp-specialised loop),
+    and in its wide modes the 'default' kernel's split-dot loop, 64."""
+    if name == KERNEL_OF["high"] and not split:
+        name = KERNEL_OF["default"]
     return _build.SPLIT_BQ[name + (BF16_EXP if name == KERNEL_OF["highest"] and fast_exp
                                    else "")]
 
@@ -248,7 +252,7 @@ def split_launch(name: str, M: int, rows_per_seed: int, P: int, precision: str,
     seed, seeds, splits)."""
     fast = precision == "default" if fast_exp is None else bool(fast_exp)
     plan = split_plan(P, precision, strategy, c, fast)
-    bq = block_rows(name, fast)
+    bq = block_rows(name, fast, splits_bank(precision, strategy, c, fast))
     return (plan[0][1] - plan[0][0], len(plan),
             (-(-rows_per_seed // bq), M // rows_per_seed, len(plan)))
 

@@ -38,11 +38,13 @@ the digests agree in every ROOT.
 
 --k2-variants: copies this checkout's port and chip_smoke.py into
 build/k2_variants/NAME/ for each entry of K2_VARIANTS, applies its edits to
-the split-dot main loop (`ops/csrc/flash_score_split_rows.cuh`), builds
-them in parallel, prints the count of ptxas's wgmma serialisation notes
-(C7514) and each main-loop instantiation's registers and spills, and times
-K2 in each (k = 3, 9, 17 and the bbELS center at k = 17), the variants in
-turn and then in reverse order.
+the warp-specialised loop of K2's per-row sums
+(`ops/csrc/flash_score_split_ws.cuh`), builds them in parallel, prints the
+count of ptxas's wgmma serialisation notes (C7514, C7515) and each main-loop
+instantiation's registers and spills, and times K2 in each (k = 3, 9, 17;
+the 32x32 bbELS center at k = 17; the 64x64 bbELS center, 4 seeds, at
+k = 3 and 27 over a random 65536-row chunk), the variants in turn and then
+in reverse order. `--one-k2 ROOT` times one checkout so.
 
 --k1-variants: the same for K1's main loop (`ops/csrc/flash_score.cu`,
 K1_VARIANTS), timing K1 unmasked, under a mask that skips nothing (the
@@ -70,28 +72,24 @@ from pathlib import Path
 
 KS = (3, 9, 13, 17)
 HERE = Path(__file__).resolve().parent
-K2_LOOP = "convolutional_diffusion_tpu_torch/ops/csrc/flash_score_split_rows.cuh"
-# name -> (old, new) text edits of K2_LOOP; "shipped" is the loop as it is
+K2_LOOP = "convolutional_diffusion_tpu_torch/ops/csrc/flash_score_split_ws.cuh"
+# name -> (old, new) text edits of K2_LOOP (the warp-specialised loop of
+# K2's per-row sums); "shipped" is the loop as it is
 K2_VARIANTS = {
     "shipped": [],
-    # the same loop on unswizzled 8-row x 16-byte core matrices
-    "unswizzled": [
-        ("return r * 64 + ((ch ^ ((r >> 1) & 3)) << 4);",
-         "return (r >> 3) * SBO + ch * 128 + (r & 7) * 16;"),
-        ("((uint64_t)1 << 16) |\n         ((uint64_t)(SBO >> 4) << 32) | ((uint64_t)2 << 62);",
-         "((uint64_t)(128 >> 4) << 16) |\n         ((uint64_t)(SBO >> 4) << 32);"),
-        ("plane * S::Q + ks * 32", "plane * S::Q + ks * 256"),
-        ("wc * 8 * SBO + ks * 32", "wc * 8 * SBO + ks * 256"),
-    ],
+    # registers: a producer of 40, consumers of 232
+    "regs232": [("PRODUCER_REGS = 24, CONSUMER_REGS = 240",
+                 "PRODUCER_REGS = 40, CONSUMER_REGS = 232")],
     # ablations (wrong numbers, timing only): the hi.hi sum a plain add, no
-    # cross-term products, no hi.hi product; and one ring slot fewer
-    "no_twosum": [("      acc_hh[i] = two_sum(acc_hh[i], h[i], err);\n      h[i] = err;",
-                   "      acc_hh[i] = __fadd_rn(acc_hh[i], h[i]);\n      h[i] = 0.f;\n"
-                   "      (void)err;")],
-    "no_cross": [("    wgmma64(acc_x, qdesc(st, 0, ks), kdesc(st, 1, ks), 1);\n"
-                  "    wgmma64(acc_x, qdesc(st, 1, ks), kdesc(st, 0, ks), 1);\n", "")],
-    "no_hh": [("    wgmma64(hn, qdesc(nst, 0, nks), kdesc(nst, 0, nks), 0);\n", "")],
+    # cross-term products, no hi.hi products; and a ring slot fewer or more
+    "no_twosum": [("      S[32 * h + i] = two_sum(S[32 * h + i], H[i], err);",
+                   "      S[32 * h + i] = __fadd_rn(S[32 * h + i], H[i]);\n      err = 0.f;")],
+    "no_cross": [("        wgmma128(X, qd(cur, 0, ks), kd(cur, 1, ks, 0), 1);\n"
+                  "        wgmma128(X, qd(cur, 1, ks), kd(cur, 0, ks, 0), 1);\n", "")],
+    "no_hh": [("    wgmma64_zero(H, qd(s, 0, ks), kd(s, 0, ks, h));\n", ""),
+              ("        wgmma64_zero(H, qd(ns, 0, nks), kd(ns, 0, nks, 0));\n", "")],
     "stages4": [("constexpr int STAGES = 5;", "constexpr int STAGES = 4;")],
+    "stages6": [("constexpr int STAGES = 5;", "constexpr int STAGES = 6;")],
 }
 K1_LOOP = "convolutional_diffusion_tpu_torch/ops/csrc/flash_score.cu"
 # name -> (old, new) text edits of K1_LOOP; "shipped" is the loop as it is
@@ -224,6 +222,20 @@ def _no_skip(cs, q, rest):
                        device="cuda")
 
 
+def _random(cs, M: int, P: int, d: int):
+    """Queries [M, d] and the sweep's other arguments over a random chunk of
+    P rows (timing only: the kernels' work does not depend on the values)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(M + d)
+    beta = cs.cosine_noise_schedule(0.5)
+    p = torch.randn(P, d, generator=gen, device="cuda")
+    ctr = torch.randn(P, 3, generator=gen, device="cuda")
+    w = torch.full((P,), 1.0 / P, device="cuda")
+    q = torch.randn(M, d, generator=gen, device="cuda")
+    return q, (p, (p * p).sum(-1), ctr, w, torch.sqrt(1.0 - beta), torch.sqrt(beta))
+
+
 def one_k2(root: str) -> dict:
     cs, images, gen, _ = _setup(root)
     out = {}
@@ -232,6 +244,9 @@ def one_k2(root: str) -> dict:
         out[f"K2 k={k}"] = _ms(cs, xq, rest, "high", best_of=2)
         if k == 17:
             out[f"K2 bbELS center k={k}"] = _ms(cs, xc, rest, "high", best_of=2)
+    for k in (3, 27):  # the 64x64 bbELS centre: 4 seeds of (65 - k)^2 windows
+        q, rest = _random(cs, 4 * (65 - k) ** 2, 65536, 3 * k * k)
+        out[f"K2 bbELS64 center k={k}"] = _ms(cs, q, rest, "high", best_of=2)
     return {"ms": out, "digest": {}}
 
 
@@ -327,7 +342,7 @@ def variants(tag: str, table: dict, loop: str, kernel: str, mode: str) -> int:
             [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
              "import chip_smoke as cs; from convolutional_diffusion_tpu_torch.ops import _build; "
              f"log = _build.build({kernel!r}).log; t = cs.ptxas_table(log); "
-             "print('C7514 notes', log.count('C7514')); "
+             "print('C751x notes', log.count('(C7514)') + log.count('(C7515)')); "
              "[print(e, r, st, ld) for (_, r, st, ld, _), e in "
              "zip(t, cs.demangle([x[0] for x in t])) if 'rows_kernel' in e]", str(root)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
@@ -338,9 +353,9 @@ def variants(tag: str, table: dict, loop: str, kernel: str, mode: str) -> int:
             return 1
         for line in log.splitlines():
             words = line.split()
-            if line.startswith("C7514"):
-                print(f"[{tag}] {name}: ptxas wgmma serialisation notes (C7514): {words[-1]}",
-                      flush=True)
+            if line.startswith("C751x"):
+                print(f"[{tag}] {name}: ptxas wgmma serialisation notes (C7514, C7515): "
+                      f"{words[-1]}", flush=True)
             elif "rows_kernel" in line:
                 print(f"[{tag}] {name} {' '.join(words[:-3])}: {words[-3]} registers, spill "
                       f"stores {words[-2]} bytes, loads {words[-1]} bytes", flush=True)

@@ -731,6 +731,154 @@ def test_moved_variants_logits_are_the_parents(c):
 
 
 
+
+# --- K2's per-row sums on the warp-specialised loop -----------------------------
+# (128-row query blocks of two consumer warpgroups, TMA staging), at the bbELS
+# centre's shapes: d = 3 k^2 and M = 4 (65 - k)^2 query rows, ragged against
+# the blocks, over a chunk of three splits ragged against the 128-row tile.
+
+
+def _centre(k, seed, dev, c=3):
+    """The bbELS centre's sweep at k: inputs (`_case`) and a carried state
+    with sentinel rows (the plain sweep over the chunk's first 500 rows,
+    every seventh row reset to the empty state)."""
+    M, d, P = 4 * (65 - k) ** 2, 3 * k * k, SPLIT_P
+    q, qn, bank, pn, values, w = _case(M, d, P, c, seed=seed, dev=dev)
+    state = tuple(x.clone() for x in tfs.flash_score_update_plain(
+        q, qn, bank[:500], pn[:500], values[:500], w[:500], 0.8, 0.6, _empty(M, c, dev),
+        precision="high"))
+    state[0][::7], state[1][::7], state[2][::7] = tfs.NEG_INF, 0.0, 0.0
+    return (q, qn, bank, pn, values, w), state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 5, 9, 27])
+def test_k2_loop_at_the_bbels_centre(k):
+    """One 'high' launch (K2, and only K2) from a carried state against the
+    plain version."""
+    dev = _need_cuda()
+    inputs, state = _centre(k, 100 + k, dev)
+    M, P = inputs[0].shape[0], inputs[2].shape[0]
+    assert P % 128 != 0 and len(tfs.split_plan(P, "high")) == 3
+    args = (*inputs, 0.8, 0.6, state)
+    before = dict(tfs.flash_score_update.launches)
+    got = tfs.flash_score_update(*args, precision="high")
+    torch.cuda.synchronize()
+    assert tfs.flash_score_update.launches == {
+        **before, "flash_score_bf16x3": before["flash_score_bf16x3"] + 1}
+    _assert_close(got, tfs.flash_score_update_plain(*args, precision="high"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [5, 27])
+def test_k2_loop_chains_and_keeps_an_excluded_chunk(k):
+    """Two launches over the chunk's halves (cut off the tile) chain to the
+    launch over the whole, from a carried state with sentinel rows; a chunk
+    whose weights are all zero leaves s1 and s2 bit for bit."""
+    dev = _need_cuda()
+    (q, qn, bank, pn, values, w), state = _centre(k, 200 + k, dev)
+    cut = 4096 + 300
+    kw = dict(precision="high")
+    whole = tfs.flash_score_update(q, qn, bank, pn, values, w, 0.8, 0.6, state, **kw)
+    half = tfs.flash_score_update(q, qn, bank[:cut], pn[:cut], values[:cut], w[:cut], 0.8,
+                                  0.6, state, **kw)
+    chained = tfs.flash_score_update(q, qn, bank[cut:], pn[cut:], values[cut:], w[cut:],
+                                     0.8, 0.6, half, **kw)
+    _assert_close(chained, whole)
+    same = tfs.flash_score_update(q, qn, bank, pn, values, torch.zeros_like(w), 0.8, 0.6,
+                                  whole, **kw)
+    assert torch.equal(same[1], whole[1]) and torch.equal(same[2], whole[2])
+    torch.testing.assert_close(same[0], whole[0], rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 9])
+def test_k2_loop_per_seed_labels(k):
+    """K5 on the loop: 8 seeds of the centre's rows, seed s admitting the
+    bank rows of label s (images of 300 rows, label = image % 10), against
+    the plain version; and two seeds' rows equal their one-seed launches bit
+    for bit."""
+    dev = _need_cuda()
+    rps = (65 - k) ** 2
+    M, d, P, c, S = 8 * rps, 3 * k * k, SPLIT_P, 3, 8
+    q, qn, bank, pn, values, w = _case(M, d, P, c, seed=300 + k, dev=dev)
+    label = (torch.arange(P, device=dev) // 300) % 10
+    w2 = torch.stack([w * (label == s) for s in range(S)])
+    kw = dict(precision="high", rows_per_seed=rps)
+    args = (q, qn, bank, pn, values, w2, 0.8, 0.6, _empty(M, c, dev))
+    before = tfs.flash_score_update.launches["flash_score_bf16x3/per_seed"]
+    got = tfs.flash_score_update(*args, **kw)
+    torch.cuda.synchronize()
+    assert tfs.flash_score_update.launches["flash_score_bf16x3/per_seed"] == before + 1
+    _assert_close(got, tfs.flash_score_update_plain(*args, **kw))
+    for s in (0, S - 1):
+        r = slice(s * rps, (s + 1) * rps)
+        one = tfs.flash_score_update(q[r], qn[r], bank, pn, values, w2[s].contiguous(), 0.8,
+                                     0.6, _empty(rps, c, dev), precision="high")
+        assert all(torch.equal(a[r], b) for a, b in zip(got, one))
+
+
+@pytest.mark.cuda
+def test_k2_loop_under_a_mask():
+    """K6 on the loop: a 128-row block spans two mask rows, and a tile that
+    only one of them keeps is walked by that row's warpgroup alone (M = 64 x
+    37, ragged against the blocks; cells skipped by one row, by both, by
+    none), against the plain version; a block whose rows skip every tile
+    keeps its state bit for bit."""
+    dev = _need_cuda()
+    M, d, P, c = 64 * 37, 75, SPLIT_P, 3
+    q, qn, bank, pn, values, w = _case(M, d, P, c, seed=400, dev=dev)
+    mask = torch.zeros(tfs.prune_grid(M, P), dtype=torch.int32, device=dev)
+    mask[::2, ::2] = 1  # the first row of each block skips every other cell
+    mask[1::4, 1] = 1  # and the second row of every other block one more
+    mask[4:6] = 1  # block 2 skips every tile
+    state = tuple(x.clone() for x in tfs.flash_score_update_plain(
+        q, qn, bank[:500], pn[:500], values[:500], w[:500], 0.8, 0.6, _empty(M, c, dev),
+        precision="high"))
+    state[0][::7], state[1][::7], state[2][::7] = tfs.NEG_INF, 0.0, 0.0
+    args = (q, qn, bank, pn, values, w, 0.8, 0.6, state)
+    before = tfs.flash_score_update.launches["flash_score_bf16x3/prune"]
+    got = tfs.flash_score_update(*args, precision="high", prune_mask=mask)
+    torch.cuda.synchronize()
+    assert tfs.flash_score_update.launches["flash_score_bf16x3/prune"] == before + 1
+    _assert_close(got, tfs.flash_score_update_plain(*args, precision="high", prune_mask=mask))
+    rows = slice(4 * tfs.PRUNE_ROWS, 6 * tfs.PRUNE_ROWS)
+    got_k = tfs.sweep_kernel(q, torch.zeros(P, device=dev), bank, values, 0.1,
+                             *(x.contiguous() for x in state), precision="high",
+                             prune_mask=mask)
+    assert all(torch.equal(a[rows], b[rows]) for a, b in zip(got_k, state))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_seed", [False, True])
+def test_k2_launch_kernels_are_the_split_families(per_seed):
+    """The benchmark's trace reader finds K2 by its kernels' names: every
+    kernel one 'high' launch runs (the pre-split, the live-tile pass with
+    per-seed weights, the loop, the merge pass) falls in the family
+    'split' (1-D weights) or 'split_list' (K5) of
+    `port_bench.devtrace.families`."""
+    from port_bench import devtrace
+
+    dev = _need_cuda()
+    M, d, P, c = 512, 27, SPLIT_P, 3
+    args, _ = _kernel_args(M, d, P, c, 17, dev, "vpu")
+    q, bias, bank, values, ds = args
+    if per_seed:
+        bias = torch.stack([bias, bias.flip(0)])
+    empty = _empty(M, c, dev)
+    tfs.sweep_kernel(q, bias, bank, values, ds, *empty, precision="high")
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        tfs.sweep_kernel(q, bias, bank, values, ds, *empty, precision="high")
+        torch.cuda.synchronize()
+    device = devtrace.collect(prof).device
+    fams = devtrace.families(device)
+    want = "split_list" if per_seed else "split"
+    assert [op.name for op in device if "rows_kernel" in op.name]
+    assert all(f == want for f in fams), list(zip([op.name for op in device], fams))
+
+
 # --- the sweep wrapper enqueues without waiting --------------------------------
 
 

@@ -64,9 +64,10 @@ def test_split_plan_variants(precision, strategy, c, fast, split):
 @pytest.mark.parametrize("name,precision,M,rps,grid", [
     ("flash_score", "highest", 8192, 8192, (64, 1, 16)),
     ("flash_score", "highest", 8192, 1024, (8, 8, 16)),
-    ("flash_score_bf16x3", "high", 8192, 8192, (128, 1, 16)),
-    ("flash_score_bf16x3", "high", 2048, 2048, (32, 1, 16)),
-    ("flash_score_bf16x3", "high", 8 * 784, 784, (13, 8, 16)),
+    ("flash_score_bf16x3", "high", 8192, 8192, (64, 1, 16)),
+    ("flash_score_bf16x3", "high", 2048, 2048, (16, 1, 16)),
+    ("flash_score_bf16x3", "high", 8 * 784, 784, (7, 8, 16)),
+    ("flash_score_bf16x3", "high", 4 * 62 ** 2, 4 * 62 ** 2, (121, 1, 16)),
 ])
 def test_split_launch_grid(name, precision, M, rps, grid):
     """One function gives a launch's split rows, split count and grid: the
@@ -104,13 +105,34 @@ def test_split_launch_wide_grid(precision, strategy, c, grid):
 
 
 def test_block_rows_are_the_kernels():
-    """The grid's block rows: K1 128 (64 with the bf16 exponential), the
-    split-dot loop 64 for K2 and the 'default' kernel alike (one loop, one
-    -D flag)."""
-    assert fs.block_rows("flash_score", False) == 128
-    assert fs.block_rows("flash_score", True) == 64
-    assert fs.block_rows("flash_score_bf16x3", False) == fs.block_rows(
-        "flash_score_fast", True) == 64
+    """The grid's block rows: K1 128 (64 with the bf16 exponential, one
+    split), K2's per-row sums 128 (the warp-specialised loop), and the
+    split-dot loop 64 for the 'default' kernel and K2's wide modes alike
+    (one loop, one -D flag)."""
+    assert fs.block_rows("flash_score", False, True) == 128
+    assert fs.block_rows("flash_score", True, False) == 64
+    assert fs.block_rows("flash_score_bf16x3", False, True) == 128
+    assert fs.block_rows("flash_score_bf16x3", False, False) == fs.block_rows(
+        "flash_score_fast", True, False) == 64
+
+
+@pytest.mark.parametrize("precision,strategy,c,fast,rows", [
+    ("high", "vpu", 3, None, 128), ("high", "vpu", 8, None, 128),
+    ("default", "vpu", 3, False, 128),  # routes to K2's per-row sums
+    ("high", "mxu", 16, None, 64), ("high", "inbank", 3, None, 64),
+    ("high", "vpu", 9, None, 64), ("high", "mxu", 3, None, 64),
+    ("default", "vpu", 3, None, 64), ("default", "mxu1", 3, None, 64),
+    ("default", "inbank", 3, None, 64), ("default", "mxu", 16, None, 64),
+])
+def test_block_rows_follow_the_loop(precision, strategy, c, fast, rows):
+    """A launch's block rows follow the loop its mode runs: K2's per-row
+    sums ('vpu', c <= 8, the fp32 exp2) take the warp-specialised loop's
+    128, K2's wide modes ('mxu', 'inbank', c > 8) and the 'default' kernel
+    the split-dot loop's 64, at any chunk length."""
+    name = fs.KERNEL_OF[fs._route(precision, precision == "default" if fast is None else fast)]
+    for P in (1000, 65536):
+        _, _, grid = fs.split_launch(name, 8192, 8192, P, precision, strategy, c, fast)
+        assert grid[0] == 8192 // rows
 
 
 def test_split_plan_ignores_queries_seeds_and_masks():
