@@ -523,20 +523,23 @@ def value_kw(precision: str, k: int, c: int = 3) -> dict:
     return els_value_kw(precision, k * k * c, center_index(k, c).start, c)
 
 
-def module_strategy(precision: str, k: int, c: int = 3) -> str:
-    """The value strategy of an ELS module sweep over one TARGET_BLOCK chunk
-    at k: 'inbank' where the ELS rule takes it, else what 'auto' takes
-    ('vpu' for c <= 8, 'mxu' above)."""
-    return value_kw(precision, k, c).get(
-        "v_strategy", "vpu" if c <= fs.MAX_CHANNELS else "mxu")
+def kw_plan(kw, M, P, d, c=3, prune=False):
+    """`fs.sweep_plan` of `fs.flash_score_update` with keywords `kw` on M
+    query rows of d features against P bank rows with c value channels (a
+    prune mask where `prune`)."""
+    rps = kw.get("rows_per_seed")
+    return fs.sweep_plan(kw["precision"], kw.get("fast_exp"), kw.get("v_strategy", "auto"), c,
+                         M, rps or M, P, d, rps is not None, prune, kw.get("inbank_cols"))
 
 
-def launch_key(precision: str, k: int, per_seed: bool = False,
-               prune: bool = False, c: int = 3) -> str:
-    """The launch-count key of a module sweep at k (kernel, strategy,
-    per-seed or prune suffix)."""
-    return fs.launch_key(precision, module_strategy(precision, k, c),
-                         per_seed=per_seed, prune=prune)
+def module_plan(precision: str, k: int, per_seed: bool = False, prune: bool = False,
+                c: int = 3):
+    """`fs.sweep_plan` of an ELS module sweep at k over one TARGET_BLOCK
+    chunk (SEEDS seeds of 32 x 32 query rows)."""
+    kw = dict(precision=precision, **value_kw(precision, k, c))
+    if per_seed:
+        kw["rows_per_seed"] = 32 * 32
+    return kw_plan(kw, SEEDS * 32 * 32, TARGET_BLOCK, k * k * c, c, prune)
 
 
 def replaces(name: str) -> str:
@@ -712,15 +715,10 @@ def library_time(tag, key, k, args, kw, c, plain_out, rows=None, ref="the plain 
     return ms
 
 
-def grid_line(name, M, P, kw, c=3, rps=None) -> str:
-    """The split plan and grid a launch of kernel `name` takes."""
-    fast = kw.get("fast_exp")
-    fast = kw["precision"] == "default" if fast is None else fast
-    split_rows, nsplit, grid = fs.split_launch(
-        name, M, rps or M, P, fs._route(kw["precision"], fast), kw.get("v_strategy", "vpu"),
-        c, fast)
-    return (f"{nsplit} splits of {split_rows} bank rows, grid {grid} = "
-            f"{math.prod(grid)} blocks")
+def grid_line(plan) -> str:
+    """The splits and grid of a launch's plan."""
+    return (f"{len(plan.splits)} splits of {plan.splits[0][1]} bank rows, grid {plan.grid} = "
+            f"{math.prod(plan.grid)} blocks")
 
 
 def check_logits(key, k, t, args, kw, c=3):
@@ -766,19 +764,19 @@ def check_logits(key, k, t, args, kw, c=3):
         fail(f"{key}'s logits moved at k={k} t={t}")
 
 
-def bound(M: int, P: int, d: int, c: int, precision: str, S: int = 1,
-          strategy: str = "vpu", fast=None, live=None):
+def bound(plan, M: int, P: int, d: int, S: int = 1, live=None):
     """Least time on the card: the larger of the operations over their
     peaks and the bytes over the memory rate (each input read once, each
     output written once). Three units run side by side, and the busiest
     sets the bound: the fp32 pipe, the tensor cores and the SFU, which
     takes one exponential per pair (M P exp2 at SFU_RATE). Only the work the
     function needs is counted, never the padding a kernel's tiles add.
-    'highest': 2 M P d for the fp32 dots plus (6 + 2c) per pair for logit,
-    max, exp2 and the sums at the fp32 peak. 'high': the three bf16
+    The sweep's `plan` gives the tier, the value strategy, the exponential
+    and c. 'highest': 2 M P d for the fp32 dots plus (6 + 2c) per pair for
+    logit, max, exp2 and the sums at the fp32 peak. 'high': the three bf16
     products, 3 * 2 M P d, at the bf16 tensor-core peak, and the per-pair
-    work at the fp32 peak. The bf16 exponential (`fast`, default:
-    precision == 'default') adds the ln 2 multiply per pair. The value
+    work at the fp32 peak. The bf16 exponential adds the ln 2 multiply per
+    pair. The value
     sums: 'vpu' 2 c per pair on the fp32 pipe; 'mxu' the product e @ V,
     2 M P c, on the fp32 pipe after the fp32 exp2 and on the bf16 tensor
     cores with the bf16 exponential; 'mxu1' the product e @ [V | 1],
@@ -791,7 +789,7 @@ def bound(M: int, P: int, d: int, c: int, precision: str, S: int = 1,
     `fs.live_tiles_plain`, scales the operations by the live pairs' share
     and the bank and value bytes by the share of tiles some seed admits;
     the weight bytes are S * P. Without `live`, every pair counts."""
-    fast = precision == "default" if fast is None else fast
+    precision, strategy, fast, c = plan.tier, plan.strategy, plan.fast, plan.c
     elem = (6 + (1 if fast else 0)) * M * P  # logit, max, sums; ln 2 multiply
     tc = 0 if precision == "highest" else 3 * 2 * M * P * d
     if precision == "highest":
@@ -827,9 +825,8 @@ def walk_check(tag, key, k, args, kw, c=3):
         *args, empty_state(args[0].shape[0], c), **kw)
     M, P = q.shape[0], bank.shape[0]
     S = bias.shape[0]
-    name = fs.KERNEL_OF[k_["precision"]]
-    split_rows, nsplit, grid = fs.split_launch(name, M, M // S, P, k_["precision"],
-                                               k_["strategy"], c, k_["fast_exp"])
+    plan = kw_plan(kw, M, P, q.shape[1], c)
+    split_rows, nsplit, grid = plan.splits[0][1], len(plan.splits), plan.grid
     counts = torch.full((math.prod(grid),), -1, dtype=torch.int32, device="cuda")
     fs.sweep_kernel(q, bias, bank, values, dotscale, *empty_state(M, c), **k_,
                     tile_counts=counts)
@@ -1039,13 +1036,13 @@ def phase_kernel(images_dev, n_bank, gen):
             outs = {}
             for name, prec in TIER_OF.items():
                 for vkw in variants[name]:
-                    strategy = vkw.get("v_strategy", "vpu")
-                    key = name + fs.STRATEGY_SUFFIX[strategy]
+                    kw = dict(precision=prec, **vkw)
+                    plan = kw_plan(kw, M, P, g.d)
+                    key = plan.key
                     rec = recs.setdefault(key, {"max_abs_err": 0.0})
-                    vals = None if strategy == "inbank" else ctr
+                    vals = None if plan.strategy == "inbank" else ctr
                     args = (xq, qn, p, pn, vals, w, at, bt)
                     cargs = (xc, (xc * xc).sum(-1), *args[2:])
-                    kw = dict(precision=prec, **vkw)
                     if checked[name]:
                         got = fs.flash_score_update(*args, empty_state(M, c), **kw)
                         want = fs.flash_score_update_plain(*args, empty_state(M, c), **kw)
@@ -1088,11 +1085,11 @@ def phase_kernel(images_dev, n_bank, gen):
                     plain_ms, plain_out = plain_time(
                         prec, lambda: fs.flash_score_update_plain(*args, empty_state(M, c), **kw))
                     lib_ms = library_time("kernel", key, k, args, kw, c, plain_out)
-                    b_ms, b_by = bound(M, P, g.d, c, prec, strategy=strategy)
+                    b_ms, b_by = bound(plan, M, P, g.d)
                     line = (f"[kernel] {key} k={k} d={g.d} M={M} P={P}: kernel {ms:.3f} ms, "
                             f"plain {plain_ms:.3f} ms, library {lib_ms:.3f} ms, bound "
                             f"{b_ms:.3f} ms ({b_by}), {b_ms / ms:.1%} of bound")
-                    line += f"; {grid_line(name, M, P, kw)}"
+                    line += f"; {grid_line(plan)}"
                     if prec == "highest":
                         with true_fp32():
                             mm_ms = cuda_ms(lambda: torch.matmul(xq, p.T), 5)
@@ -1115,7 +1112,7 @@ def phase_kernel(images_dev, n_bank, gen):
                 print(f"[kernel] tier gap k={k} t={t}, K2 'high' vs K1 'highest' "
                       f"(information, not a gate): lse rel {e_lse:.2e}, mean rel "
                       f"{e_mean:.2e}", flush=True)
-                fast = outs.get(launch_key("default", k))
+                fast = outs.get(module_plan("default", k).key)
                 if fast is not None:
                     e_lse, e_mean, _ = compare(fast, outs["flash_score_bf16x3"])
                     print(f"[kernel] tier gap k={k} t={t}, 'default' vs K2 'high' "
@@ -1161,7 +1158,7 @@ def phase_mxu1_kernel(images_dev, n_bank, gen, recs):
     lib_ms = library_time("mxu1", key, k, args, dict(precision="default"), c, plain_out)
     vpu_ms = cuda_ms(lambda: fs.flash_score_update(
         *args, empty_state(M, c), precision="default", v_strategy="vpu"), 5)
-    b_ms, b_by = bound(M, P, g.d, c, "default", strategy="mxu1")
+    b_ms, b_by = bound(kw_plan(dict(precision="default"), M, P, g.d), M, P, g.d)
     print(f"[mxu1] {key} k={k} d={g.d} M={M} P={P}: kernel {ms:.3f} ms, plain "
           f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), {b_ms / ms:.1%} of bound; "
           f"'vpu' on the same inputs (information) {vpu_ms:.3f} ms", flush=True)
@@ -1217,7 +1214,7 @@ def phase_kernel_per_seed(images_dev, labels_dev, n_bank, gen):
             qn = (xq * xq).sum(-1)
             for name, prec in TIER_OF.items():
                 vkw = value_kw(prec, k)
-                key = launch_key(prec, k, per_seed=True)
+                key = module_plan(prec, k, per_seed=True).key
                 vals = None if vkw else ctr
                 v = (lambda a, b: None) if vals is None else (lambda a, b: vals[a:b])
                 args = (xq, qn, p, pn, vals, w, at, bt)
@@ -1291,10 +1288,10 @@ def phase_kernel_per_seed(images_dev, labels_dev, n_bank, gen):
 
                 grouped_ms = cuda_ms(grouped, 3)
                 live = walk_check("k5", key, k, args, kw)
-                strategy = vkw.get("v_strategy", "vpu")
-                b_ms, b_by = bound(M, P, g.d, c, prec, S=SEEDS, strategy=strategy, live=live)
-                all_ms, _ = bound(M, P, g.d, c, prec, S=SEEDS, strategy=strategy)
-                grid = f"; {grid_line(fs.KERNEL_OF[prec], M, P, kw, rps=rps)}"
+                plan = kw_plan(kw, M, P, g.d)
+                b_ms, b_by = bound(plan, M, P, g.d, S=SEEDS, live=live)
+                all_ms, _ = bound(plan, M, P, g.d, S=SEEDS)
+                grid = f"; {grid_line(plan)}"
                 print(f"[k5] {key} k={k} d={g.d} M={M} P={P}: kernel {ms:.3f} ms, "
                       f"plain {plain_ms:.3f} ms, library {lib_ms:.3f} ms, bound of the live "
                       f"pairs {b_ms:.3f} ms ({b_by}), {b_ms / ms:.1%} of it; all-pairs bound "
@@ -1310,7 +1307,7 @@ def phase_kernel_per_seed(images_dev, labels_dev, n_bank, gen):
 def prune_variants(k: int):
     """(launch key, keywords) of each kernel with a prune mask at k: K1, K2
     and the 'default' kernel in the variant the ELS module takes at k."""
-    return [(launch_key(prec, k, prune=True), dict(precision=prec, **value_kw(prec, k)))
+    return [(module_plan(prec, k, prune=True).key, dict(precision=prec, **value_kw(prec, k)))
             for prec in ("highest", "high", "default")]
 
 
@@ -1362,7 +1359,7 @@ def time_masked(tag, key, k, what, args, M, P, d, mask, kw, rec, c=3):
     # the yardstick computes the unmasked function (a per-key bias cannot
     # skip per query block), within the 1e-5 masked-vs-unmasked gate here
     lib_ms = library_time(tag, key, k, args, kw, c, plain_out)
-    b_ms, b_by = bound(M, P, d, c, kw["precision"], strategy=kw.get("v_strategy", "vpu"))
+    b_ms, b_by = bound(kw_plan(kw, M, P, d, c, prune=True), M, P, d)
     b_ms *= 1.0 - skip
     print(f"[{tag}] {key} k={k} d={d} M={M} P={P} {what}: {skip:.2%} skipped; kernel "
           f"{ms:.3f} ms with the mask, {ms_full:.3f} ms without ({ms / ms_full:.3f}x; "
@@ -1603,18 +1600,15 @@ def variant_time(tag, key, k, args, M, P, d, c, kw, rec, rows=None, S=1, rps=Non
     ms (over `rows` where given, scaled to M rows: information) and the
     bound of the function's work (K5: of the `live` pairs'); into `rec`."""
     ms = cuda_ms(lambda: fs.flash_score_update(*args, empty_state(M, c), **kw), 5)
-    fast = kw.get("fast_exp")
-    fast = kw["precision"] == "default" if fast is None else fast
-    if kw["precision"] == "highest" and not fast:
+    plan = kw_plan(kw, M, P, d, c)
+    if plan.tier == "highest" and not plan.fast:
         rows = None  # the plain version's own (BLAS) time over all rows
     plain_ms, plain_out = plain_time(kw["precision"] if rows is None else "high",
                                      lambda: plain_on(rows, args, empty_state(M, c), kw, rps))
     lib_ms = library_time(tag, key, k, args, kw, c, plain_out, rows)
     if rows is not None:
         plain_ms *= M / rows.numel()
-    b_ms, b_by = bound(M, P, d, c, fs._route(kw["precision"], fast), S=S,
-                       strategy=kw.get("v_strategy", "mxu" if c > fs.MAX_CHANNELS else "vpu"),
-                       fast=fast, live=live)
+    b_ms, b_by = bound(plan, M, P, d, S=S, live=live)
     print(f"[{tag}] {key} k={k} d={d} M={M} P={P} c={c}: kernel {ms:.3f} ms, plain "
           f"{plain_ms:.3f} ms{'' if rows is None else ' (row subset, scaled)'}, library "
           f"{lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), {b_ms / ms:.1%} of bound",
@@ -1640,14 +1634,6 @@ def chunk_inputs(images, k, t, gen):
         imgs[:SEEDS].shape, generator=gen, device="cuda")
     xq = extract_patches(pad_image(x, k // 2, "circular"), k).reshape(M, g.d)
     return (xq, (xq * xq).sum(-1), p, pn, ctr, w, at, bt), g
-
-
-def vkey(kw):
-    """The launch key of flash_score_update keywords `kw` (1-D weights)."""
-    fast = kw.get("fast_exp")
-    fast = kw["precision"] == "default" if fast is None else fast
-    strategy = kw.get("v_strategy", "mxu")
-    return fs.launch_key(fs._route(kw["precision"], fast), strategy, fast)
 
 
 def variant_kw(precision, strategy, k, c, fast=None):
@@ -1678,7 +1664,8 @@ def phase_variants(images_dev, images16_dev, gen):
             M, P = args[0].shape[0], args[2].shape[0]
             for precision in ("highest", "high", "default"):
                 kw = dict(precision=precision)  # 'auto' takes 'mxu' at c = 16
-                key = vkey(kw)
+                plan = kw_plan(kw, M, P, g.d, WIDE_C)
+                key = plan.key
                 rec = recs.setdefault(key, {"max_abs_err": 0.0})
                 rows = row_subset(M) if g.d >= SUBSET_FROM_D else None
                 if k in CHECKED_K:
@@ -1698,8 +1685,7 @@ def phase_variants(images_dev, images16_dev, gen):
                         got = fs.flash_score_update(*args, empty_state(M, WIDE_C), **kw)
                         lib_ms = library_time("variants", key, k, args, kw, WIDE_C, got,
                                               ref="the kernel")
-                        b_ms, b_by = bound(M, P, g.d, WIDE_C, fs._route(precision, precision == "default"),
-                                           strategy="mxu", fast=precision == "default")
+                        b_ms, b_by = bound(plan, M, P, g.d)
                         print(f"[variants] {key} k={k} d={g.d} M={M} P={P} c={WIDE_C}: "
                               f"kernel {wide_ms[key][k]:.3f} ms, library {lib_ms:.3f} ms, "
                               f"bound {b_ms:.3f} ms ({b_by}), {b_ms / wide_ms[key][k]:.1%} of "
@@ -1712,7 +1698,7 @@ def phase_variants(images_dev, images16_dev, gen):
         args, g = chunk_inputs(imgs, 3, 0.5, gen)
         for precision in ("highest", "high", "default"):
             kw = dict(precision=precision, v_strategy="mxu")
-            key = vkey(kw)
+            key = kw_plan(kw, args[0].shape[0], args[2].shape[0], g.d, c).key
             variant_case("variants", key, f"3 c={c}", 0.5, args, args[0].shape[0], c, kw,
                          recs.setdefault(key, {"max_abs_err": 0.0}))
         del args, imgs
@@ -1720,7 +1706,7 @@ def phase_variants(images_dev, images16_dev, gen):
     M, P = args[0].shape[0], args[2].shape[0]
     for precision in ("highest", "high", "default"):
         kw = dict(precision=precision, v_strategy="mxu")
-        key = vkey(kw)
+        key = kw_plan(kw, M, P, g.d).key
         got = variant_case("variants", key, "3 c=3", 0.5, args, M, 3, kw,
                            recs.setdefault(key, {"max_abs_err": 0.0}))
         vpu = fs.flash_score_update(*args, empty_state(M, 3), precision=precision,
@@ -1738,7 +1724,7 @@ def phase_variants(images_dev, images16_dev, gen):
     cases += [(variant_kw(prec, strategy, 3, 3, fast=prec == "high"), 3, prec == "high")
               for prec in ("high", "default") for strategy in ("vpu", "inbank")]
     for i, (kw, k, bf16_exp) in enumerate(cases):
-        key = vkey(kw)
+        key = kw_plan(kw, M, TARGET_BLOCK, k * k * 3).key
         # the routed cases (5) run variants of earlier slices, whose numbers
         # come from phase kernel: their own are printed only
         rec = recs.setdefault(key, {"max_abs_err": 0.0}) if i < 12 else {"max_abs_err": 0.0}
@@ -1765,9 +1751,9 @@ def phase_variants(images_dev, images16_dev, gen):
         labels = torch.arange(g.cs, device="cuda") % 10
         w = per_seed_weights(labels, [s % 10 for s in range(SEEDS - 1)] + [10], g)
         args = (*args[:5], w, *args[6:])
-        key = vkey(kw) + fs.PER_SEED
-        rec = recs.setdefault(key, {"max_abs_err": 0.0})
         kw5 = dict(kw, rows_per_seed=rps)
+        key = kw_plan(kw5, M, args[2].shape[0], g.d, c).key
+        rec = recs.setdefault(key, {"max_abs_err": 0.0})
         rows = row_subset(M, rps) if g.d >= SUBSET_FROM_D else None
         got = variant_case("variants", key, k, 0.5, args, M, c, kw5, rec, chain=rows is None,
                            rows=rows, rps=rps)
@@ -1792,9 +1778,9 @@ def phase_variants(images_dev, images16_dev, gen):
     # chunk (sound masks, k = 3) and on the stress problem at d = 144
     for precision in ("highest", "high"):
         kw = dict(precision=precision)
-        key = vkey(kw) + fs.PRUNE
-        rec = recs.setdefault(key, {"max_abs_err": 0.0})
         g = bank_geometry(images16_dev.shape[0], 32, 32, WIDE_C, 3, TARGET_BLOCK)
+        key = kw_plan(kw, M, TARGET_BLOCK, g.d, WIDE_C, prune=True).key
+        rec = recs.setdefault(key, {"max_abs_err": 0.0})
         cb = build_clustered_bank(images16_dev[: g.cs], 3, TARGET_BLOCK)
         p, ctr, pn = cb.bank[0], cb.centers[0], cb.pn[0]
         w_img = torch.full((g.cs,), 1.0 / (MODULE_BATCH * g.per_img), device="cuda")
@@ -1816,7 +1802,7 @@ def phase_variants(images_dev, images16_dev, gen):
     args, g = chunk_inputs(images_dev, 17, 0.5, gen)
     zero = torch.zeros(fs.prune_grid(M, args[2].shape[0]), dtype=torch.int32, device="cuda")
     kw = dict(precision="highest")
-    key = vkey(dict(kw, v_strategy="vpu")) + fs.PRUNE
+    key = kw_plan(kw, M, args[2].shape[0], g.d, prune=True).key
     masked = fs.flash_score_update(*args, empty_state(M, 3), prune_mask=zero, **kw)
     same = all(torch.equal(a, b) for a, b in zip(
         masked, fs.flash_score_update(*args, empty_state(M, 3), **kw)))
@@ -1855,7 +1841,7 @@ def phase_prune_stress_wide(recs, M=8192, P=65536, d=9 * WIDE_C):
     vals = bank[:, 4 * WIDE_C : 5 * WIDE_C].contiguous()  # the k = 3 center columns
     for precision in ("highest", "high"):
         kw = dict(precision=precision)
-        key = vkey(kw) + fs.PRUNE
+        key = kw_plan(kw, M, P, d, WIDE_C, prune=True).key
         rec = {"max_abs_err": 0.0}
         args = (q, qn, bank, pn, vals, w, at, bt)
         check_masked("variants", key, "stress", f"(a_t {at}, b_t {bt})", "stress mask",
@@ -1872,7 +1858,7 @@ def phase_wide(ds16, n_wide, x16, wide_ms, full_n):
     key, walls)."""
     launches, walls = {}, {}
     for precision in ("highest", "high", "default"):
-        key = fs.launch_key(precision, "mxu")
+        key = module_plan(precision, 3, c=WIDE_C).key  # 'mxu' at every k
         ran, walls[precision], out = phase_machine(
             f"wide_{precision}", LocalEquivScoreModule, precision, ds16, n_wide[precision],
             x16, wide_ms[key], full_n=full_n)
@@ -1892,7 +1878,7 @@ def expected_launches(precision, n_bank, per_seed=False, pruned=(), c=3):
     want = {}
     for i in range(len(CIFAR10_SCALES) - 1, 0, -1):
         k = CIFAR10_SCALES[i]
-        key = launch_key(precision, k, per_seed, prune=k in pruned, c=c)
+        key = module_plan(precision, k, per_seed, prune=k in pruned, c=c).key
         nblk = bank_geometry(n_bank, 32, 32, c, k, TARGET_BLOCK).nblk
         want[key] = want.get(key, 0) + nblk
     return want
@@ -2661,7 +2647,7 @@ def phase_calibrate(seed):
     ran = {key: n for key, n in fs.flash_score_update.launches.items() if n}
     expected = {}  # one sweep per bank chunk per k per step
     for k in CALIB_KS:
-        key = launch_key("highest", k)
+        key = module_plan("highest", k).key
         expected[key] = expected.get(key, 0) + 20 * bank_geometry(
             CALIB_N, 32, 32, 3, k, TARGET_BLOCK).nblk
     banked = sorted(k for k, m in mods.items() if m._bank_cache)
@@ -2711,7 +2697,7 @@ def recipe_gate(mods, seed):
                 mods[k](t, x, k=k)
             finally:
                 tels.flash_score_update = inner
-            key = launch_key("highest", k)
+            key = module_plan("highest", k).key
             e_lse, e_mean, e_abs = (max(e[i] for e in errs) for i in range(3))
             worst[key] = max(worst.get(key, 0.0), e_abs)
             print(f"[calibrate] recipe shapes, ELS k={k} t={t} (M = {CALIB_SEEDS} x 1024, "

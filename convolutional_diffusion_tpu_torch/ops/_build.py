@@ -35,16 +35,15 @@ SPLIT_TILE = 128
 PRUNE_ROWS = 64
 PRUNE_BLOCK = 2048
 
-# Query rows per thread block of the main loops, by launch-count key
-# prefix: K1's (`flash_score.cu` rows::Rows: 128, and 64 with the bf16
-# exponential, which runs one split), K2's per-row sums'
-# (`flash_score_split_ws.cuh` ws::BQ, the warp-specialised loop) and the
-# 'default' kernel's split-dot loop (`flash_score_split_rows.cuh` BQ),
-# which K2's wide modes run too. Each source static_asserts its own
-# against the -D flag; `flash_score.split_launch` reads them for the grid
-# of a launch.
-SPLIT_BQ = {"flash_score": 128, "flash_score/bf16_exp": 64, "flash_score_bf16x3": 128,
-            "flash_score_fast": 64}
+# Query rows per thread block of each main loop: K1's ('k1',
+# `flash_score.cu` rows::Rows: 128, and 'k1_bf16_exp', 64 with the bf16
+# exponential, which runs one split), K2's per-row sums' ('k2_ws',
+# `flash_score_split_ws.cuh` ws::BQ, the warp-specialised loop) and the
+# split-dot loop ('split_dot', `flash_score_split_rows.cuh` BQ: the
+# 'default' kernel and K2's wide modes). Each source static_asserts its own
+# against the -D flag; `flash_score.sweep_plan` names a launch's loop and
+# reads its rows for the grid.
+SPLIT_BQ = {"k1": 128, "k1_bf16_exp": 64, "k2_ws": 128, "split_dot": 64}
 
 # No --use_fast_math: the flash-score dots' fp32 sums and exp2f must stay
 # full fp32.
@@ -52,10 +51,10 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
     f"-DSPLIT_TILE={SPLIT_TILE}", f"-DPRUNE_ROWS={PRUNE_ROWS}",
-    f"-DPRUNE_BLOCK={PRUNE_BLOCK}", f"-DK1_SPLIT_BQ={SPLIT_BQ['flash_score']}",
-    f"-DK1_FAST_BQ={SPLIT_BQ['flash_score/bf16_exp']}",
-    f"-DK2_SPLIT_BQ={SPLIT_BQ['flash_score_bf16x3']}",
-    f"-DSPLIT_DOT_BQ={SPLIT_BQ['flash_score_fast']}",
+    f"-DPRUNE_BLOCK={PRUNE_BLOCK}", f"-DK1_SPLIT_BQ={SPLIT_BQ['k1']}",
+    f"-DK1_FAST_BQ={SPLIT_BQ['k1_bf16_exp']}",
+    f"-DK2_SPLIT_BQ={SPLIT_BQ['k2_ws']}",
+    f"-DSPLIT_DOT_BQ={SPLIT_BQ['split_dot']}",
 ]
 
 _P = ctypes.c_void_p
@@ -67,10 +66,10 @@ _P = ctypes.c_void_p
 # [ceil(M / PRUNE_ROWS), mask_stride] of 1-D weights (K6); strategy is the
 # value strategy's code (`flash_score.STRATEGY_CODE`), col0 the first center
 # column of 'inbank' (-1 otherwise), fast 1 for the bf16 exponential;
-# scratch (null or float32 `flash_score.scratch_numel`) and split_rows
-# (`flash_score.split_plan`) are the main loops' (partial states of the
-# splits, the split-dot kernels' bf16 planes); live is null (every tile
-# walked) or, with per-seed weights, the int32 workspace
+# scratch (null or float32, `flash_score.sweep_plan`'s scratch_numel) and
+# split_rows (the rows of its first split) are the main loops' (partial
+# states of the splits, the split-dot kernels' bf16 planes); live is null
+# (every tile walked) or, with per-seed weights, the int32 workspace
 # [M / rows_per_seed, ceil(P / SPLIT_TILE)] the launch fills with its
 # live-tile flags and walks by (K5); walked is null or int32, one per
 # thread block: the bank tiles each walked, written by the list walks (K5,

@@ -19,8 +19,9 @@ finite -1e30 sentinel for empty rows (`state_to_kernel` /
 shift of m by the per-query ||q||^2 / (2 beta^2) on entry and exit.
 
 The tensor's device picks the sweep: on CUDA a hand-written kernel, on the
-CPU `sweep_plain`, the same function in plain PyTorch. The dots and the
-exponential pick the kernel (`_route`): fp32 dots run the fp32 kernel
+CPU `sweep_plain`, the same function in plain PyTorch. One function decides
+a launch (`sweep_plan`, cached per shape: a `SweepPlan`). The dots and the
+exponential pick the kernel (the plan's `tier`): fp32 dots run the fp32 kernel
 (`csrc/flash_score.cu`, variant K1, with either exponential); the bf16x3
 split dots with an fp32 exp2 the tensor-core kernel
 (`csrc/flash_score_bf16x3.cu`, variant K2); the split dots with the bf16
@@ -75,8 +76,8 @@ Split-bank grid: every kernel runs one main loop per dot type (K1's fp32
 FFMA loop, the split dots' pipelined tensor-core loop), one thread block
 per (query block, seed, split). The sweeps with the fp32 exp2 (K1 in every
 value strategy, K2 in 'vpu' with c <= MAX_CHANNELS; with K5 and K6) cut the
-chunk's bank axis into `split_plan`'s ranges; each block writes a partial
-state to a scratch the wrapper allocates (`scratch_numel`), and a second
+chunk's bank axis into the plan's `splits`; each block writes a partial
+state to a scratch the wrapper allocates (the plan's `scratch_numel`), and a second
 pass folds the partials into the carried state in split order
 (`merge_splits_plain` is its plain version). The bf16 exponential rounds
 x = logit - m against each tile's m, so those sweeps, and K2's wide value
@@ -86,7 +87,7 @@ scratch (`split_planes_plain`). The plan depends on P alone, so a K5
 launch and the one-seed launches it stands for split alike.
 
 Launch counts: each launch adds one to `flash_score_update.launches` under
-`launch_key`: the kernel's name, then '/bf16_exp' for the fp32 kernel with
+the plan's `key`: the kernel's name, then '/bf16_exp' for the fp32 kernel with
 the bf16 exponential, then '/mxu1', '/inbank' or '/mxu' for those
 strategies, then '/per_seed' for 2-D weights or '/prune' with a mask, so a
 run shows which variant every chunk took.
@@ -94,8 +95,9 @@ run shows which variant every chunk took.
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -130,7 +132,7 @@ PER_SEED = "/per_seed"
 PRUNE = "/prune"
 PRUNE_ROWS = _build.PRUNE_ROWS  # query rows per prune-mask cell
 PRUNE_BLOCK = _build.PRUNE_BLOCK  # bank rows per prune-mask cell
-# the split-bank grid (`split_plan`): bank rows per split, a multiple of
+# the split-bank grid (`sweep_plan`'s splits): bank rows per split, a multiple of
 # PRUNE_BLOCK and so of every kernel tile; at M = 8192 a 65536-row chunk
 # gives K1 64 x 16 and K2 128 x 16 blocks, several waves on 132 SMs
 SPLIT_ROWS = 4096
@@ -138,49 +140,72 @@ MAX_SPLITS = 32  # longer chunks take longer splits, whole multiples of SPLIT_RO
 PLANE_K = 32  # the split-dot loop's staged features: its bf16 planes' rows are d rounded up to this
 
 State = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+PLAN_CACHE = 1024  # sweep plans kept (`sweep_plan`): a machine sweeps a few hundred shapes
 
 
-def _check_precision(precision: str) -> None:
+class SweepPlan(NamedTuple):
+    """The whole decision of one sweep (`sweep_plan`)."""
+
+    fast: bool  # the bf16 exponential
+    tier: str  # the tier whose kernel computes (the dots, the exponential)
+    kernel: str  # KERNEL_OF[tier], an `_build.KERNELS` name
+    loop: str  # the main loop the launch runs, a key of `_build.SPLIT_BQ`
+    strategy: str  # the value strategy, 'auto' resolved
+    code: int  # STRATEGY_CODE[strategy]
+    c: int  # value channels
+    splits: Tuple[Tuple[int, int], ...]  # bank-row ranges (p0, p1) in merge order
+    block_rows: int  # query rows per thread block
+    grid: Tuple[int, int, int]  # thread blocks: query blocks per seed, seeds, splits
+    scratch_numel: int  # float32 elements of the launch's scratch (0: none)
+    live_shape: Tuple[int, int] | None  # K5's int32 live-tile flags [S, tiles]
+    key: str  # its count in `flash_score_update.launches`
+
+
+@functools.lru_cache(maxsize=PLAN_CACHE)
+def sweep_plan(precision: str, fast_exp: bool | None, v_strategy: str, c: int, M: int,
+               rows_per_seed: int, P: int, d: int, per_seed: bool = False,
+               prune: bool = False, inbank_cols: Tuple[int, int] | None = None) -> SweepPlan:
+    """The plan of a sweep of M query rows (`rows_per_seed` per seed; M
+    without per-seed weights) of d features over a chunk of P bank rows with
+    c value channels (-1: no values; with 'inbank' c is `inbank_cols`'),
+    per-seed weights (K5) or a prune mask (K6). Raises ValueError where the
+    JAX wrapper refuses the precision or the value strategy.
+
+    Route: the split dots take the 'default' kernel with the bf16
+    exponential and 'high' without (the JAX kernel body computes the same
+    function for both enums; its one difference, 'mxu' at DEFAULT with an
+    fp32 exp, runs in fp32 in interpret mode, the reference this port
+    follows). Value strategy: the JAX wrapper's rules
+    (`flash_score.py:380-386, 556-576`). Main loop: K1's ('k1', or
+    'k1_bf16_exp' with the bf16 exponential), K2's per-row sums ('vpu',
+    c <= MAX_CHANNELS) on the warp-specialised loop ('k2_ws'), and the
+    'default' kernel and K2's wide modes on the split-dot loop
+    ('split_dot'). Splits: the loops of the fp32 exp2 ('k1', 'k2_ws') cut a
+    chunk of more than SPLIT_ROWS rows into ranges of SPLIT_ROWS rows (whole
+    SPLIT_ROWS multiples past MAX_SPLITS of them), so every boundary falls
+    on a 128-row tile and a 2048-row prune cell; the bf16 exponential
+    rounds x = logit - m against the m of each bank tile, so splitting P
+    would change its numbers, and the split-dot loop runs one split from
+    the carried state. The ranges depend on P and the variant alone, never
+    on the query rows, the seeds or a mask. Scratch: the partial states
+    [nsplit, M, 2 + c] rounded up to 4 (the split-dot loop's wide
+    tensor-core sums keep a second copy of the state rows there), and for
+    the split-dot kernels the bf16 hi and lo planes of the queries and the
+    chunk, [M + P, d_pad] each (two bf16 a float32 element); K1 with the
+    bf16 exponential writes its state in place and takes none."""
     if precision not in KERNEL_OF:
         raise ValueError(
             f"precision must be 'highest', 'high' or 'default', got {precision!r}"
         )
-
-
-def _route(precision: str, fast: bool) -> str:
-    """The tier whose kernel computes (precision's dots, fast exponential):
-    the split dots take 'default' with the bf16 exponential and 'high'
-    without (the JAX kernel body computes the same function for both
-    enums; its one difference, 'mxu' at DEFAULT with an fp32 exp, runs in
-    fp32 in interpret mode, the reference this port follows)."""
-    if precision == "highest":
-        return precision
-    return "default" if fast else "high"
-
-
-def launch_key(precision: str, strategy: str = "vpu", fast_exp: bool | None = None,
-               per_seed: bool = False, prune: bool = False) -> str:
-    """The launch-count key of a sweep at `precision` (after `_route`) in
-    value strategy `strategy`."""
-    fast = precision == "default" if fast_exp is None else fast_exp
-    return (KERNEL_OF[precision] + (BF16_EXP if precision == "highest" and fast else "")
-            + STRATEGY_SUFFIX[strategy]
-            + (PER_SEED if per_seed else PRUNE if prune else ""))
-
-
-def _strategy(fast, v_strategy, values, inbank_cols, d, P):
-    """The value strategy that runs and the value channels c, by the JAX
-    wrapper's rules (`flash_score.py:380-386, 556-576`); `fast` is the
-    bf16 exponential."""
+    fast = precision == "default" if fast_exp is None else bool(fast_exp)
+    tier = precision if precision == "highest" else "default" if fast else "high"
     if v_strategy == "inbank":
         if inbank_cols is None:
             raise ValueError("v_strategy='inbank' requires inbank_cols=(start, c)")
         col0, c = inbank_cols
         if not (0 <= col0 and col0 + c <= d):
             raise ValueError(f"inbank_cols {inbank_cols} out of range for d={d}")
-        return "inbank", c
-    c = values.shape[1] if values is not None and values.ndim == 2 else -1
-    if v_strategy == "auto":
+    elif v_strategy == "auto":
         if fast and c + 1 <= 128 and P >= MXU1_MIN_P:
             v_strategy = "mxu1"
         else:
@@ -193,81 +218,43 @@ def _strategy(fast, v_strategy, values, inbank_cols, d, P):
             )
         if c % 128 == 0:
             raise ValueError(f"no spare lane for s1 (c={c}, cp={c})")
-    elif v_strategy not in ("vpu", "mxu"):
+    elif v_strategy not in ("vpu", "mxu", "inbank"):
         raise ValueError(
             "v_strategy must be 'auto', 'vpu', 'mxu1', 'inbank' or 'mxu', "
             f"got {v_strategy!r}"
         )
-    return v_strategy, c
+    if tier == "highest":
+        loop = "k1_bf16_exp" if fast else "k1"
+    elif tier == "high" and v_strategy == "vpu" and c <= MAX_CHANNELS:
+        loop = "k2_ws"
+    else:
+        loop = "split_dot"
+    splits = ((0, P),)
+    if loop in ("k1", "k2_ws") and P > SPLIT_ROWS:
+        tiles = -(-P // SPLIT_ROWS)  # splits of SPLIT_ROWS rows
+        per = SPLIT_ROWS * -(-tiles // MAX_SPLITS)
+        splits = tuple((p0, min(P, p0 + per)) for p0 in range(0, P, per))
+    bq = _build.SPLIT_BQ[loop]
+    S = M // rows_per_seed if rows_per_seed else 0
+    scratch = -(-len(splits) * M * (2 + c) // 4) * 4
+    if loop == "k1_bf16_exp":
+        scratch = 0
+    elif loop != "k1":
+        scratch += (M + P) * (-(-d // PLANE_K) * PLANE_K)
+    return SweepPlan(
+        fast=fast, tier=tier, kernel=KERNEL_OF[tier], loop=loop, strategy=v_strategy,
+        code=STRATEGY_CODE[v_strategy], c=c, splits=splits, block_rows=bq,
+        grid=(-(-rows_per_seed // bq), S, len(splits)), scratch_numel=scratch,
+        live_shape=(S, -(-P // FAST_TILE)) if per_seed and P > 0 else None,
+        key=(KERNEL_OF[tier] + (BF16_EXP if loop == "k1_bf16_exp" else "")
+             + STRATEGY_SUFFIX[v_strategy]
+             + (PER_SEED if per_seed else PRUNE if prune else "")),
+    )
 
 
 def prune_grid(M: int, P: int) -> Tuple[int, int]:
     """The shape of a prune mask over M query rows and P bank rows."""
     return -(-M // PRUNE_ROWS), -(-P // PRUNE_BLOCK)
-
-
-def splits_bank(precision: str, strategy: str, c: int, fast_exp: bool | None = None) -> bool:
-    """Whether a sweep (at `precision` after `_route`) splits the bank axis:
-    the fp32 exp2 after fp32 dots (K1, every value strategy) or, after split
-    dots (K2), the per-row sums ('vpu', c <= MAX_CHANNELS). The bf16
-    exponential rounds x = logit - m against the m of each bank tile, so
-    splitting P would change its numbers; K2's wide value sums run one split
-    from the carried state, as the 'default' kernel does."""
-    fast = precision == "default" if fast_exp is None else bool(fast_exp)
-    return not fast and (precision == "highest" or (strategy == "vpu" and c <= MAX_CHANNELS))
-
-
-def split_plan(P: int, precision: str = "highest", strategy: str = "vpu", c: int = 3,
-               fast_exp: bool | None = None):
-    """The bank-row ranges [(p0, p1), ...] the kernel's blocks split a chunk
-    of P rows into, in merge order: one range unless `splits_bank`, else
-    ranges of SPLIT_ROWS rows (whole SPLIT_ROWS multiples past MAX_SPLITS
-    of them), so every boundary falls on a 128-row tile and a 2048-row
-    prune cell. It depends on P and the variant alone, not on the query
-    rows, the seeds or a mask."""
-    if not splits_bank(precision, strategy, c, fast_exp) or P <= SPLIT_ROWS:
-        return [(0, P)]
-    tiles = -(-P // SPLIT_ROWS)  # splits of SPLIT_ROWS rows
-    per = SPLIT_ROWS * -(-tiles // MAX_SPLITS)
-    return [(p0, min(P, p0 + per)) for p0 in range(0, P, per)]
-
-
-def block_rows(name: str, fast_exp: bool, split: bool) -> int:
-    """Query rows per thread block of kernel `name` (`_build.SPLIT_BQ`) in
-    a launch that splits the bank axis or not (`splits_bank`): K1 takes 64
-    with the bf16 exponential (one split: M = 8192 still fills the card),
-    128 otherwise; K2 128 in its per-row sums (the warp-specialised loop),
-    and in its wide modes the 'default' kernel's split-dot loop, 64."""
-    if name == KERNEL_OF["high"] and not split:
-        name = KERNEL_OF["default"]
-    return _build.SPLIT_BQ[name + (BF16_EXP if name == KERNEL_OF["highest"] and fast_exp
-                                   else "")]
-
-
-def split_launch(name: str, M: int, rows_per_seed: int, P: int, precision: str,
-                 strategy: str = "vpu", c: int = 3, fast_exp: bool | None = None):
-    """(split_rows, nsplit, grid) of one launch of kernel `name`: the rows
-    per split its C entry takes (`split_plan`'s first range), the number of
-    splits, and the thread blocks (query blocks of `block_rows` rows per
-    seed, seeds, splits)."""
-    fast = precision == "default" if fast_exp is None else bool(fast_exp)
-    plan = split_plan(P, precision, strategy, c, fast)
-    bq = block_rows(name, fast, splits_bank(precision, strategy, c, fast))
-    return (plan[0][1] - plan[0][0], len(plan),
-            (-(-rows_per_seed // bq), M // rows_per_seed, len(plan)))
-
-
-def scratch_numel(name: str, nsplit: int, M: int, P: int, d: int, c: int,
-                  fast_exp: bool = False) -> int:
-    """float32 elements of the scratch of kernel `name`: the partial states
-    [nsplit, M, 2 + c] rounded up to 4 (the split-dot kernels' wide
-    tensor-core sums keep a second copy of the state rows there), and for
-    the split-dot kernels the bf16 hi and lo planes of the queries and the
-    chunk, [M + P, d_pad] each (two bf16 a float32 element). K1 with the
-    bf16 exponential writes its state in place and takes none."""
-    if name == KERNEL_OF["highest"]:
-        return 0 if fast_exp else -(-nsplit * M * (2 + c) // 4) * 4
-    return -(-nsplit * M * (2 + c) // 4) * 4 + (M + P) * (-(-d // PLANE_K) * PLANE_K)
 
 
 def merge_splits_plain(state: State, partials) -> State:
@@ -492,8 +479,8 @@ def sweep_plain(q, bias, bank, values, dotscale: float, m, s1, s2,
     (K6, `prune_grid` shape) sets the logits of its skipped cells to NEG_INF:
     there m does not move and every exponential is 0, at every tier, so the
     state is what the kernels' skipping leaves. `fast_exp` (default:
-    precision == 'default') takes the bf16 exponential; `flash_score_update`
-    passes precision and fast_exp after `_route`.
+    precision == 'default') takes the bf16 exponential, and the tier that
+    computes (the dots, the exponential) is `sweep_plan`'s.
 
     'highest' takes true fp32 dots (`fp32.true_fp32`: TF32 off for the
     call), summed in the BLAS library's order (`_fp32_logits`); with the
@@ -545,8 +532,12 @@ def sweep_plain(q, bias, bank, values, dotscale: float, m, s1, s2,
     fp32 dots with the fp32 exp2, each block's backward recomputing its
     exponentials (`_Fp32Block`); the split dots and the bf16 exponential
     raise under grad."""
-    split = precision != "highest"
-    fast = precision == "default" if fast_exp is None else bool(fast_exp)
+    M, c = q.shape[0], s2.shape[1]
+    plan = sweep_plan(precision, fast_exp, strategy, c, M,
+                      M // bias.shape[0] if bias.ndim == 2 else M, bank.shape[0], q.shape[1],
+                      bias.ndim == 2, prune_mask is not None,
+                      (col0, c) if strategy == "inbank" else None)
+    split, fast = plan.tier != "highest", plan.fast
     if any(isinstance(t, torch.Tensor) and t.requires_grad for t in (bias, bank, values)):
         raise NotImplementedError(
             "the plain flash-score sweep differentiates with respect to the "
@@ -658,9 +649,9 @@ def sweep_kernel(q, bias, bank, values, dotscale: float, m, s1, s2,
                  precision: str = "highest", strategy: str = "vpu",
                  col0: int = -1, prune_mask=None, fast_exp: bool | None = None,
                  tile_counts: torch.Tensor | None = None) -> State:
-    """Launch the CUDA kernel of `precision` (after `_route`; at 'highest'
-    with the bf16 exponential if fast_exp) on the current stream; returns
-    new tensors. `bias` is [P], or [S, P] for S equal blocks of query rows
+    """Launch the CUDA kernel of `sweep_plan` (at 'highest' with the bf16
+    exponential if fast_exp) on the current stream; returns new tensors.
+    `bias` is [P], or [S, P] for S equal blocks of query rows
     (K5: the kernel's grid gains a seed axis, and each block walks only the
     tiles its seed's bias admits, `live_tiles_plain`; the launch flags them
     into an int32 workspace allocated here). With strategy 'inbank'
@@ -670,13 +661,11 @@ def sweep_kernel(q, bias, bank, values, dotscale: float, m, s1, s2,
     per row; the matrix value sums ('mxu', and 'vpu' or 'inbank' past
     MAX_CHANNELS) take any c up to WIDE_MAX_CHANNELS. `tile_counts`, an
     int32 CUDA tensor of one entry per thread block of the launch
-    (`split_launch`'s grid, x fastest, then seed, then split), receives the
+    (the plan's grid, x fastest, then seed, then split), receives the
     bank tiles each block walked in a walk by a tile list (K5, K6; a 1-D
     launch takes every tile of its split and writes nothing there). Each
     launch adds one to its count in
     `flash_score_update.launches` (see the module docstring)."""
-    name = KERNEL_OF[precision]
-    fast = precision == "default" if fast_exp is None else bool(fast_exp)
     M, d = q.shape
     P = bank.shape[0]
     c = s2.shape[1]
@@ -700,20 +689,22 @@ def sweep_kernel(q, bias, bank, values, dotscale: float, m, s1, s2,
     s2_out = torch.empty_like(s2)
     if M == 0:
         return m_out, s1_out, s2_out
-    fn = _build.load(name)
+    plan = sweep_plan(precision, fast_exp, strategy, c, M, rows_per_seed, P, d,
+                      bias.ndim == 2, prune_mask is not None,
+                      (col0, c) if strategy == "inbank" else None)
+    fn = _build.load(plan.kernel)
     dev = q.device
-    split_rows, nsplit, grid = split_launch(name, M, rows_per_seed, P, precision, strategy, c,
-                                            fast)
+    blocks = math.prod(plan.grid)
     if tile_counts is not None and (
             not tile_counts.is_cuda or tile_counts.dtype != torch.int32
-            or not tile_counts.is_contiguous() or tile_counts.numel() < math.prod(grid)):
+            or not tile_counts.is_contiguous() or tile_counts.numel() < blocks):
         raise ValueError(f"tile_counts must be a contiguous int32 CUDA tensor of at least "
-                         f"{math.prod(grid)} entries (grid {grid})")
-    numel = scratch_numel(name, nsplit, M, P, d, c, fast)
-    scratch = torch.empty(numel, dtype=torch.float32, device=dev) if numel else None
+                         f"{blocks} entries (grid {plan.grid})")
+    scratch = (torch.empty(plan.scratch_numel, dtype=torch.float32, device=dev)
+               if plan.scratch_numel else None)
     # K5: the live-tile flags the launch writes and walks by
-    live = (torch.empty((bias.shape[0], -(-P // FAST_TILE)), dtype=torch.int32, device=dev)
-            if bias.ndim == 2 and P > 0 else None)
+    live = (torch.empty(plan.live_shape, dtype=torch.int32, device=dev)
+            if plan.live_shape else None)
     with annotate("flash_score.launch"):
         err = fn(
             q.data_ptr(), bias.data_ptr(), bank.data_ptr(),
@@ -723,30 +714,25 @@ def sweep_kernel(q, bias, bank, values, dotscale: float, m, s1, s2,
             M, rows_per_seed, P, d, c,
             None if prune_mask is None else prune_mask.data_ptr(),
             0 if prune_mask is None else prune_mask.shape[1],
-            STRATEGY_CODE[strategy], col0, int(fast),
-            None if scratch is None else scratch.data_ptr(), split_rows,
+            plan.code, col0, int(plan.fast),
+            None if scratch is None else scratch.data_ptr(), plan.splits[0][1],
             None if live is None else live.data_ptr(),
             None if tile_counts is None else tile_counts.data_ptr(),
             dev.index if dev.index is not None else torch.cuda.current_device(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    key = launch_key(precision, strategy, fast, per_seed=bias.ndim == 2,
-                     prune=prune_mask is not None)
-    flash_score_update.launches[key] += 1
+        raise RuntimeError(f"{plan.kernel} kernel launch failed: CUDA error {err}")
+    flash_score_update.launches[plan.key] += 1
     return m_out, s1_out, s2_out
 
 
 def _update(sweep, q, qn, bank, pn, values, w, at, bt, state, precision,
             rows_per_seed, v_strategy, fast_exp, inbank_cols,
             prune_mask) -> State:
-    _check_precision(precision)
     m0, s10, s20 = state
     M, d = q.shape
     P = bank.shape[0]
-    fast = precision == "default" if fast_exp is None else bool(fast_exp)
-    strategy, c = _strategy(fast, v_strategy, values, inbank_cols, d, P)
     if prune_mask is not None:
         if w.ndim == 2:  # the JAX wrapper's refusal (`flash_score.py:390-397`)
             raise ValueError(
@@ -765,6 +751,11 @@ def _update(sweep, q, qn, bank, pn, values, w, at, bt, state, precision,
             raise ValueError(
                 "2-D weights need rows_per_seed with M == S * rows_per_seed"
             )
+    plan = sweep_plan(precision, fast_exp, v_strategy,
+                      values.shape[1] if values is not None and values.ndim == 2 else -1,
+                      M, rows_per_seed if w.ndim == 2 else M, P, d, w.ndim == 2,
+                      prune_mask is not None, inbank_cols)
+    strategy, c = plan.strategy, plan.c
     shapes = {
         "qn": (qn.shape, (M,)), "bank": (bank.shape, (P, d)),
         "pn": (pn.shape, (P,)),
@@ -790,8 +781,8 @@ def _update(sweep, q, qn, bank, pn, values, w, at, bt, state, precision,
     m_k = torch.where(m0 <= NEG_INF * 0.5, m0, (m0 + qn_s) * LOG2E)
     dotscale = float(2.0 * at * inv2bt2 * LOG2E)
     m, s1, s2 = sweep(q, bias, bank, values, dotscale, m_k, s10, s20,
-                      precision=_route(precision, fast), strategy=strategy,
-                      col0=col0, prune_mask=prune_mask, fast_exp=fast)
+                      precision=plan.tier, strategy=strategy,
+                      col0=col0, prune_mask=prune_mask, fast_exp=plan.fast)
     m = torch.where(m <= NEG_INF * 0.5, m, m * LN2 - qn_s)
     return m, s1, s2
 
@@ -832,7 +823,7 @@ def flash_score_update(
     S seed-major blocks of `rows_per_seed` rows and block s uses weight row
     s. With a prune mask (1-D weights) the masked cells are skipped (K6).
     CUDA tensors run the hand-written kernel of the dots and the
-    exponential (`_route`: K1 after fp32 dots, K2 after split dots with
+    exponential (`sweep_plan`: K1 after fp32 dots, K2 after split dots with
     the fp32 exp2, K3/K4 after split dots with the bf16 exponential; each
     launch counted, see the module docstring), which refuse inputs that
     require grad (`_refuse_grad`); CPU tensors run `sweep_plain`, which
@@ -854,7 +845,7 @@ def flash_score_update(
 
 
 flash_score_update.launches = {
-    launch_key(prec, strategy, fast, per_seed, prune): 0
+    sweep_plan(prec, fast, strategy, 3, 0, 0, 0, 3, per_seed, prune, (0, 3)).key: 0
     for prec in KERNEL_OF
     for fast in ((False, True) if prec == "highest" else (prec == "default",))
     for strategy in STRATEGY_SUFFIX if fast or strategy != "mxu1"

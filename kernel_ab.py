@@ -273,7 +273,9 @@ def splits() -> None:
         xq, xc, rest = _problem(cs, k, gen, images[3])
         for rows in SPLIT_SIZES:
             cs.fs.SPLIT_ROWS = rows
-            n = len(cs.fs.split_plan(rest[0].shape[0], "high"))
+            cs.fs.sweep_plan.cache_clear()  # its plans were made at the old SPLIT_ROWS
+            M, d = xq.shape
+            n = len(cs.fs.sweep_plan("high", None, "vpu", 3, M, M, rest[0].shape[0], d).splits)
             print(f"[splits] k={k} d={xq.shape[1]}: {n} splits of {rows} rows: K1 "
                   f"{_ms(cs, xq, rest, 'highest', 2):.3f} ms, K2 "
                   f"{_ms(cs, xq, rest, 'high', 2):.3f} ms, K2 at the bbELS center's "

@@ -374,7 +374,9 @@ def _variant_kw(precision, fast, strategy, values, d, c):
         values = None
     else:
         kw.update(v_strategy=strategy)
-    key = tfs.launch_key(tfs._route(precision, fast), strategy, fast)
+    # the key depends on no shape and no c (c = 1 leaves 'mxu1' a spare lane)
+    key = tfs.sweep_plan(precision, fast, strategy, 1, 0, 0, 0, d,
+                         inbank_cols=kw.get("inbank_cols")).key
     return kw, values, key
 
 
@@ -508,7 +510,7 @@ def test_split_bank_kernels_match_plain(precision, case):
         mask[::2, ::3] = 1
         mask[1] = 1
         kw["prune_mask"] = mask
-    assert len(tfs.split_plan(P, precision)) == 3
+    assert len(tfs.sweep_plan(precision, None, "vpu", c, M, M, P, d).splits) == 3
     state = tuple(x.clone() for x in tfs.flash_score_update_plain(
         q, qn, bank[:500], pn[:500], values[:500], w[..., :500].contiguous(), 0.8, 0.6,
         _empty(M, c, dev), **{k_: v for k_, v in kw.items() if k_ != "prune_mask"}))
@@ -567,12 +569,12 @@ def test_k5_walks_each_seeds_live_tiles(precision, fast, strategy, c):
     bias = torch.randn(S, P, generator=torch.Generator().manual_seed(16)).to(dev)
     for s in range(S):
         bias[s][(img % 3 != s) | (s == S - 1)] = tfs.NEG_INF
-    kw = dict(precision=tfs._route(precision, fast), fast_exp=fast, strategy=strategy)
+    plan = tfs.sweep_plan(precision, fast, strategy, c, M, rps, P, d, True, False,
+                          ((d - c) // 2, c) if strategy == "inbank" else None)
+    kw = dict(precision=plan.tier, fast_exp=fast, strategy=strategy)
     if strategy == "inbank":
         kw["col0"], values = (d - c) // 2, None
-    name = tfs.KERNEL_OF[kw["precision"]]
-    split_rows, nsplit, grid = tfs.split_launch(name, M, rps, P, kw["precision"], strategy, c,
-                                                fast)
+    split_rows, nsplit, grid = plan.splits[0][1], len(plan.splits), plan.grid
     counts = torch.full((grid[0] * grid[1] * grid[2],), -1, dtype=torch.int32, device=dev)
     got = tfs.sweep_kernel(q, bias, bank, values, 0.0537109375, *_empty(M, c, dev), **kw,
                            tile_counts=counts)
@@ -586,6 +588,32 @@ def test_k5_walks_each_seeds_live_tiles(precision, fast, strategy, c):
         one = tfs.sweep_kernel(q[r].contiguous(), bias[s].contiguous(), bank, values,
                                0.0537109375, *_empty(rps, c, dev), **kw)
         assert all(torch.equal(a[r], b) for a, b in zip(got, one))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision,fast,strategy,c", WALKS, ids=lambda v: str(v).lower())
+def test_launch_follows_its_plan(precision, fast, strategy, c):
+    """One K5 launch through `sweep_kernel` counts under its plan's key, and
+    runs on its plan's grid: each of the grid's blocks writes its walked
+    tiles into `tile_counts`, and no entry past the grid is written."""
+    dev = _need_cuda()
+    S, rps, d, P = 4, 200, 9 * c if c > 3 else 75, SPLIT_P
+    M = S * rps
+    q, _, bank, _, values, _ = _case(M, d, P, c, seed=18, dev=dev)
+    bias = torch.randn(S, P, generator=torch.Generator().manual_seed(18)).to(dev)
+    bias[:, ::3] = tfs.NEG_INF
+    col0 = (d - c) // 2 if strategy == "inbank" else -1
+    plan = tfs.sweep_plan(precision, fast, strategy, c, M, rps, P, d, True, False,
+                          (col0, c) if strategy == "inbank" else None)
+    blocks = plan.grid[0] * plan.grid[1] * plan.grid[2]
+    counts = torch.full((blocks + 64,), -1, dtype=torch.int32, device=dev)
+    before = dict(tfs.flash_score_update.launches)
+    tfs.sweep_kernel(q, bias, bank, None if strategy == "inbank" else values, 0.0537109375,
+                     *_empty(M, c, dev), precision=plan.tier, strategy=plan.strategy,
+                     col0=col0, fast_exp=plan.fast, tile_counts=counts)
+    torch.cuda.synchronize()
+    assert tfs.flash_score_update.launches == {**before, plan.key: before[plan.key] + 1}
+    assert bool((counts[:blocks] >= 0).all()) and bool((counts[blocks:] == -1).all())
 
 
 @pytest.mark.cuda
@@ -664,7 +692,8 @@ def test_merge_pass_matches_merge_splits_plain(strategy, c):
     args, kw = _kernel_args(M, d, SPLIT_P, c_, 14 + c, dev, strategy)
     q, bias, bank, values, ds = args
     state = _carried(M, c_, dev, seed=c)
-    plan = tfs.split_plan(SPLIT_P, "highest", strategy, c_)
+    plan = tfs.sweep_plan("highest", None, strategy, c_, M, M, SPLIT_P, d,
+                          inbank_cols=(kw["col0"], c_) if strategy == "inbank" else None).splits
     assert len(plan) == 3
     got = tfs.sweep_kernel(*args, *state, precision="highest", **kw)
     parts = [tfs.sweep_kernel(q, bias[p0:p1].contiguous(), bank[p0:p1].contiguous(),
@@ -721,7 +750,8 @@ def test_moved_variants_logits_are_the_parents(c):
     k2 = tfs.sweep_kernel(q, bias, bank, values[:, :3].contiguous(), ds, *_empty(M, 3, dev),
                           precision="high")[0]
     for precision, fast, strategy in VARIANTS:
-        prec = tfs._route(precision, fast)
+        prec = tfs.sweep_plan(precision, fast, strategy, c, M, M, P, d,
+                              inbank_cols=((d - c) // 2, c)).tier
         kw = dict(strategy=strategy, fast_exp=fast)
         vals = values
         if strategy == "inbank":
@@ -759,7 +789,8 @@ def test_k2_loop_at_the_bbels_centre(k):
     dev = _need_cuda()
     inputs, state = _centre(k, 100 + k, dev)
     M, P = inputs[0].shape[0], inputs[2].shape[0]
-    assert P % 128 != 0 and len(tfs.split_plan(P, "high")) == 3
+    assert P % 128 != 0 and len(tfs.sweep_plan("high", None, "vpu", 3, M, M, P,
+                                                 inputs[0].shape[1]).splits) == 3
     args = (*inputs, 0.8, 0.6, state)
     before = dict(tfs.flash_score_update.launches)
     got = tfs.flash_score_update(*args, precision="high")

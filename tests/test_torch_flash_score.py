@@ -493,24 +493,29 @@ def test_default_strategies_share_the_exponential():
 def test_default_auto_strategy_rule():
     """'auto' with the bf16 exponential takes 'mxu1' from P = 2^18 bank rows
     in one call (c + 1 <= 128) and 'vpu' below; without it 'vpu' (c <= 8)
-    or 'mxu' (c > 8). The first argument of `_strategy` is the bf16
-    exponential, not the tier."""
-    v3, v9, v127 = torch.zeros(1, 3), torch.zeros(1, 9), torch.zeros(1, 127)
+    or 'mxu' (c > 8). The plan's `fast_exp` picks it, not the tier (both
+    at 'high' here)."""
     big = tfs.MXU1_MIN_P
-    assert tfs._strategy(True, "auto", v3, None, 27, big) == ("mxu1", 3)
-    assert tfs._strategy(True, "auto", v3, None, 27, big - 1) == ("vpu", 3)
-    assert tfs._strategy(False, "auto", v3, None, 27, big) == ("vpu", 3)
-    assert tfs._strategy(True, "inbank", None, (12, 3), 27, 10) == ("inbank", 3)
-    assert tfs._strategy(False, "auto", v9, None, 27, 10) == ("mxu", 9)
-    assert tfs._strategy(True, "auto", v9, None, 27, big) == ("mxu1", 9)
-    assert tfs._strategy(True, "auto", v127, None, 27, big) == ("mxu1", 127)
-    assert tfs._strategy(True, "auto", torch.zeros(1, 128), None, 27, big) == ("mxu", 128)
+
+    def rule(fast, v_strategy, c, P, inbank_cols=None):
+        plan = tfs.sweep_plan("high", fast, v_strategy, c, 8, 8, P, 27,
+                              inbank_cols=inbank_cols)
+        return plan.strategy, plan.c
+
+    assert rule(True, "auto", 3, big) == ("mxu1", 3)
+    assert rule(True, "auto", 3, big - 1) == ("vpu", 3)
+    assert rule(False, "auto", 3, big) == ("vpu", 3)
+    assert rule(True, "inbank", -1, 10, (12, 3)) == ("inbank", 3)
+    assert rule(False, "auto", 9, 10) == ("mxu", 9)
+    assert rule(True, "auto", 9, big) == ("mxu1", 9)
+    assert rule(True, "auto", 127, big) == ("mxu1", 127)
+    assert rule(True, "auto", 128, big) == ("mxu", 128)
     with pytest.raises(ValueError, match="mxu1"):
-        tfs._strategy(False, "mxu1", v3, None, 27, 10)
+        rule(False, "mxu1", 3, 10)
     with pytest.raises(ValueError, match="inbank_cols"):
-        tfs._strategy(True, "inbank", None, None, 27, 10)
+        rule(True, "inbank", -1, 10)
     with pytest.raises(ValueError, match="out of range"):
-        tfs._strategy(True, "inbank", None, (26, 3), 27, 10)
+        rule(True, "inbank", -1, 10, (26, 3))
 
 
 def test_default_tile_is_the_kernels_tile():

@@ -1,6 +1,6 @@
 """Port: the split-bank grid of the per-row kernels K1 and K2, on the CPU.
 
-The kernels cut a chunk's bank axis into `split_plan`'s ranges, sweep each
+The kernels cut a chunk's bank axis into `sweep_plan`'s splits, sweep each
 from the empty state and fold the partial states into the carried state in
 split order (`merge_splits_plain` is the merge pass's plain version); K2
 also splits its inputs into bf16 planes once per launch
@@ -23,14 +23,22 @@ import torch.nn.functional as F
 import chip_smoke
 import convolutional_diffusion_tpu.ops.flash_score as jfs
 import convolutional_diffusion_tpu_torch.ops.flash_score as fs
+from convolutional_diffusion_tpu_torch.ops import _build
 
 NEG = fs.NEG_INF
+
+
+def _plan(P, precision="highest", strategy="vpu", c=3, fast=None, M=8192, rps=None, d=27,
+          **kw):
+    """`fs.sweep_plan` of a 1-D sweep ('inbank' from column 0)."""
+    return fs.sweep_plan(precision, fast, strategy, c, M, rps or M, P, d,
+                         inbank_cols=(0, c) if strategy == "inbank" else None, **kw)
 
 
 @pytest.mark.parametrize("P", [1, 127, 4096, 4097, 8192 + 37, 65536, 65536 + 37,
                                524160, 10 ** 6])
 def test_split_plan_boundaries(P):
-    plan = fs.split_plan(P)
+    plan = _plan(P).splits
     assert plan[0][0] == 0 and plan[-1][1] == P
     assert all(a[1] == b[0] for a, b in zip(plan, plan[1:]))
     assert len(plan) <= fs.MAX_SPLITS
@@ -56,9 +64,12 @@ def test_split_plan_boundaries(P):
     ("default", "mxu", 16, None, False),
 ])
 def test_split_plan_variants(precision, strategy, c, fast, split):
-    plan = fs.split_plan(65536, precision, strategy, c, fast)
-    assert (len(plan) > 1) == split
-    assert fs.splits_bank(precision, strategy, c, fast) == split
+    """The loops of the fp32 exp2 split the bank axis (K1's, K2's
+    warp-specialised one); the bf16 exponential and the split-dot loop
+    run one split."""
+    plan = _plan(65536, precision, strategy, c, fast, d=9 * c)
+    assert (len(plan.splits) > 1) == split == (plan.grid[2] > 1)
+    assert (plan.loop in ("k1", "k2_ws")) == split
 
 
 @pytest.mark.parametrize("name,precision,M,rps,grid", [
@@ -70,11 +81,11 @@ def test_split_plan_variants(precision, strategy, c, fast, split):
     ("flash_score_bf16x3", "high", 4 * 62 ** 2, 4 * 62 ** 2, (121, 1, 16)),
 ])
 def test_split_launch_grid(name, precision, M, rps, grid):
-    """One function gives a launch's split rows, split count and grid: the
-    kernels' block rows come from `_build.SPLIT_BQ` (their nvcc flags)."""
-    split_rows, nsplit, got = fs.split_launch(name, M, rps, 65536, precision)
-    assert (split_rows, nsplit, got) == (fs.SPLIT_ROWS, 16, grid)
-    assert fs.split_plan(65536, precision)[0] == (0, split_rows)
+    """One plan gives a launch's kernel, splits and grid: the loops' block
+    rows come from `_build.SPLIT_BQ` (their nvcc flags)."""
+    plan = _plan(65536, precision, M=M, rps=rps)
+    assert plan.kernel == name
+    assert (plan.splits[0], len(plan.splits), plan.grid) == ((0, fs.SPLIT_ROWS), 16, grid)
 
 
 @pytest.mark.parametrize("precision,strategy,c,fast", [
@@ -87,10 +98,10 @@ def test_split_launch_off_the_grid(precision, strategy, c, fast):
     whole chunk in one split from the carried state, on the same main loops:
     64-row query blocks (the split-dot loop's; K1's with the bf16
     exponential), one block per query block and seed."""
-    assert fs.split_launch(fs.KERNEL_OF[precision], 8192, 8192, 65536, precision, strategy,
-                           c, fast) == (65536, 1, (128, 1, 1))
-    assert fs.split_launch(fs.KERNEL_OF[precision], 8 * 784, 784, 65536, precision, strategy,
-                           c, fast) == (65536, 1, (13, 8, 1))
+    plan = _plan(65536, precision, strategy, c, fast)
+    assert (plan.splits, plan.grid) == (((0, 65536),), (128, 1, 1))
+    plan = _plan(65536, precision, strategy, c, fast, M=8 * 784, rps=784)
+    assert (plan.splits, plan.grid) == (((0, 65536),), (13, 8, 1))
 
 
 @pytest.mark.parametrize("precision,strategy,c,grid", [
@@ -100,20 +111,24 @@ def test_split_launch_off_the_grid(precision, strategy, c, fast):
 def test_split_launch_wide_grid(precision, strategy, c, grid):
     """K1's wide value sums after the fp32 exp2 take the per-row sums'
     split-bank grid: 128-row blocks, the same splits."""
-    assert fs.split_launch("flash_score", 8192, 8192, 65536, precision, strategy, c) == (
-        fs.SPLIT_ROWS, 16, grid)
+    plan = _plan(65536, precision, strategy, c)
+    assert (plan.kernel, plan.loop, plan.splits[0], len(plan.splits), plan.grid) == (
+        "flash_score", "k1", (0, fs.SPLIT_ROWS), 16, grid)
 
 
 def test_block_rows_are_the_kernels():
-    """The grid's block rows: K1 128 (64 with the bf16 exponential, one
-    split), K2's per-row sums 128 (the warp-specialised loop), and the
-    split-dot loop 64 for the 'default' kernel and K2's wide modes alike
-    (one loop, one -D flag)."""
-    assert fs.block_rows("flash_score", False, True) == 128
-    assert fs.block_rows("flash_score", True, False) == 64
-    assert fs.block_rows("flash_score_bf16x3", False, True) == 128
-    assert fs.block_rows("flash_score_bf16x3", False, False) == fs.block_rows(
-        "flash_score_fast", True, False) == 64
+    """The grid's block rows are the loop's: K1 128 (64 with the bf16
+    exponential, one split), K2's per-row sums 128 (the warp-specialised
+    loop), and the split-dot loop 64 for the 'default' kernel and K2's wide
+    modes alike (one loop, one -D flag)."""
+    assert _build.SPLIT_BQ == {"k1": 128, "k1_bf16_exp": 64, "k2_ws": 128, "split_dot": 64}
+    loops = {(p.kernel, p.loop, p.block_rows) for p in (
+        _plan(1000), _plan(1000, fast=True), _plan(1000, "high"),
+        _plan(1000, "high", "mxu", 16), _plan(1000, "default"))}
+    assert loops == {("flash_score", "k1", 128), ("flash_score", "k1_bf16_exp", 64),
+                     ("flash_score_bf16x3", "k2_ws", 128),
+                     ("flash_score_bf16x3", "split_dot", 64),
+                     ("flash_score_fast", "split_dot", 64)}
 
 
 @pytest.mark.parametrize("precision,strategy,c,fast,rows", [
@@ -129,18 +144,36 @@ def test_block_rows_follow_the_loop(precision, strategy, c, fast, rows):
     sums ('vpu', c <= 8, the fp32 exp2) take the warp-specialised loop's
     128, K2's wide modes ('mxu', 'inbank', c > 8) and the 'default' kernel
     the split-dot loop's 64, at any chunk length."""
-    name = fs.KERNEL_OF[fs._route(precision, precision == "default" if fast is None else fast)]
     for P in (1000, 65536):
-        _, _, grid = fs.split_launch(name, 8192, 8192, P, precision, strategy, c, fast)
-        assert grid[0] == 8192 // rows
+        plan = _plan(P, precision, strategy, c, fast)
+        assert plan.loop == ("k2_ws" if rows == 128 else "split_dot")
+        assert plan.block_rows == rows and plan.grid[0] == 8192 // rows
 
 
 def test_split_plan_ignores_queries_seeds_and_masks():
-    """The plan is a function of P and the variant: a K5 launch and the
-    one-seed launches it stands for, masked or not, split alike."""
-    sig = fs.split_plan.__code__.co_varnames[:fs.split_plan.__code__.co_argcount]
-    assert sig == ("P", "precision", "strategy", "c", "fast_exp")
-    assert fs.split_plan(65536) == fs.split_plan(65536, "highest", "vpu", 3, False)
+    """The split ranges are a function of P and the variant: a K5 launch and
+    the one-seed launches it stands for, masked or not, at any number of
+    query rows, split alike."""
+    for precision, strategy, c in (("highest", "vpu", 3), ("highest", "mxu", 16),
+                                   ("high", "vpu", 3), ("default", "vpu", 3)):
+        for P in (1000, 65536 + 37):
+            plans = [_plan(P, precision, strategy, c, M=M, rps=rps, per_seed=rps < M,
+                           prune=prune)
+                     for M, rps in ((8192, 8192), (8192, 1024), (7, 7), (8 * 784, 784))
+                     for prune in (False, True) if not (prune and rps < M)]
+            assert len({p.splits for p in plans}) == 1
+            assert {p.key.endswith(fs.PER_SEED) for p in plans} == {False, True}
+
+
+def test_sweep_plan_is_cached_per_shape():
+    """A plan is made once per shape: the same arguments return the same
+    object from the cache."""
+    args = ("high", None, "vpu", 3, 8192, 1024, 65536, 27, True, False, None)
+    first = fs.sweep_plan(*args)
+    hits = fs.sweep_plan.cache_info().hits
+    assert fs.sweep_plan(*args) is first
+    assert fs.sweep_plan.cache_info().hits == hits + 1
+    assert fs.sweep_plan.cache_info().maxsize == fs.PLAN_CACHE
 
 
 def _kernel_inputs(M, d, P, c, seed, S=1):
@@ -168,7 +201,7 @@ def _split_sweep(q, bias, bank, values, dotscale, m, s1, s2, precision="highest"
     the plan from the empty state, then the merge."""
     M, c = q.shape[0], s2.shape[1]
     parts = []
-    for p0, p1 in fs.split_plan(bank.shape[0], precision, strategy, c, fast_exp):
+    for p0, p1 in _plan(bank.shape[0], precision, strategy, c, fast_exp, d=q.shape[1]).splits:
         mk = None
         if prune_mask is not None:
             mk = prune_mask[:, p0 // fs.PRUNE_BLOCK: -(-p1 // fs.PRUNE_BLOCK)]
@@ -209,7 +242,7 @@ def test_plain_split_and_merge_equals_unsplit(precision, case):
     kw = dict(precision=precision, prune_mask=mask)
     split = _split_sweep(q, bias, bank, values, ds, *state, **kw)
     whole = fs.sweep_plain(q, bias, bank, values, ds, *state, **kw)
-    assert len(fs.split_plan(P, precision)) == 3
+    assert len(_plan(P, precision).splits) == 3
     for a, b in zip(_invariants(split), _invariants(whole)):
         assert _rel(a, b) <= 1e-6
     if mask is not None:  # the all-skipped query block keeps its state bit for bit
@@ -288,9 +321,10 @@ def test_split_planes_match_split_bf16(d):
 
 
 def test_scratch_numel():
-    assert fs.scratch_numel("flash_score", 16, 8192, 65536, 867, 3) == 16 * 8192 * 5
-    n = fs.scratch_numel("flash_score_bf16x3", 3, 7, 100, 27, 3)
-    assert n == -(-3 * 7 * 5 // 4) * 4 + (7 + 100) * 32
+    assert _plan(65536, d=867).scratch_numel == 16 * 8192 * 5
+    P = 2 * fs.SPLIT_ROWS + 100  # three splits
+    n = _plan(P, "high", M=7).scratch_numel
+    assert n == -(-3 * 7 * 5 // 4) * 4 + (7 + P) * 32
 
 
 @pytest.mark.parametrize("c", [16, 256])
@@ -298,12 +332,13 @@ def test_scratch_numel_wide_and_default(c):
     """K1's wide partials [nsplit, M, 2 + c]; K1 with the bf16 exponential
     none (its state is written in place); the 'default' kernel and K2's
     wide sums one split's state rows, then the planes of queries and chunk."""
-    assert fs.scratch_numel("flash_score", 16, 8192, 65536, 4624, c) == 16 * 8192 * (2 + c)
-    assert fs.scratch_numel("flash_score", 1, 8192, 65536, 4624, c, fast_exp=True) == 0
+    assert _plan(65536, "highest", "mxu", c, d=4624).scratch_numel == 16 * 8192 * (2 + c)
+    assert _plan(65536, "highest", "mxu", c, True, d=4624).scratch_numel == 0
     planes = (8192 + 65536) * 4640
-    for name in ("flash_score_fast", "flash_score_bf16x3"):
-        assert fs.scratch_numel(name, 1, 8192, 65536, 4624, c) == 8192 * (2 + c) + planes
-    assert fs.scratch_numel("flash_score_fast", 1, 7, 100, 27, 3) == 36 + (7 + 100) * 32
+    for precision in ("default", "high"):
+        plan = _plan(65536, precision, "mxu", c, d=4624)
+        assert plan.scratch_numel == 8192 * (2 + c) + planes
+    assert _plan(100, "default", M=7).scratch_numel == 36 + (7 + 100) * 32
 
 
 @pytest.mark.parametrize("precision,strategy", [

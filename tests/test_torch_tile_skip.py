@@ -99,9 +99,9 @@ def _logits(q, bias, bank, dotscale, precision, fast):
 
 def _walk(skip):
     """A plain model of the kernels' walk with `fs.sweep_kernel`'s signature:
-    each seed's rows apart; the kernel's split plan (`fs.split_plan`; each
+    each seed's rows apart; the kernel's split plan (`fs.sweep_plan`; each
     split from the empty state, folded into the carried state by
-    `fs.merge_splits_plain`, where the sweep splits the bank axis); one
+    `fs.merge_splits_plain`, where its loop splits the bank axis); one
     online-softmax step per tile of TILE rows, in order (`fs._online_step`,
     or `fs._fast_tiles` over one tile for the bf16 exponential, which
     re-bases m there). With `skip`, a seed's dead tiles are left out."""
@@ -109,15 +109,16 @@ def _walk(skip):
     def sweep(q, bias, bank, values, dotscale, m, s1, s2, precision="highest",
               strategy="vpu", col0=-1, prune_mask=None, fast_exp=None):
         assert prune_mask is None
-        fast = precision == "default" if fast_exp is None else bool(fast_exp)
-        split = precision != "highest"
         bias2 = bias.reshape(-1, bank.shape[0])
         S, P, c = bias2.shape[0], bank.shape[0], s2.shape[1]
         rps = q.shape[0] // S
+        plan = tfs.sweep_plan(precision, fast_exp, strategy, c, q.shape[0], rps, P, q.shape[1],
+                              bias.ndim == 2, False,
+                              (col0, c) if strategy == "inbank" else None)
+        fast, split = plan.fast, plan.tier != "highest"
         logits = _logits(q, bias, bank, dotscale, precision, fast)
         v = bank[:, col0:col0 + c] if strategy == "inbank" else values
         live = tfs.live_tiles_plain(bias2)
-        plan = tfs.split_plan(P, precision, strategy, c, fast)
 
         def run(state, rows, s, p0, p1):
             for t0 in range(p0, p1, TILE):
@@ -137,11 +138,11 @@ def _walk(skip):
         for s in range(S):
             rows = slice(s * rps, (s + 1) * rps)
             state = (m[rows], s1[rows], s2[rows])
-            if tfs.splits_bank(precision, strategy, c, fast):
+            if plan.loop in ("k1", "k2_ws"):  # the loops that split the bank axis
                 empty = (torch.full((rps,), tfs.NEG_INF), torch.zeros(rps),
                          torch.zeros(rps, c))
                 state = tfs.merge_splits_plain(
-                    state, [run(empty, rows, s, p0, p1) for p0, p1 in plan])
+                    state, [run(empty, rows, s, p0, p1) for p0, p1 in plan.splits])
             else:
                 state = run(state, rows, s, 0, P)
             out.append(state)

@@ -73,10 +73,9 @@ def test_els_takes_mxu_at_16_channels():
     for precision in ("highest", "high", "default"):
         for k in (3, 9, 17):
             assert tels._value_kw(precision, k * k * C, (k * k // 2) * C, C) == {}
-    v = torch.zeros(1, C)
-    assert tfs._strategy(False, "auto", v, None, 9 * C, 1 << 20) == ("mxu", C)
-    assert tfs._strategy(True, "auto", v, None, 9 * C, 65536) == ("mxu", C)
-    assert tfs._strategy(True, "auto", v, None, 9 * C, 1 << 18) == ("mxu1", C)
+    for fast, P, strategy in ((False, 1 << 20, "mxu"), (True, 65536, "mxu"),
+                              (True, 1 << 18, "mxu1")):
+        assert tfs.sweep_plan("high", fast, "auto", C, 8, 8, P, 9 * C).strategy == strategy
 
 
 @pytest.mark.parametrize("mode", MODES)
